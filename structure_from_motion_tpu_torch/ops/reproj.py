@@ -1,0 +1,61 @@
+"""Reprojection residuals + closed-form Jacobians (port of
+``structure_from_motion_tpu/ops/reproj.py``).
+
+Residuals in normalised camera coordinates for a camera ``[C (3), q (4)]``;
+d vec(R)/d q is the raw (unnormalised) quadratic form; residual sign is
+``measurement - projection``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from structure_from_motion_tpu_torch.utils.rotations import (
+    drotation_dquat,
+    quat_to_rotation,
+)
+
+
+def _safe_depth(z: torch.Tensor) -> torch.Tensor:
+    return torch.where(z.abs() < 1e-12, torch.full_like(z, 1e-12), z)
+
+
+def project_normalized(C: torch.Tensor, q: torch.Tensor, X: torch.Tensor):
+    """World point(s) -> (normalised coords (..., 2), depth (...,)); all
+    arguments broadcast."""
+    R = quat_to_rotation(q)
+    d = X - C
+    x = (R.transpose(-1, -2) @ d[..., None])[..., 0]  # R^T d
+    depth = x[..., 2]
+    return x[..., :2] / _safe_depth(depth)[..., None], depth
+
+
+def batched_residual_jacobians(C, q, X, meas):
+    """(O,3),(O,4),(O,3),(O,2) -> res (O,2), J_cam (O,2,7), J_pt (O,2,3)."""
+    R = quat_to_rotation(q)  # (O, 3, 3)
+    d = X - C
+    x = torch.einsum("oji,oj->oi", R, d)  # R^T d
+    z = _safe_depth(x[..., 2])
+    u = x[..., 0] / z
+    v = x[..., 1] / z
+    res = meas - torch.stack([u, v], dim=-1)
+    one, zero = torch.ones_like(u), torch.zeros_like(u)
+    dproj_dx = torch.stack(
+        [torch.stack([one, zero, -u], dim=-1), torch.stack([zero, one, -v], dim=-1)],
+        dim=-2,
+    ) / z[..., None, None]  # (O, 2, 3)
+    dproj_dX = torch.einsum("oik,ojk->oij", dproj_dx, R)  # dx/dX = R^T
+    dRdq = drotation_dquat(q).reshape(*q.shape[:-1], 3, 3, 4)
+    dx_dq = torch.einsum("ojik,oj->oik", dRdq, d)  # (O, 3, 4)
+    dproj_dq = torch.einsum("oik,okl->oil", dproj_dx, dx_dq)  # (O, 2, 4)
+    J_cam = torch.cat([-dproj_dX, dproj_dq], dim=-1)
+    return res, J_cam, dproj_dX
+
+
+def pixel_residuals(K, C, q, X, uv):
+    """Pixel residuals (meas - proj) and depths; broadcasts over leading axes."""
+    proj_n, depth = project_normalized(C, q, X)
+    fx, fy = K[..., 0, 0], K[..., 1, 1]
+    cx, cy = K[..., 0, 2], K[..., 1, 2]
+    px = torch.stack([proj_n[..., 0] * fx + cx, proj_n[..., 1] * fy + cy], dim=-1)
+    return uv - px, depth
