@@ -1,9 +1,10 @@
-"""Carry an engine's state across packages as a dict of numpy arrays.
+"""Carry an engine's state across packages as numpy arrays.
 
-The dict uses the field names of ``structure_from_motion_tpu.models.tracks.
-SfMState``, which is also what ``jax.device_get(state)._asdict()`` gives, so
-a JAX engine's state can be handed to the port (and back) and both packages
-can run the next stage on the same state.
+The state dict uses the field names of ``structure_from_motion_tpu.models.
+tracks.SfMState``, which is also what ``jax.device_get(state)._asdict()``
+gives, so a JAX engine's state can be handed to the port (and back) and both
+packages can run the next stage on the same state. Eviction archives (slide
+mode) cross as lists of per-record field dicts of numpy arrays.
 """
 
 from __future__ import annotations
@@ -12,7 +13,7 @@ import numpy as np
 import torch
 
 from structure_from_motion_tpu_torch.device import DTYPE
-from structure_from_motion_tpu_torch.models.tracks import SfMState
+from structure_from_motion_tpu_torch.models.tracks import EvictionRecord, SfMState
 
 
 def state_from_numpy(d: dict, device) -> SfMState:
@@ -35,3 +36,16 @@ def state_from_numpy(d: dict, device) -> SfMState:
 def state_to_numpy(state: SfMState) -> dict:
     """:class:`SfMState` -> dict of host numpy arrays."""
     return {k: v.detach().cpu().numpy() for k, v in state._asdict().items()}
+
+
+def archive_from_numpy(records) -> list:
+    """Eviction records of either package (NamedTuples with the
+    :class:`EvictionRecord` fields) -> the port's host-numpy records."""
+    return [EvictionRecord(*(np.array(getattr(r, f)) for f in EvictionRecord._fields))
+            for r in records]
+
+
+def archive_to_numpy(archive) -> list:
+    """The port's records -> list of ``{field: numpy array}`` dicts (e.g.
+    ``structure_from_motion_tpu.models.tracks.EvictionRecord(**d)``)."""
+    return [{f: np.array(getattr(r, f)) for f in EvictionRecord._fields} for r in archive]

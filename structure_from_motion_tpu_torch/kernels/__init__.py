@@ -42,6 +42,10 @@ _SIGNATURES = {
     "sfm_match_top2": (_P, _P, _P, _P, _I, _I, _P, _P, _P, _P),
     # cam, C, q, X, uv, w, O, V, huber, dtd, wblk, bp, partial, cam_out, stream
     "sfm_ba_blocks": (_P, _P, _P, _P, _P, _P, _I, _I, _F, _P, _P, _P, _P, _P, _P),
+    # cam, w21, x, O, V, t, stream
+    "sfm_expand_cam": (_P, _P, _P, _I, _I, _P, _P),
+    # w21, y, perm, mask, O, V, rows, coup, stream
+    "sfm_reduce_cam": (_P, _P, _P, _P, _I, _I, _I, _P, _P),
 }
 
 

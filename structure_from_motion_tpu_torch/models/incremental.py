@@ -16,12 +16,17 @@ batched call: all views' descriptors go through kernel B3 in one launch and
 the F-gate RANSAC carries a leading view axis. Random draws come from
 ``torch.Generator``s seeded from ``(seed, frame, stream)``.
 
-Not ported yet (they raise): keyframe gating, ``window_mode="slide"``,
-lens distortion, checkpoints, ``finalize*`` and sharded BA.
+``window_mode="slide"`` evicts the oldest view once the window is full and
+keeps its record on the host; :meth:`IncrementalSfM.finalize_global` solves
+the whole trajectory from that archive plus the live window
+(``models/global_ba.py``), and checkpoints use the JAX package's npz
+layout. Not ported yet (they raise): keyframe gating, lens distortion and
+sharded BA.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import numpy as np
@@ -29,7 +34,7 @@ import torch
 
 from structure_from_motion_tpu.config import PipelineConfig
 from structure_from_motion_tpu_torch.device import generator, stable_topk
-from structure_from_motion_tpu_torch.models import tracks
+from structure_from_motion_tpu_torch.models import global_ba, tracks
 from structure_from_motion_tpu_torch.models.tracks import SfMState
 from structure_from_motion_tpu_torch.ops.ba import BAObservations, BAState, run_bundle_adjustment
 from structure_from_motion_tpu_torch.ops.campose import (
@@ -392,14 +397,13 @@ class IncrementalSfM:
         if config.frontend.max_keypoints != config.capacity.max_keypoints:
             raise ValueError("frontend.max_keypoints must equal capacity.max_keypoints")
         unported = {
-            "window_mode='slide'": config.window_mode == "slide",
             "keyframe gating": config.keyframe_min_flow_px > 0,
             "lens distortion": any(config.distortion),
             "sharded BA": config.ba_num_shards > 1,
         }
         missing = [name for name, on in unported.items() if on]
         if missing:
-            raise NotImplementedError(f"not ported yet: {', '.join(missing)}")
+            raise NotImplementedError(f"not ported yet (ROADMAP A12/A13): {', '.join(missing)}")
         self.config = config
         self.device = torch.device(device)
         self.state = tracks.init_state(config.capacity, np.asarray(K, np.float32),
@@ -408,16 +412,27 @@ class IncrementalSfM:
         self.seed = seed
         self._frame = 0
         self._window = min(config.capacity.max_views, config.window_size)
+        # slide mode's evicted views, oldest first, as host-numpy records
+        self._archive: list = []
         self.keyframe_indices: list = []
 
     def _begin_frame(self, v: int, K):
-        """Slot for frame v, or None past the window ("stop" mode)."""
-        if v >= self._window:
+        """Window policy: the slot for frame v, or None past the window in
+        "stop" mode. In "slide" mode a full window evicts its oldest view
+        (archived on the host) and frame v takes the last slot. A per-frame
+        ``K`` is written at the slot."""
+        if v < self._window:
+            slot = v
+        elif self.config.window_mode != "slide":
             return None
+        else:
+            self.state, rec = tracks.evict_oldest_view(self.state)
+            self._archive.append(tracks.EvictionRecord(*(a.cpu().numpy() for a in rec)))
+            slot = self._window - 1
         if K is not None:
             K = torch.as_tensor(np.asarray(K, np.float32))
-            self.state = tracks.set_view_K(self.state, v, K)
-        return v
+            self.state = tracks.set_view_K(self.state, slot, K)
+        return slot
 
     def process_image(self, img, K=None) -> dict:
         """One frame from a raw (H, W) image; ``K`` optional per-frame
@@ -452,16 +467,85 @@ class IncrementalSfM:
         info["reprojection_px"] = float(info["reprojection_px"])
         return info
 
+    # -- checkpointing -------------------------------------------------------
+    def save_checkpoint(self, path: str) -> None:
+        """Persist the whole engine: state, frame counter, eviction archive
+        and keyframe bookkeeping (the JAX package's npz layout)."""
+        from structure_from_motion_tpu_torch.utils import checkpoint
+
+        checkpoint.save_state(path, self.state, self._frame, archive=self._archive,
+                              keyframes=(self.keyframe_indices, self._frame))
+
+    def load_checkpoint(self, path: str) -> int:
+        """Restore a checkpoint of either package; returns the resume frame."""
+        from structure_from_motion_tpu_torch.utils import checkpoint
+
+        self.state, self._frame, self._archive, kf = checkpoint.load_state(path, self.device)
+        self.keyframe_indices = kf[0]
+        return self._frame
+
+    # -- results -------------------------------------------------------------
+    def finalize(self, iterations: int = 10):
+        """Bundle adjustment of the live window with ``iterations`` LM
+        iterations (the per-frame BA runs ``config.ba.iterations``).
+        Returns the per-iteration costs."""
+        cfg = dataclasses.replace(self.config,
+                                  ba=dataclasses.replace(self.config.ba, iterations=iterations))
+        self.state, costs, _, _, _ = _ba_stage(self.state, cfg)
+        return costs.cpu().numpy()
+
+    def finalize_global(self, iterations: int = 20, num_shards: int = 1,
+                        min_obs: int = 2) -> dict:
+        """Bundle adjustment over every camera of the run: the eviction
+        archive plus the live window, reassembled by global point id
+        (``models/global_ba.py``). Writes the refined archived poses, live
+        poses and live map back. Returns the problem size, the
+        per-iteration costs, the tiers, the slot count and the PCG
+        iterations of each LM iteration (empty for a dense solve)."""
+        n_live = min(self._frame, self._window)
+        prob = global_ba.build_global_problem(self.state, self._archive, n_live, min_obs=min_obs)
+        stats: dict = {}
+        out, costs = global_ba.solve_global(prob, self.config.ba, iterations=iterations,
+                                            num_shards=num_shards, stats=stats)
+        A = len(self._archive)
+        C, q = out.C.cpu().numpy(), out.q.cpu().numpy()
+        self._archive = [r._replace(C=C[i], q=q[i]) for i, r in enumerate(self._archive)]
+        cam_C, cam_q = self.state.cam_C.clone(), self.state.cam_q.clone()
+        cam_C[:n_live] = out.C[A:A + n_live]
+        cam_q[:n_live] = out.q[A:A + n_live]
+        # refined points back into their live map slots (dead points have
+        # none; their refinement lives only in the solved problem)
+        sel = prob.gids[:prob.n_points]
+        live_gid = self.state.pt_gid.cpu().numpy()
+        j = np.clip(np.searchsorted(sel, np.clip(live_gid, 0, None)), 0,
+                    max(prob.n_points - 1, 0))
+        ok = self.state.pt_valid.cpu().numpy() & (live_gid >= 0)
+        ok = ok & (sel[j] == live_gid) if prob.n_points else np.zeros_like(ok)
+        points = self.state.points.clone()
+        dev = points.device
+        rows = torch.as_tensor(np.nonzero(ok)[0]).to(dev)
+        points[rows] = out.X[torch.as_tensor(j[ok]).to(dev)]
+        self.state = self.state._replace(cam_C=cam_C, cam_q=cam_q, points=points)
+        return dict(stats, costs=costs, n_cams=prob.n_cams, n_points=prob.n_points,
+                    n_obs=prob.n_obs, max_track_len=prob.max_track_len)
+
     def reprojection_error(self) -> float:
         """Mean pixel reprojection error over all observations."""
         return float(pipeline_reprojection_error(self.state))
 
     def poses(self):
         """(locs (F, 3), rots (F, 3, 3)) numpy, cam-to-world, for every
-        processed frame."""
+        processed frame: the archived (evicted) views, then the live
+        window."""
         n = min(self._frame, self._window)
-        return (self.state.cam_C[:n].cpu().numpy(),
-                quat_to_rotation(self.state.cam_q[:n]).cpu().numpy())
+        C = self.state.cam_C[:n].cpu().numpy()
+        R = quat_to_rotation(self.state.cam_q[:n]).cpu().numpy()
+        if self._archive:
+            Ca = np.stack([np.asarray(r.C) for r in self._archive])
+            qa = torch.as_tensor(np.stack([np.asarray(r.q) for r in self._archive]))
+            C = np.concatenate([Ca, C])
+            R = np.concatenate([quat_to_rotation(qa).numpy(), R])
+        return C, R
 
     def map_points(self):
         return self.state.points[self.state.pt_valid].cpu().numpy()

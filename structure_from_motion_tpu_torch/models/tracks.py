@@ -204,7 +204,8 @@ def matched_pair_arrays(state: SfMState, u: int, v: int):
 
 def compact_state(state: SfMState) -> SfMState:
     """Stable-compact the point and observation stores and remap every
-    ``tri_index``/``obs_pt`` reference (used by :func:`prune_observations`)."""
+    ``tri_index``/``obs_pt`` reference (used by :func:`prune_observations`
+    and :func:`evict_oldest_view`)."""
     M = state.points.shape[0]
     O = state.obs_cam.shape[0]
     pt_valid = state.pt_valid
@@ -228,6 +229,79 @@ def compact_state(state: SfMState) -> SfMState:
         obs_valid=_set_drop(torch.zeros_like(state.obs_valid), dest_o, keep_obs),
         num_obs=keep_obs.sum(dtype=torch.int32),
     )
+
+
+class EvictionRecord(NamedTuple):
+    """What :func:`evict_oldest_view` keeps of the dropped view, enough to
+    rebuild a whole-trajectory BA problem later: its pose, intrinsics, and
+    its observations keyed by persistent global point id with each point's
+    position at eviction. Fixed shape (keypoint capacity Kk). The engine
+    keeps records as host numpy arrays."""
+
+    C: torch.Tensor  # (3,)
+    q: torch.Tensor  # (4,)
+    K: torch.Tensor  # (3, 3)
+    gid: torch.Tensor  # (Kk,) int32 global point id per observation (-1 empty)
+    uv: torch.Tensor  # (Kk, 2) pixel coordinates in the evicted view
+    X: torch.Tensor  # (Kk, 3) observed point's position at eviction
+    valid: torch.Tensor  # (Kk,) bool
+
+
+def _shift0(x: torch.Tensor, fill) -> torch.Tensor:
+    """Drop row 0, shift every row down by one, fill the last row."""
+    return torch.cat([x[1:], torch.full_like(x[:1], fill)])
+
+
+def evict_oldest_view(state: SfMState):
+    """Slide the window: drop view 0 and shift every view down by one (the
+    "prior views have smaller indices" invariant every stage relies on).
+    Returns (state, :class:`EvictionRecord`): the evicted view's
+    observations are archived, then dropped; points left with no
+    observation die; the stores are compacted and every reference
+    remapped."""
+    V, Kk = state.tri_index.shape
+    M = state.points.shape[0]
+    ev_mask = state.obs_valid & (state.obs_cam == 0)
+    ev_rank = torch.cumsum(ev_mask.to(torch.int32), 0) - 1
+    ev_dst = torch.where(ev_mask, ev_rank.clamp(max=Kk), Kk).long()  # Kk drops
+    pt = state.obs_pt.long()
+    dev = state.points.device
+    rec = EvictionRecord(
+        C=state.cam_C[0].clone(),
+        q=state.cam_q[0].clone(),
+        K=state.K[0].clone(),
+        gid=_set_drop(torch.full((Kk,), -1, dtype=torch.int32, device=dev), ev_dst,
+                      state.pt_gid[pt]),
+        uv=_set_drop(torch.zeros((Kk, 2), dtype=state.obs_uv.dtype, device=dev), ev_dst,
+                     state.obs_uv),
+        X=_set_drop(torch.zeros((Kk, 3), dtype=state.points.dtype, device=dev), ev_dst,
+                    state.points[pt]),
+        valid=_set_drop(torch.zeros(Kk, dtype=torch.bool, device=dev), ev_dst, ev_mask),
+    )
+    # the vacated last slot inherits the newest K (overwritten when the next
+    # frame brings its own)
+    K_rows = torch.cat([state.K[1:], state.K[-1:]])
+    match_table = torch.full_like(state.match_table, -1)
+    match_table[: V - 1, : V - 1] = state.match_table[1:, 1:]
+    keep_obs = state.obs_valid & (state.obs_cam != 0)
+    counts = torch.zeros(M, dtype=torch.int32, device=dev)
+    counts.index_add_(0, torch.where(keep_obs, pt, M - 1), keep_obs.to(torch.int32))
+    cam_q = torch.cat([state.cam_q[1:], state.cam_q.new_tensor([[1.0, 0, 0, 0]])])
+    state = state._replace(
+        kp_xy=_shift0(state.kp_xy, 0),
+        kp_desc=_shift0(state.kp_desc, 0),
+        kp_valid=_shift0(state.kp_valid, False),
+        match_table=match_table,
+        tri_index=_shift0(state.tri_index, -1),
+        cam_C=_shift0(state.cam_C, 0),
+        cam_q=cam_q,
+        cam_valid=_shift0(state.cam_valid, False),
+        pt_valid=state.pt_valid & (counts > 0),
+        obs_cam=(state.obs_cam - 1).to(torch.int32),
+        obs_valid=keep_obs,
+        K=K_rows,
+    )
+    return compact_state(state), rec
 
 
 def prune_observations(state: SfMState, max_err_px: float):

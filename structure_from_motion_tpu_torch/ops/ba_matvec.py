@@ -1,0 +1,99 @@
+"""Kernels B5 and B6: the two camera halves of the PCG Schur matvec.
+
+Port of ``structure_from_motion_tpu/ops/ba_matvec_pallas.py``. One product
+of the reduced camera system with ``x`` (``ops/ba.py::_solve_pcg``) runs
+
+    B5 expand:  t_o    = W_o^T x[cam_o]                  (O, 3)
+    (point sum, D^-1, point broadcast: y_o per slot)
+    B6 reduce:  coup_v = sum_{o: cam_o = v} W_o y_o      (V, 7)
+
+``W`` is B4's row-major ``(O, 7, 3)`` output, read as ``(O, 21)`` with
+component ``i*3+c`` (the JAX package's ``w21`` transposed). B6 walks the
+camera-major view of the stream that ``ops/ba.compute_cam_ell`` builds
+once per BA call: ``perm[v*rows + r]`` is camera v's r-th observation,
+``mask`` marks the filled slots. :func:`expand_cam` and :func:`reduce_cam`
+launch ``csrc/ba_matvec.cu`` for CUDA tensors and run the plain versions
+for CPU tensors.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from structure_from_motion_tpu_torch import kernels
+
+
+def expand_cam_reference(cam: torch.Tensor, w21: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Plain version: t (O, 3) with t[o] = W_o^T x[cam_o]; a camera id
+    outside [0, V) gives a zero row (the one-hot semantics of the TPU
+    kernel)."""
+    V = x.shape[0]
+    ok = (cam >= 0) & (cam < V)
+    xo = x[cam.long().clamp(0, V - 1)] * ok[:, None].to(x.dtype)
+    return torch.einsum("oic,oi->oc", w21.reshape(-1, 7, 3), xo)
+
+
+def reduce_cam_reference(w21: torch.Tensor, y: torch.Tensor, perm: torch.Tensor,
+                         mask: torch.Tensor, n_views: int) -> torch.Tensor:
+    """Plain version: coup (V, 7) with coup[v] = sum of W_o y_o over the
+    filled slots of camera v's rows of the camera-major view."""
+    z = torch.einsum("oic,oc->oi", w21.reshape(-1, 7, 3), y)
+    g = z[perm.long()] * mask[:, None].to(z.dtype)
+    return g.reshape(n_views, -1, 7).sum(1)
+
+
+def _check(name: str, t: torch.Tensor, shape: tuple, dtype, dev) -> None:
+    if t.shape != shape or t.dtype != dtype or not t.is_contiguous() or t.device != dev:
+        raise ValueError(f"{name} must be a contiguous {tuple(shape)} {dtype} tensor on {dev}")
+
+
+def expand_cam(cam: torch.Tensor, w21: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """t (O, 3) = W_o^T x[cam_o]; same result as :func:`expand_cam_reference`."""
+    if cam.device.type == "cpu":
+        return expand_cam_reference(cam, w21, x)
+    if cam.device.type != "cuda":
+        raise ValueError(f"expand_cam: unsupported device {cam.device}")
+    O, V = cam.shape[0], x.shape[0]
+    _check("expand_cam: cam", cam, (O,), torch.int32, cam.device)
+    _check("expand_cam: w21", w21, (O, 21), torch.float32, cam.device)
+    _check("expand_cam: x", x, (V, 7), torch.float32, cam.device)
+    if O == 0 or V < 1:
+        raise ValueError("expand_cam: need O > 0 observations and V > 0 cameras")
+    t = torch.empty((O, 3), dtype=torch.float32, device=cam.device)
+    rc = kernels.library().sfm_expand_cam(
+        cam.data_ptr(), w21.data_ptr(), x.data_ptr(), O, V, t.data_ptr(),
+        kernels.stream_ptr(cam.device),
+    )
+    kernels.check(rc, "sfm_expand_cam")
+    expand_cam.launches += 1
+    return t
+
+
+def reduce_cam(w21: torch.Tensor, y: torch.Tensor, perm: torch.Tensor, mask: torch.Tensor,
+               n_views: int) -> torch.Tensor:
+    """coup (V, 7) = per-camera sum of W_o y_o; same result as
+    :func:`reduce_cam_reference`, and the same bits on every run."""
+    if w21.device.type == "cpu":
+        return reduce_cam_reference(w21, y, perm, mask, n_views)
+    if w21.device.type != "cuda":
+        raise ValueError(f"reduce_cam: unsupported device {w21.device}")
+    O, S = w21.shape[0], perm.shape[0]
+    dev = w21.device
+    _check("reduce_cam: w21", w21, (O, 21), torch.float32, dev)
+    _check("reduce_cam: y", y, (O, 3), torch.float32, dev)
+    _check("reduce_cam: perm", perm, (S,), torch.int32, dev)
+    _check("reduce_cam: mask", mask, (S,), torch.bool, dev)
+    if n_views < 1 or S % n_views:
+        raise ValueError(f"reduce_cam: {S} camera-major slots do not split into {n_views} cameras")
+    coup = torch.empty((n_views, 7), dtype=torch.float32, device=dev)
+    rc = kernels.library().sfm_reduce_cam(
+        w21.data_ptr(), y.data_ptr(), perm.data_ptr(), mask.data_ptr(), O, n_views,
+        S // n_views, coup.data_ptr(), kernels.stream_ptr(dev),
+    )
+    kernels.check(rc, "sfm_reduce_cam")
+    reduce_cam.launches += 1
+    return coup
+
+
+expand_cam.launches = 0
+reduce_cam.launches = 0

@@ -2,9 +2,11 @@
 
 Closed forms for 3x3 systems keep the tiny fixed-size solves elementwise;
 null vectors, Cholesky and small dense solves go to ``torch.linalg``, as the
-JAX package leaves them to XLA. The JAX package's accelerator-only null
-vector and polar factor (``nullspace_gram``, ``polar_rotation_3x3``) are not
-ported: on the H100 the SVD is faster and more accurate (``ops/pnp.py``).
+JAX package leaves them to XLA; :func:`pcg_solve` is the matrix-free
+solver of the large reduced camera systems. The JAX package's
+accelerator-only null vector and polar factor (``nullspace_gram``,
+``polar_rotation_3x3``) are not ported: on the H100 the SVD is faster and
+more accurate (``ops/pnp.py``).
 The ``*_ex`` variants are used so that no solve synchronises the device to
 check for a singular matrix.
 """
@@ -69,3 +71,39 @@ def solve_psd(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     by Cholesky."""
     L, _ = torch.linalg.cholesky_ex(A)
     return torch.cholesky_solve(b[..., None], L)[..., 0]
+
+
+def pcg_solve(matvec, b: torch.Tensor, iterations: int, rtol: float = 1e-6, precond=None,
+              cg_iters: list | None = None) -> torch.Tensor:
+    """Matrix-free preconditioned conjugate gradients with early exit.
+
+    ``matvec`` maps ``x -> A x``; ``precond`` applies an approximate inverse
+    to a residual (e.g. block-Jacobi 7x7 inverses). The loop stops when
+    ``|r.z| <= rtol**2 |r0.z0|`` or after ``iterations`` steps, and returns
+    the iterate the JAX package's ``while_loop`` returns. The stop test is
+    one host read per iteration. ``cg_iters``, when given, receives the
+    number of iterations run.
+    """
+    apply_m = precond if precond is not None else (lambda r: r)
+    x = torch.zeros_like(b)
+    r = b
+    z = apply_m(b)
+    p = z
+    rz = (b * z).sum()
+    stop = rtol**2 * rz.abs()
+    i = 0
+    while i < iterations and bool(rz.abs() > stop):
+        Ap = matvec(p)
+        denom = (p * Ap).sum()
+        alpha = torch.where(denom.abs() > 0, rz / denom, 0.0)
+        x = x + alpha * p
+        r = r - alpha * Ap
+        z = apply_m(r)
+        rz_new = (r * z).sum()
+        beta = torch.where(rz.abs() > 0, rz_new / rz, 0.0)
+        p = z + beta * p
+        rz = rz_new
+        i += 1
+    if cg_iters is not None:
+        cg_iters.append(i)
+    return x

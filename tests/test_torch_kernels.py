@@ -1,5 +1,5 @@
-"""The four kernels of the PyTorch port's main path, held against the JAX
-package's Pallas kernels (interpret mode on the CPU).
+"""The six kernels of the PyTorch port, held against the JAX package's
+Pallas kernels (interpret mode on the CPU).
 
 On a CPU tensor each wrapper runs its plain PyTorch version, so these tests
 check the plain versions' semantics; ``chip_smoke.py`` holds the CUDA
@@ -13,11 +13,19 @@ import torch
 from structure_from_motion_tpu.config import MatcherConfig
 from structure_from_motion_tpu.ops import features as JF
 from structure_from_motion_tpu.ops import matching as JM
+from structure_from_motion_tpu.ops.ba_matvec_pallas import pallas_expand_cam, pallas_reduce_cam
 from structure_from_motion_tpu.ops.ba_pallas import pallas_ba_blocks
 from structure_from_motion_tpu.ops.blur_pallas import pallas_blur_levels
 from structure_from_motion_tpu.ops.features_pallas import pallas_candidate_response
 from structure_from_motion_tpu_torch import kernels
-from structure_from_motion_tpu_torch.ops import ba_cuda, blur_cuda, features_cuda, matching
+from structure_from_motion_tpu_torch.ops import (
+    ba_cuda,
+    ba_matvec,
+    blur_cuda,
+    features_cuda,
+    matching,
+)
+from structure_from_motion_tpu_torch.ops.ba import compute_cam_ell
 
 T = torch.from_numpy
 
@@ -126,6 +134,38 @@ def test_ba_blocks_plain_matches_pallas():
         assert np.abs(g.numpy() - wv).max() <= 1e-3 * scale, name
 
 
+def _matvec_inputs(rng, O, V):
+    cam = rng.integers(0, V, O).astype(np.int32)
+    W = rng.normal(size=(O, 7, 3)).astype(np.float32)
+    x = rng.normal(size=(V, 7)).astype(np.float32)
+    y = rng.normal(size=(O, 3)).astype(np.float32)
+    valid = rng.random(O) < 0.9
+    return cam, W, x, y, valid
+
+
+@pytest.mark.parametrize("O", [1024, 1536])
+def test_ba_matvec_plain_matches_pallas(O):
+    """B5/B6 at V = 37 (the case of tests/test_global_ba.py:340-364): the
+    expand to atol 1e-5 (a 7-term dot product in another order), the reduce
+    to atol 1e-4 (up to ~O/V terms per camera in another order). B6 runs
+    over the camera-major view built by compute_cam_ell; invalid slots
+    enter neither side (their W rows are zero, as B4 writes them)."""
+    V = 37
+    cam, W, x, y, valid = _matvec_inputs(np.random.default_rng(O), O, V)
+    W[~valid] = 0.0
+    w21 = W.reshape(O, 21)
+    want_t = np.asarray(pallas_expand_cam(jnp.asarray(cam), jnp.asarray(w21.T), jnp.asarray(x),
+                                          interpret=True)).T
+    got_t = ba_matvec.expand_cam_reference(T(cam), T(w21), T(x)).numpy()
+    np.testing.assert_allclose(got_t, want_t, atol=1e-5)
+    want_c = np.asarray(pallas_reduce_cam(jnp.asarray(cam), jnp.asarray(w21.T),
+                                          jnp.asarray(y.T), V, interpret=True))
+    rows = int(np.bincount(cam[valid], minlength=V).max())
+    perm, mask = compute_cam_ell(T(cam), T(valid), V, rows)
+    got_c = ba_matvec.reduce_cam_reference(T(w21), T(y), perm, mask, V).numpy()
+    np.testing.assert_allclose(got_c, want_c, atol=1e-4)
+
+
 def test_cpu_tensors_take_the_plain_version():
     """Dispatch is by device only: CPU tensors run the plain version and no
     kernel launch is counted; a tensor on another device raises."""
@@ -135,16 +175,24 @@ def test_cpu_tensors_take_the_plain_version():
     ref, que, _, mq = (T(a) for a in _descriptors(rng, 64, 32))
     ba_in = [T(a) for a in _ba_inputs(rng, 300, 4)]
     ks = [JF._gaussian_kernel1d(1.5)]
+    cam, W, x, y, valid = (T(a) for a in _matvec_inputs(rng, 200, 5))
+    w21 = W.reshape(200, 21)
+    perm, mask = compute_cam_ell(cam, valid, 5, 64)
     calls = [
         (blur_cuda.blur_levels, blur_cuda.blur_levels_reference, (img, ks)),
         (features_cuda.candidate_response, features_cuda.candidate_response_reference,
          (dog, 0.015, 10.0, 8)),
         (matching.match_top2, matching.match_top2_reference, (ref, que, mq)),
         (ba_cuda.ba_blocks, ba_cuda.ba_blocks_reference, (*ba_in, 4, 0.01)),
+        (ba_matvec.expand_cam, ba_matvec.expand_cam_reference, (cam, w21, x)),
+        (ba_matvec.reduce_cam, ba_matvec.reduce_cam_reference, (w21, y, perm, mask, 5)),
     ]
     for wrapper, plain, args in calls:
         before = wrapper.launches
-        for g, p in zip(wrapper(*args), plain(*args)):
+        got, want = wrapper(*args), plain(*args)
+        if torch.is_tensor(got):
+            got, want = (got,), (want,)
+        for g, p in zip(got, want):
             assert torch.equal(g, p)
         assert wrapper.launches == before == 0
     with pytest.raises(ValueError, match="unsupported device"):

@@ -160,6 +160,8 @@ def test_pack_indices_matches_jax():
 def test_port_import_leaves_jax_unloaded():
     code = (
         "import sys; import structure_from_motion_tpu_torch.models.incremental, "
+        "structure_from_motion_tpu_torch.models.global_ba, "
+        "structure_from_motion_tpu_torch.utils.checkpoint, "
         "structure_from_motion_tpu_torch.convert; "
         "assert 'jax' not in sys.modules, 'jax imported'"
     )
