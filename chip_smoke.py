@@ -11,10 +11,15 @@ the script exits non-zero without printing the final result line:
 2. build: compiles ``structure_from_motion_tpu_torch/csrc/*.cu`` for sm_90a;
 3. kernels: each of the six Hopper kernels against its plain PyTorch
    version on the card, at the shapes its path gives it, with the
-   tolerance stated beside it, and the median CUDA-event time of both:
-   B1-B4 at the per-frame slice's shapes, then B4, B5 and B6 at the shape
-   of the 500-camera global solve (the real stream of
-   ``artifacts/longrun500_pre_globalba.ckpt.npz``);
+   tolerance stated beside it, the median CUDA-event time of both, the
+   kernel's bound (the larger of its bytes over the card's memory rate and
+   its operations over the card's peak rate, computed here from the shapes
+   of this run) and, where one PyTorch call computes the same function,
+   that call's time: B1-B4 at the per-frame slice's shapes (B3 also on the
+   x512 descriptors of rendered frames, with the matcher's decisions), then
+   B4, B5 and B6 at the shape of the 500-camera global solve (the real
+   stream of ``artifacts/longrun500_pre_globalba.ckpt.npz``) and B4 at the
+   same O with V = 16; B3, B4 and B6 must give the same bits twice;
 4. slice: 24 rendered 960x1280 frames through the port's
    ``IncrementalSfM`` at the CLI's default reconstruct configuration
    (window 16 in slide mode, so frames 16-23 evict and archive a view),
@@ -50,9 +55,23 @@ ARTIFACT = Path(__file__).resolve().parent / "artifacts" / "longrun500_pre_globa
 # final cost of the JAX package's f32 solve of the artifact on the CPU
 # (solve_global(iterations=20), BAConfig(huber_delta=0.01))
 JAX_GLOBAL_COST = 0.5122
+# CG iterations per LM step of that solve with the first port's kernels on an
+# H100; B4's sums come in another order now, so each may move by up to 2
+GLOBAL_CG_ITERATIONS = [6, 7, 10, 14, 19, 22, 31, 40, 57] + [64] * 11
+# Published peaks of one NVIDIA H100 SXM at its full 700 W limit (NVIDIA's
+# H100 data sheet, dense rates without sparsity): the yardsticks of every
+# kernel's bound, whatever limit the card of this run is set to
+PEAK_BYTES_PER_S = 3.35e12  # HBM3
+PEAK_F32_FLOPS = 67e12  # CUDA cores
+PEAK_TF32_FLOPS = 495e12  # tensor cores
 
 
 def _median_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
+    """Median device time of ``fn`` in ms between two CUDA events, warm L2.
+    A wrapper call costs the host more than its kernels cost the card, so
+    the card first spins for ~0.3 ms (no memory traffic) while the host
+    enqueues the events and the call: the events then bracket the kernels
+    back to back, not the host's enqueue."""
     import numpy as np
 
     for _ in range(warmup):
@@ -62,6 +81,7 @@ def _median_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(500_000)  # device cycles
         start.record()
         fn()
         end.record()
@@ -88,7 +108,7 @@ def cli_default_config():
     """The configuration of ``python -m structure_from_motion_tpu reconstruct``
     with its default flags (``structure_from_motion_tpu/__main__.py:31-78``,
     defaults ``:366-382``): 16 views in window mode "slide"."""
-    from structure_from_motion_tpu.config import (
+    from structure_from_motion_tpu_torch.config import (
         CapacityConfig,
         FrontendConfig,
         MatcherConfig,
@@ -117,7 +137,7 @@ def long_sequence_config():
     """The engine configuration of ``examples/run_long_sequence.py`` (window
     8, 1024 keypoints, BA iterations 3, damping 5, Huber 0.01) at the
     capacities of the 500-camera checkpoint."""
-    from structure_from_motion_tpu.config import (
+    from structure_from_motion_tpu_torch.config import (
         BAConfig,
         CapacityConfig,
         FrontendConfig,
@@ -254,10 +274,268 @@ def global_phase(dev, counted, sync, card: str) -> dict:
         raise AssertionError("global poses missing, not finite or not orthonormal")
     if not (costs[-1] <= 1.05 * JAX_GLOBAL_COST and costs[-1] <= 0.3 * costs[0]):
         raise AssertionError("global cost outside its bounds")
+    cg = list(info["cg_iterations"])
+    if len(cg) != len(GLOBAL_CG_ITERATIONS) or any(
+            abs(a - b) > 2 for a, b in zip(cg, GLOBAL_CG_ITERATIONS)):
+        raise AssertionError(f"CG iterations {cg} not within 2 of {GLOBAL_CG_ITERATIONS}")
     for name in ("B4 ba_blocks", "B5 expand_cam", "B6 reduce_cam"):
         if launches[name] < 1:
             raise AssertionError(f"{name} never launched in the global solve: {launches}")
     return launches
+
+
+def kernel_phase(dev, imgs, cfg, smi: str) -> list:
+    """Every kernel against its plain version on the card at the shapes its
+    path gives it; raises on a disagreement. Returns the kernels' entries
+    (without ``launches``)."""
+    import numpy as np
+    import torch
+
+    from structure_from_motion_tpu_torch.models import global_ba
+    from structure_from_motion_tpu_torch.ops import ba, ba_cuda, ba_matvec, blur_cuda
+    from structure_from_motion_tpu_torch.ops import features, features_cuda, matching
+    from structure_from_motion_tpu_torch.utils import checkpoint
+
+    fe = cfg.frontend
+    img = torch.as_tensor(imgs[0]).to(dev).to(torch.float32)
+    img = img / img.max()
+    base = features._blur(features._upsample2x(img), math.sqrt(fe.sigma0**2 - 1.0))
+    S = fe.scales_per_octave
+    sig = [fe.sigma0 * 2.0 ** (i / S) for i in range(S + 3)]
+    rel = [features._gaussian_kernel1d(math.sqrt(s**2 - sig[0] ** 2)) for s in sig[1:]]
+    rng = np.random.default_rng(0)
+    results = []
+
+    def nbytes(*tensors):
+        return sum(t.numel() * t.element_size() for t in tensors)
+
+    def record(name, src, replaces, err, tol, fn, plain, ok, *, moved, flops,
+               flop_rate=PEAK_F32_FLOPS, library=None):
+        """``moved``: bytes the function must move (inputs once, outputs
+        once); ``flops``: its operations at ``flop_rate``; ``library``: one
+        PyTorch call computing the same function, where there is one."""
+        ms, plain_ms = _median_ms(torch, fn), _median_ms(torch, plain)
+        library_ms = _median_ms(torch, library) if library is not None else None
+        t_bytes, t_ops = 1e3 * moved / PEAK_BYTES_PER_S, 1e3 * flops / flop_rate
+        bound_ms, bound_by = max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+        print(f"kernel {name}: max_abs_err={err:.3e} ({tol}) kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} "
+              f"({moved / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP), library "
+              f"{'none' if library_ms is None else f'{library_ms:.4f} ms'} ({smi})")
+        if not ok:
+            raise AssertionError(f"{name} disagrees with its plain version")
+        results.append(dict(name=name, route="cuda",
+                            source=f"structure_from_motion_tpu_torch/csrc/{src}",
+                            replaces=replaces, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                            bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms))
+
+    # B1: 1920x2560 base, the 5 relative kernels of one octave; two
+    # separable passes of 2r + 1 taps a level
+    got = blur_cuda.blur_levels(base, rel)
+    ref = blur_cuda.blur_levels_reference(base, rel)
+    err = float((got - ref).abs().max())
+    record("B1 blur_levels", "blur.cu", "structure_from_motion_tpu/ops/blur_pallas.py:85",
+           err, "atol 2e-5", lambda: blur_cuda.blur_levels(base, rel),
+           lambda: blur_cuda.blur_levels_reference(base, rel), err <= 2e-5,
+           moved=nbytes(base, got), flops=sum(2 * 2 * len(k) for k in rel) * base.numel())
+
+    # B2: (5, 1920, 2560) DoG of the rendered frame; ~40 compares and a 2x2
+    # Hessian test per output value
+    gauss = torch.cat([base[None], got])
+    dog = (gauss[1:] - gauss[:-1]).contiguous()
+    args = (fe.contrast_threshold, fe.edge_threshold, 8)
+    got = features_cuda.candidate_response(dog, *args)
+    ref = features_cuda.candidate_response_reference(dog, *args)
+    err = float((got - ref).abs().max())
+    record("B2 candidate_response", "cand.cu",
+           "structure_from_motion_tpu/ops/features_pallas.py:95", err, "atol 0 (exact)",
+           lambda: features_cuda.candidate_response(dog, *args),
+           lambda: features_cuda.candidate_response_reference(dog, *args), err == 0.0,
+           moved=nbytes(dog, got), flops=40 * got.numel())
+    print(f"kernel B2 candidates: {int((got > 0).sum())} nonzero of {got.numel()}")
+
+    # B3: 16 views x 2048 reference rows against 2048 query rows, D = 128;
+    # unit-norm rows (the tolerance is stated for unit-norm descriptors: the
+    # pipeline's x512 scale multiplies every d^2 and its rounding by 512^2)
+    def descriptors(n):
+        d = np.abs(rng.normal(size=(n, 128))).astype(np.float32)
+        return torch.as_tensor(d / np.linalg.norm(d, axis=1, keepdims=True)).to(dev)
+
+    def b3_check(ref_d, que_d, mask_q, scale):
+        """(max abs error of d^2, within tolerance and j1 equal on separated
+        rows, two launches same bits) at ``scale`` x the unit-norm tolerance."""
+        g = matching.match_top2(ref_d, que_d, mask_q)
+        g_again = matching.match_top2(ref_d, que_d, mask_q)
+        r1, r2, rj = matching.match_top2_reference(ref_d, que_d, mask_q)
+        err = float(max((g[0] - r1).abs().max(), (g[1] - r2).abs().max()))
+        close = all(bool(((a - b).abs() <= scale * 1e-4 + 1e-5 * b.abs()).all())
+                    for a, b in ((g[0], r1), (g[1], r2)))
+        same_j = bool((g[2] == rj)[(r2 - r1) > scale * 1e-3].all())
+        return err, close and same_j, all(torch.equal(a, b) for a, b in zip(g, g_again))
+
+    ref_d, que_d = descriptors(16 * 2048), descriptors(2048)
+    mask_q = torch.as_tensor(rng.random(2048) < 0.9).to(dev)
+    product_ms = _median_ms(torch, lambda: ref_d @ que_d.T)
+    print(f"kernel B3 information: ref @ que.T alone ({tuple(ref_d.shape)} x "
+          f"{tuple(que_d.shape)}^T, f32 with TF32 off, the (Nr, Nq) matrix written to device "
+          f"memory) {product_ms:.4f} ms; not the kernel's function, never called by the port "
+          f"({smi})")
+    err, ok, same = b3_check(ref_d, que_d, mask_q, 1.0)
+    # the function needs the products of the valid queries only; on the
+    # tensor cores at f32-level accuracy each is three TF32 products
+    n_valid_q = int(mask_q.sum())
+    record("B3 match_top2", "match_top2.cu", "structure_from_motion_tpu/ops/matching.py:220",
+           err, "d^2 rtol 1e-5 atol 1e-4, j1 equal where d2^2-d1^2 > 1e-3; "
+           f"two launches same bits: {same}",
+           lambda: matching.match_top2(ref_d, que_d, mask_q),
+           lambda: matching.match_top2_reference(ref_d, que_d, mask_q), ok and same,
+           moved=nbytes(ref_d, que_d, mask_q) + 12 * ref_d.shape[0],
+           flops=3 * 2 * ref_d.shape[0] * n_valid_q * 128, flop_rate=PEAK_TF32_FLOPS)
+
+    # B3 at the pipeline's own scale: x512 descriptors of rendered frames
+    # (4 reference views against the fifth), tolerance x 512^2, and the
+    # matcher's decisions on every row whose top two are separated
+    feats = [features.detect_and_describe(torch.as_tensor(im).to(dev), fe) for im in imgs[:5]]
+    ref_f = torch.stack([d for _, d in feats[:4]]).contiguous()
+    mask_r = torch.stack([k.mask for k, _ in feats[:4]])
+    que_f, mask_f = feats[4][1].contiguous(), feats[4][0].mask
+    sc = 512.0**2
+    flat = ref_f.reshape(-1, 128)
+    err, ok, same = b3_check(flat, que_f, mask_f, sc)
+    gj = matching.match_top2(flat, que_f, mask_f)[2].view(mask_r.shape).long()
+    r1, r2, rj = (t.view(mask_r.shape) for t in matching.match_top2_reference(flat, que_f, mask_f))
+    # separated: neither the nearest neighbour nor the ratio test is within
+    # the tolerance of flipping, and (dedup couples the rows of a view) no
+    # unseparated row of the same view claims the same query
+    ratio = cfg.matcher.ratio
+    sep = ((r2 - r1) > sc * 1e-3) \
+        & ((torch.sqrt(r1) - ratio * torch.sqrt(r2)).abs() > 1e-3 * torch.sqrt(r2))
+    view = torch.arange(sep.shape[0], device=dev)[:, None].expand_as(sep)
+    contested = torch.zeros(sep.shape[0], que_f.shape[0], dtype=torch.bool, device=dev)
+    for j in (gj, rj.long()):
+        contested[view[~sep], j[~sep]] = True
+    row_ok = sep & ~contested[view, rj.long()]
+    got_m = matching.match_descriptors(ref_f, que_f, mask_r, mask_f, cfg.matcher)
+    want_m = matching.match_descriptors(*(t.cpu() for t in (ref_f, que_f, mask_r, mask_f)),
+                                        cfg.matcher)
+    agree = bool((got_m.valid == want_m.valid.to(dev))[row_ok].all()
+                 and (got_m.target == want_m.target.to(dev))[row_ok].all())
+    print(f"kernel B3 at the pipeline's scale (x512 descriptors of rendered frames, "
+          f"{ref_f.shape[0]} x {ref_f.shape[1]} against {que_f.shape[0]}): max_abs_err={err:.3e} "
+          f"(d^2 rtol 1e-5 atol 1e-4 x 512^2 = {sc * 1e-4:.1f}), within tolerance {ok}, two "
+          f"launches same bits {same}; match_descriptors: {int(got_m.valid.sum())} matches "
+          f"(plain version on the CPU {int(want_m.valid.sum())}), valid and target equal on "
+          f"all {int(row_ok.sum())} separated rows of {row_ok.numel()}: {agree}")
+    if not (ok and same and agree and int(row_ok.sum()) > row_ok.numel() // 2):
+        raise AssertionError("B3 disagrees with its plain version at the pipeline's scale")
+    del feats, ref_f, que_f, got_m, want_m
+
+    def b4_case(name, bargs):
+        """B4 against its plain version, two launches bit for bit."""
+        O, V = bargs[0].shape[0], bargs[6]
+        got = ba_cuda.ba_blocks(*bargs)
+        again = ba_cuda.ba_blocks(*bargs)
+        ref = ba_cuda.ba_blocks_reference(*bargs)
+        errs = [float((a - b).abs().max()) for a, b in zip(got, ref)]
+        scaled = [e / max(1.0, float(b.abs().max())) for e, b in zip(errs, ref)]
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        # per observation 56 B in and 132 B out, per camera 57 floats out;
+        # ~400 FLOPs of closed form per observation
+        record(name, "ba_blocks.cu", "structure_from_motion_tpu/ops/ba_pallas.py:163",
+               max(errs), f"1e-3 x max(1, |value|); worst scaled {max(scaled):.2e}; O = {O}, "
+               f"V = {V}; two launches same bits: {same}",
+               lambda: ba_cuda.ba_blocks(*bargs), lambda: ba_cuda.ba_blocks_reference(*bargs),
+               max(scaled) <= 1e-3 and same,
+               moved=nbytes(*bargs[:6], *got[2:5]) + 4 * 57 * V, flops=400 * O)
+        return got
+
+    def b4_random(O, V):
+        cam = torch.as_tensor(rng.integers(0, V, O).astype(np.int32)).to(dev)
+        Cv = rng.normal(size=(V, 3)).astype(np.float32)
+        qv = (np.float32([1, 0, 0, 0]) + 0.05 * rng.normal(size=(V, 4))).astype(np.float32)
+        X = (rng.normal(size=(O, 3)) * [3, 2, 1] + [0, 0, 10]).astype(np.float32)
+        c = cam.cpu().numpy()
+        uv = ((X[:, :2] - Cv[c, :2]) / (X[:, 2:] - Cv[c, 2:])
+              + 0.003 * rng.normal(size=(O, 2))).astype(np.float32)
+        w = (rng.random(O) < 0.3).astype(np.float32)
+        return (cam, *(torch.as_tensor(a).to(dev) for a in (Cv[c], qv[c], X, uv, w)), V, 0.01)
+
+    # B4: the full ELL stream, 16384 points x 16 slots, V = 16
+    b4_case("B4 ba_blocks", b4_random(16384 * 16, 16))
+
+    # ragged shapes, which the paths above never give: partial blocks and
+    # tiles, and B4 camera ids outside [0, V) (they enter no camera sum;
+    # the kernel's cost is the sum of the cameras' shares, so it is held
+    # against the plain cost of the observations that have a camera)
+    for O, V in ((1000, 3), (77, 40), (130, 200)):
+        bargs = b4_random(O, V)
+        foreign = torch.as_tensor(rng.random(O) < 0.1).to(dev)
+        cam = torch.where(foreign, torch.full_like(bargs[0], V + 2), bargs[0])
+        cam[::7] = torch.where(foreign[::7], -1, cam[::7])
+        bargs = (cam, *bargs[1:])
+        got = ba_cuda.ba_blocks(*bargs)
+        ref = ba_cuda.ba_blocks_reference(*bargs)
+        own = ba_cuda.ba_blocks_reference(*(a[~foreign] for a in bargs[:6]), V, 0.01)
+        worst = max(float((a - b).abs().max()) / max(1.0, float(b.abs().max()))
+                    for a, b in zip(got, (*ref[:5], own[5])))
+        print(f"kernel B4 ragged: O = {O}, V = {V}, {int(foreign.sum())} foreign ids: worst "
+              f"scaled error {worst:.2e} (1e-3)")
+        if not worst <= 1e-3:
+            raise AssertionError("B4 disagrees with its plain version on a ragged shape")
+    for nr, nq in ((1000, 300), (130, 64), (64, 5)):
+        err, ok, same = b3_check(descriptors(nr), descriptors(nq),
+                                 torch.as_tensor(rng.random(nq) < 0.8).to(dev), 1.0)
+        print(f"kernel B3 ragged: {nr} x {nq}: max_abs_err={err:.3e}, within tolerance {ok}, "
+              f"two launches same bits {same}")
+        if not (ok and same):
+            raise AssertionError("B3 disagrees with its plain version on a ragged shape")
+    del gauss, dog, ref_d, que_d
+
+    # B4, B5, B6 at the global solve's shape: the tiered stream of the
+    # 500-camera checkpoint (233,984 slots, V = 500); B4 also at the same O
+    # with V = 16, to show how its time depends on V
+    state, frame, archive, _ = checkpoint.load_state(str(ARTIFACT), dev)
+    prob = global_ba.build_global_problem(state, archive, min(frame, 8))
+    st, obs, tiers, _, cam_rows = global_ba.tiered_problem(prob)
+    lay = ba.ObsLayout(tiers=tiers, pad=obs.cam.shape[0] - sum(n * r for n, r in tiers))
+    O, V = obs.cam.shape[0], st.C.shape[0]
+    gcam = obs.cam.contiguous()
+    gl = gcam.long()
+    bargs = (gcam, st.C[gl].contiguous(), st.q[gl].contiguous(),
+             ba._point_gather(st.X, lay).contiguous(), obs.uv_norm.contiguous(),
+             obs.valid.to(torch.float32), V, 0.01)
+    print(f"kernel global shape: O = {O} slots, V = {V}, tiers {tiers}, cam_rows {cam_rows}")
+    got = b4_case("B4 ba_blocks (global shape)", bargs)
+    b4_case("B4 ba_blocks (global O, V = 16)", b4_random(O, 16))
+    w21 = got[3].reshape(O, 21)
+    x = torch.as_tensor(rng.normal(size=(V, 7)).astype(np.float32)).to(dev)
+    t = ba_matvec.expand_cam(gcam, w21, x)
+    t_ref = ba_matvec.expand_cam_reference(gcam, w21, x)
+    err = float((t - t_ref).abs().max())
+    bound = 1e-5 * max(1.0, float(t_ref.abs().max()))
+    record("B5 expand_cam", "ba_matvec.cu", "structure_from_motion_tpu/ops/ba_matvec_pallas.py:91",
+           err, f"1e-5 x max(1, |t|) = {bound:.3e}",
+           lambda: ba_matvec.expand_cam(gcam, w21, x),
+           lambda: ba_matvec.expand_cam_reference(gcam, w21, x), err <= bound,
+           moved=nbytes(gcam, w21, x, t), flops=2 * 21 * O)
+    y = torch.as_tensor(rng.normal(size=(O, 3)).astype(np.float32)).to(dev)
+    perm, mask = ba.compute_cam_ell(gcam, obs.valid, V, cam_rows)
+    c1 = ba_matvec.reduce_cam(w21, y, perm, mask, V)
+    c2 = ba_matvec.reduce_cam(w21, y, perm, mask, V)
+    c_ref = ba_matvec.reduce_cam_reference(w21, y, perm, mask, V)
+    err = float((c1 - c_ref).abs().max())
+    bound = 1e-4 * max(1.0, float(c_ref.abs().max()))
+    same = bool(torch.equal(c1, c2))
+    # the function reads the W and y rows of the filled slots only
+    n_filled = int(mask.sum())
+    record("B6 reduce_cam", "ba_matvec.cu",
+           "structure_from_motion_tpu/ops/ba_matvec_pallas.py:125",
+           err, f"1e-4 x max(1, |coup|) = {bound:.3e}; two launches same bits: {same}",
+           lambda: ba_matvec.reduce_cam(w21, y, perm, mask, V),
+           lambda: ba_matvec.reduce_cam_reference(w21, y, perm, mask, V), err <= bound and same,
+           moved=n_filled * (84 + 12) + nbytes(perm, mask, c1), flops=2 * 21 * n_filled)
+    torch.cuda.empty_cache()
+    return results
 
 
 def main() -> None:
@@ -266,20 +544,16 @@ def main() -> None:
     # -- 1. environment ----------------------------------------------------
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
-    import numpy as np
-
     import structure_from_motion_tpu_torch as port
 
     # the port under test is the checkout this script sits in, never an
     # installed copy elsewhere
     if Path(port.__file__).resolve().parents[1] != Path(__file__).resolve().parent:
         raise SystemExit(f"chip_smoke: run from the repository root (found {port.__file__})")
-    from structure_from_motion_tpu.io.synthetic import synthetic_scene_sequence
     from structure_from_motion_tpu_torch import kernels
-    from structure_from_motion_tpu_torch.models import global_ba
-    from structure_from_motion_tpu_torch.ops import ba, ba_cuda, ba_matvec, blur_cuda
-    from structure_from_motion_tpu_torch.ops import features, features_cuda, matching
-    from structure_from_motion_tpu_torch.utils import checkpoint
+    from structure_from_motion_tpu_torch.io.synthetic import synthetic_scene_sequence
+    from structure_from_motion_tpu_torch.ops import ba_cuda, ba_matvec, blur_cuda
+    from structure_from_motion_tpu_torch.ops import features_cuda, matching
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -301,142 +575,16 @@ def main() -> None:
     path = kernels.build()
     kernels.library()
     print(f"build: {time.perf_counter() - t0:.2f} s -> {path.name}")
+    log = path.with_suffix(".log")
+    if log.exists():  # what ptxas said of each kernel
+        for line in log.read_text().splitlines():
+            if "Compiling entry function" in line or "registers" in line or "spill" in line:
+                print(f"build ptxas: {line.strip()}")
 
-    # -- 3. kernels against their plain versions at the slice's shapes -----
+    # -- 3. kernels against their plain versions at the paths' shapes ------
     imgs, K, C_gt, _ = synthetic_scene_sequence(**RENDER)
     cfg = cli_default_config()
-    fe = cfg.frontend
-    img = torch.as_tensor(imgs[0]).to(dev).to(torch.float32)
-    img = img / img.max()
-    base = features._blur(features._upsample2x(img), math.sqrt(fe.sigma0**2 - 1.0))
-    S = fe.scales_per_octave
-    sig = [fe.sigma0 * 2.0 ** (i / S) for i in range(S + 3)]
-    rel = [features._gaussian_kernel1d(math.sqrt(s**2 - sig[0] ** 2)) for s in sig[1:]]
-    rng = np.random.default_rng(0)
-    results = []
-
-    def record(name, src, replaces, err, tol, fn, plain, ok):
-        ms, plain_ms = _median_ms(torch, fn), _median_ms(torch, plain)
-        print(f"kernel {name}: max_abs_err={err:.3e} ({tol}) kernel {ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms ({smi})")
-        if not ok:
-            raise AssertionError(f"{name} disagrees with its plain version")
-        results.append(dict(name=name, route="cuda",
-                            source=f"structure_from_motion_tpu_torch/csrc/{src}",
-                            replaces=replaces, max_abs_err=err, ms=ms, plain_ms=plain_ms))
-
-    # B1: 1920x2560 base, the 5 relative kernels of one octave
-    got = blur_cuda.blur_levels(base, rel)
-    ref = blur_cuda.blur_levels_reference(base, rel)
-    err = float((got - ref).abs().max())
-    record("B1 blur_levels", "blur.cu", "structure_from_motion_tpu/ops/blur_pallas.py:85",
-           err, "atol 2e-5", lambda: blur_cuda.blur_levels(base, rel),
-           lambda: blur_cuda.blur_levels_reference(base, rel), err <= 2e-5)
-
-    # B2: (5, 1920, 2560) DoG of the rendered frame
-    gauss = torch.cat([base[None], got])
-    dog = (gauss[1:] - gauss[:-1]).contiguous()
-    args = (fe.contrast_threshold, fe.edge_threshold, 8)
-    got = features_cuda.candidate_response(dog, *args)
-    ref = features_cuda.candidate_response_reference(dog, *args)
-    err = float((got - ref).abs().max())
-    record("B2 candidate_response", "cand.cu",
-           "structure_from_motion_tpu/ops/features_pallas.py:95", err, "atol 0 (exact)",
-           lambda: features_cuda.candidate_response(dog, *args),
-           lambda: features_cuda.candidate_response_reference(dog, *args), err == 0.0)
-    print(f"kernel B2 candidates: {int((got > 0).sum())} nonzero of {got.numel()}")
-
-    # B3: 16 views x 2048 reference rows against 2048 query rows, D = 128;
-    # unit-norm rows (the tolerance is stated for unit-norm descriptors: the
-    # pipeline's x512 scale multiplies every d^2 and its rounding by 512^2)
-    def descriptors(n):
-        d = np.abs(rng.normal(size=(n, 128))).astype(np.float32)
-        return torch.as_tensor(d / np.linalg.norm(d, axis=1, keepdims=True)).to(dev)
-
-    ref_d, que_d = descriptors(16 * 2048), descriptors(2048)
-    mask_q = torch.as_tensor(rng.random(2048) < 0.9).to(dev)
-    g1, g2, gj = matching.match_top2(ref_d, que_d, mask_q)
-    r1, r2, rj = matching.match_top2_reference(ref_d, que_d, mask_q)
-    err = float(max((g1 - r1).abs().max(), (g2 - r2).abs().max()))
-    close = all(bool(((a - b).abs() <= 1e-4 + 1e-5 * b.abs()).all())
-                for a, b in ((g1, r1), (g2, r2)))
-    gap = (r2 - r1) > 1e-3
-    same_j = bool((gj == rj)[gap].all())
-    record("B3 match_top2", "match_top2.cu", "structure_from_motion_tpu/ops/matching.py:220",
-           err, "d^2 rtol 1e-5 atol 1e-4, j1 equal where d2^2-d1^2 > 1e-3",
-           lambda: matching.match_top2(ref_d, que_d, mask_q),
-           lambda: matching.match_top2_reference(ref_d, que_d, mask_q), close and same_j)
-
-    # B4: the full ELL stream, 16384 points x 16 slots, V = 16
-    O, V = 16384 * 16, 16
-    cam = torch.as_tensor(rng.integers(0, V, O).astype(np.int32)).to(dev)
-    Cv = rng.normal(size=(V, 3)).astype(np.float32)
-    qv = (np.float32([1, 0, 0, 0]) + 0.05 * rng.normal(size=(V, 4))).astype(np.float32)
-    X = (rng.normal(size=(O, 3)) * [3, 2, 1] + [0, 0, 10]).astype(np.float32)
-    c = cam.cpu().numpy()
-    uv = ((X[:, :2] - Cv[c, :2]) / (X[:, 2:] - Cv[c, 2:])
-          + 0.003 * rng.normal(size=(O, 2))).astype(np.float32)
-    w = (rng.random(O) < 0.3).astype(np.float32)
-    inp = [torch.as_tensor(a).to(dev) for a in (Cv[c], qv[c], X, uv, w)]
-    bargs = (cam, *inp, V, 0.01)
-    got = ba_cuda.ba_blocks(*bargs)
-    ref = ba_cuda.ba_blocks_reference(*bargs)
-    errs = [float((a - b).abs().max()) for a, b in zip(got, ref)]
-    scaled = [e / max(1.0, float(b.abs().max())) for e, b in zip(errs, ref)]
-    record("B4 ba_blocks", "ba_blocks.cu", "structure_from_motion_tpu/ops/ba_pallas.py:163",
-           max(errs), f"1e-3 x max(1, |value|); worst scaled {max(scaled):.2e}",
-           lambda: ba_cuda.ba_blocks(*bargs), lambda: ba_cuda.ba_blocks_reference(*bargs),
-           max(scaled) <= 1e-3)
-    del got, ref, gauss, dog, ref_d, que_d, inp
-
-    # B4, B5, B6 at the global solve's shape: the tiered stream of the
-    # 500-camera checkpoint (233,984 slots, V = 500)
-    state, frame, archive, _ = checkpoint.load_state(str(ARTIFACT), dev)
-    prob = global_ba.build_global_problem(state, archive, min(frame, 8))
-    st, obs, tiers, _, cam_rows = global_ba.tiered_problem(prob)
-    lay = ba.ObsLayout(tiers=tiers, pad=obs.cam.shape[0] - sum(n * r for n, r in tiers))
-    O, V = obs.cam.shape[0], st.C.shape[0]
-    gcam = obs.cam.contiguous()
-    gl = gcam.long()
-    bargs = (gcam, st.C[gl].contiguous(), st.q[gl].contiguous(),
-             ba._point_gather(st.X, lay).contiguous(), obs.uv_norm.contiguous(),
-             obs.valid.to(torch.float32), V, 0.01)
-    got = ba_cuda.ba_blocks(*bargs)
-    ref = ba_cuda.ba_blocks_reference(*bargs)
-    errs = [float((a - b).abs().max()) for a, b in zip(got, ref)]
-    scaled = [e / max(1.0, float(b.abs().max())) for e, b in zip(errs, ref)]
-    print(f"kernel global shape: O = {O} slots, V = {V}, tiers {tiers}, cam_rows {cam_rows}")
-    record("B4 ba_blocks (global shape)", "ba_blocks.cu",
-           "structure_from_motion_tpu/ops/ba_pallas.py:163", max(errs),
-           f"1e-3 x max(1, |value|); worst scaled {max(scaled):.2e}",
-           lambda: ba_cuda.ba_blocks(*bargs), lambda: ba_cuda.ba_blocks_reference(*bargs),
-           max(scaled) <= 1e-3)
-    w21 = got[3].reshape(O, 21)
-    del ref
-    x = torch.as_tensor(rng.normal(size=(V, 7)).astype(np.float32)).to(dev)
-    t = ba_matvec.expand_cam(gcam, w21, x)
-    t_ref = ba_matvec.expand_cam_reference(gcam, w21, x)
-    err = float((t - t_ref).abs().max())
-    bound = 1e-5 * max(1.0, float(t_ref.abs().max()))
-    record("B5 expand_cam", "ba_matvec.cu", "structure_from_motion_tpu/ops/ba_matvec_pallas.py:91",
-           err, f"1e-5 x max(1, |t|) = {bound:.3e}",
-           lambda: ba_matvec.expand_cam(gcam, w21, x),
-           lambda: ba_matvec.expand_cam_reference(gcam, w21, x), err <= bound)
-    y = torch.as_tensor(rng.normal(size=(O, 3)).astype(np.float32)).to(dev)
-    perm, mask = ba.compute_cam_ell(gcam, obs.valid, V, cam_rows)
-    c1 = ba_matvec.reduce_cam(w21, y, perm, mask, V)
-    c2 = ba_matvec.reduce_cam(w21, y, perm, mask, V)
-    c_ref = ba_matvec.reduce_cam_reference(w21, y, perm, mask, V)
-    err = float((c1 - c_ref).abs().max())
-    bound = 1e-4 * max(1.0, float(c_ref.abs().max()))
-    same = bool(torch.equal(c1, c2))
-    record("B6 reduce_cam", "ba_matvec.cu",
-           "structure_from_motion_tpu/ops/ba_matvec_pallas.py:125",
-           err, f"1e-4 x max(1, |coup|) = {bound:.3e}; two launches same bits: {same}",
-           lambda: ba_matvec.reduce_cam(w21, y, perm, mask, V),
-           lambda: ba_matvec.reduce_cam_reference(w21, y, perm, mask, V), err <= bound and same)
-    del state, archive, prob, st, obs, got, bargs, w21, t, t_ref, y, perm, mask
-    torch.cuda.empty_cache()
+    results = kernel_phase(dev, imgs, cfg, smi)
 
     # -- 4. the slice: the CLI's default slide mode, then finalize_global ----
     slice_kernels = {
@@ -455,11 +603,14 @@ def main() -> None:
     # -- 5. the 500-camera global solve --------------------------------------
     g_launches = global_phase(dev, counted, torch.cuda.synchronize, smi)
     for r in results:
-        name = r["name"].replace(" (global shape)", "")
+        name = r["name"].split(" (")[0]
         in_slice = name == r["name"] and name in slice_kernels
         r["launches"] = (launches if in_slice else g_launches)[name]
-    if "jax" in sys.modules:
-        raise AssertionError("the port imported jax")
+    foreign = sorted(k for k in sys.modules
+                     if k in ("jax", "jaxlib", "structure_from_motion_tpu")
+                     or k.startswith("structure_from_motion_tpu."))
+    if foreign:
+        raise AssertionError(f"the port imported JAX or the JAX package: {foreign}")
 
     print(json.dumps({"kernels": results}))
     print(json.dumps({"ok": True, "device": {

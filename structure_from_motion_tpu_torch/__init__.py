@@ -14,9 +14,11 @@ loaded by :mod:`structure_from_motion_tpu_torch.kernels` at first use:
                           B6  PCG matvec camera reduce (global BA)
 
 Each kernel's wrapper runs its plain PyTorch version for CPU tensors and
-launches the kernel for CUDA tensors. The configuration dataclasses are
-shared with the JAX package (``structure_from_motion_tpu.config``, pure
-Python). Nothing here imports JAX.
+launches the kernel for CUDA tensors. Entry points that take a ``device``
+default to ``"cuda"``. The port imports neither JAX nor any module of the
+JAX package: the configuration dataclasses (``config.py``) and the rendered
+test scene (``io/synthetic.py``) are its own copies, field for field and bit
+for bit, so configurations and checkpoints pass between the two packages.
 """
 
 from structure_from_motion_tpu_torch import device  # noqa: F401  (f32 policy)

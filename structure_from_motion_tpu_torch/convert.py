@@ -16,7 +16,7 @@ from structure_from_motion_tpu_torch.device import DTYPE
 from structure_from_motion_tpu_torch.models.tracks import EvictionRecord, SfMState
 
 
-def state_from_numpy(d: dict, device) -> SfMState:
+def state_from_numpy(d: dict, device="cuda") -> SfMState:
     """numpy dict -> :class:`SfMState` on ``device`` (floats as float32,
     integers as int32, booleans as bool). The arrays are copied, so the
     state never aliases (possibly read-only) numpy memory."""

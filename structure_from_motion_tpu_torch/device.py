@@ -4,7 +4,9 @@ The port runs in float32 end to end, like the JAX package on its
 accelerator. Matrix products and convolutions on the card must therefore
 stay in full float32: PyTorch's TF32 shortcut keeps ~3 decimal digits, which
 would move DoG candidates and RANSAC consensus. Both switches are set here,
-once, when the package is imported.
+once, when the package is imported. (Kernel B3 does use the tensor cores,
+but at float32-level accuracy: every operand is split into a TF32 head and
+its exact rest and three products are summed, ``csrc/match_top2.cu``.)
 
 Two JAX behaviours have no PyTorch default and get explicit helpers:
 

@@ -1,9 +1,12 @@
 """Build and load the hand-written Hopper kernels under ``csrc/``.
 
-All ``csrc/*.cu`` sources compile with ``nvcc`` into ONE shared library with
-a plain C interface, ``build/torch_kernels/libsfm_kernels_<hash>.so`` at the
+All ``csrc/*.cu`` sources compile with ``nvcc`` (one process per source, all
+started together, then one link) into ONE shared library with a plain C
+interface, ``build/torch_kernels/libsfm_kernels_<hash>.so`` at the
 repository root, named by a hash of the sources and flags so an edited
-kernel never loads a stale build. It is loaded with ``ctypes``: pointers and
+kernel never loads a stale build. What ``ptxas -v`` said of each kernel
+(registers, shared memory, spills) is kept beside it in ``<name>.log``. No
+source includes PyTorch's or CUTLASS's headers, so a build takes seconds. It is loaded with ``ctypes``: pointers and
 the CUDA stream pass as ``c_void_p``, every entry point returns
 ``cudaGetLastError()`` and :func:`check` raises when that is not 0.
 
@@ -28,7 +31,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -40,8 +43,8 @@ _SIGNATURES = {
     "sfm_candidate_response": (_P, _I, _I, _I, _F, _F, _F, _I, _P, _P),
     # ref, que, sqq, mask_que, Nr, Nq, d1, d2, j1, stream
     "sfm_match_top2": (_P, _P, _P, _P, _I, _I, _P, _P, _P, _P),
-    # cam, C, q, X, uv, w, O, V, huber, dtd, wblk, bp, partial, cam_out, stream
-    "sfm_ba_blocks": (_P, _P, _P, _P, _P, _P, _I, _I, _F, _P, _P, _P, _P, _P, _P),
+    # cam, C, q, X, uv, w, O, V, huber, dtd, wblk, bp, rows, slot, cam_out, stream
+    "sfm_ba_blocks": (_P, _P, _P, _P, _P, _P, _I, _I, _F, _P, _P, _P, _P, _P, _P, _P),
     # cam, w21, x, O, V, t, stream
     "sfm_expand_cam": (_P, _P, _P, _I, _I, _P, _P),
     # w21, y, perm, mask, O, V, rows, coup, stream
@@ -70,13 +73,27 @@ def build() -> Path:
     if not os.path.exists(nvcc):
         raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    cus = [str(p) for p in sorted(CSRC.glob("*.cu"))]
-    proc = subprocess.run(
-        [nvcc, *NVCC_FLAGS, "-o", str(tmp), *cus], capture_output=True, text=True
-    )
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    tag = f"{out.stem}.{os.getpid()}"
+    objs = {cu: BUILD_DIR / f"{tag}.{cu.stem}.o" for cu in sorted(CSRC.glob("*.cu"))}
+    procs = [
+        subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(cu)],
+                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for cu, obj in objs.items()
+    ]
+    logs = [p.communicate()[0] for p in procs]  # waits for every compiler
+    tmp = BUILD_DIR / f"{tag}.tmp.so"
+    try:
+        for cu, p, log in zip(objs, procs, logs):
+            if p.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {cu.name} ({p.returncode}):\n{log}")
+        link = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs.values())],
+                              capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc failed to link ({link.returncode}):\n{link.stderr}")
+    finally:
+        for obj in objs.values():
+            obj.unlink(missing_ok=True)
+    out.with_suffix(".log").write_text("".join(logs))
     os.replace(tmp, out)
     return out
 

@@ -20,7 +20,7 @@ from typing import NamedTuple, Sequence
 import numpy as np
 import torch
 
-from structure_from_motion_tpu.config import BAConfig
+from structure_from_motion_tpu_torch.config import BAConfig
 from structure_from_motion_tpu_torch.models.tracks import EvictionRecord, SfMState
 from structure_from_motion_tpu_torch.ops.ba import (
     BAObservations,

@@ -32,7 +32,7 @@ import math
 import numpy as np
 import torch
 
-from structure_from_motion_tpu.config import PipelineConfig
+from structure_from_motion_tpu_torch.config import PipelineConfig
 from structure_from_motion_tpu_torch.device import generator, stable_topk
 from structure_from_motion_tpu_torch.models import global_ba, tracks
 from structure_from_motion_tpu_torch.models.tracks import SfMState
@@ -389,11 +389,12 @@ class IncrementalSfM:
 
     ``frontend="native"`` runs the DoG frontend on the device
     (:meth:`process_image`); ``"precomputed"`` takes external features
-    (:meth:`process_features`). ``device`` is required: ``"cuda"`` runs
-    the hand-written kernels, ``"cpu"`` their plain versions."""
+    (:meth:`process_features`). ``device`` defaults to ``"cuda"``, which
+    runs the hand-written kernels and raises on a machine without a card;
+    ``"cpu"`` runs their plain versions, as the tests do."""
 
     def __init__(self, config: PipelineConfig, K, frontend: str = "native", seed: int = 0,
-                 *, device):
+                 *, device="cuda"):
         if config.frontend.max_keypoints != config.capacity.max_keypoints:
             raise ValueError("frontend.max_keypoints must equal capacity.max_keypoints")
         unported = {

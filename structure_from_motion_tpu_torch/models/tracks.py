@@ -16,7 +16,7 @@ from typing import NamedTuple
 
 import torch
 
-from structure_from_motion_tpu.config import CapacityConfig
+from structure_from_motion_tpu_torch.config import CapacityConfig
 from structure_from_motion_tpu_torch.device import DTYPE
 from structure_from_motion_tpu_torch.ops.reproj import pixel_residuals
 
@@ -57,7 +57,7 @@ def _set_drop(t: torch.Tensor, dest: torch.Tensor, vals) -> torch.Tensor:
     return buf[:-1]
 
 
-def init_state(cap: CapacityConfig, K, desc_dim: int = 128, *, device,
+def init_state(cap: CapacityConfig, K, desc_dim: int = 128, *, device="cuda",
                dtype=DTYPE) -> SfMState:
     V, Kk, M, O = cap.max_views, cap.max_keypoints, cap.max_points, cap.max_observations
     z = lambda *s, dt=dtype: torch.zeros(s, dtype=dt, device=device)  # noqa: E731

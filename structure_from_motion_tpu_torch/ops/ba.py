@@ -29,7 +29,7 @@ from typing import NamedTuple
 
 import torch
 
-from structure_from_motion_tpu.config import BAConfig
+from structure_from_motion_tpu_torch.config import BAConfig
 from structure_from_motion_tpu_torch.ops.ba_cuda import ba_blocks, cam_onehot, huber_weights
 from structure_from_motion_tpu_torch.ops.ba_matvec import expand_cam, reduce_cam
 from structure_from_motion_tpu_torch.ops.linalg import inv3x3, pcg_solve, solve_psd

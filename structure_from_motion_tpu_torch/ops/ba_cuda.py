@@ -14,6 +14,8 @@ from structure_from_motion_tpu_torch import kernels
 from structure_from_motion_tpu_torch.ops.reproj import batched_residual_jacobians
 
 _PAYLOAD = 57  # [U (49) | b_c (7) | cost (1)] per camera
+_BLOCK = 128  # observations per block of csrc/ba_blocks.cu
+_ROW = 36  # the kernel's partial rows: upper U (28) | b_c (7) | cost (1)
 
 
 def huber_weights(res: torch.Tensor, delta: float) -> torch.Tensor:
@@ -51,7 +53,10 @@ def ba_blocks_reference(cam, C_o, q_o, X_o, uv, w, n_views: int, huber_delta: fl
 
 def ba_blocks(cam, C_o, q_o, X_o, uv, w, n_views: int, huber_delta: float):
     """Fused residual/Jacobian/block products over all observations; same
-    outputs as :func:`ba_blocks_reference`."""
+    outputs as :func:`ba_blocks_reference`. On the card an observation whose
+    camera id lies outside [0, n_views) enters no camera sum, and the cost is
+    the sum of the cameras' shares (the plain version's cost counts every
+    residual; the pipeline gives such an id no weight)."""
     if cam.device.type == "cpu":
         return ba_blocks_reference(cam, C_o, q_o, X_o, uv, w, n_views, huber_delta)
     if cam.device.type != "cuda":
@@ -69,17 +74,20 @@ def ba_blocks(cam, C_o, q_o, X_o, uv, w, n_views: int, huber_delta: float):
     if O == 0 or n_views < 1:
         raise ValueError("ba_blocks: need O > 0 observations and n_views > 0")
     dev = cam.device
-    nb = (O + 127) // 128
+    nb = -(-O // _BLOCK)
+    # scratch of the camera reduction: one 36-float row per (block, camera
+    # present in it), then one slot byte per (camera, block)
+    n_rows = nb * min(_BLOCK, n_views) * _ROW
     dtd = torch.empty((O, 9), dtype=torch.float32, device=dev)
     wblk = torch.empty((O, 21), dtype=torch.float32, device=dev)
     bp = torch.empty((O, 3), dtype=torch.float32, device=dev)
-    partial = torch.empty((nb, n_views, _PAYLOAD), dtype=torch.float32, device=dev)
+    scratch = torch.empty(n_rows + -(-n_views * nb // 4), dtype=torch.float32, device=dev)
     acc = torch.empty((n_views, _PAYLOAD), dtype=torch.float32, device=dev)
     rc = kernels.library().sfm_ba_blocks(
         cam.data_ptr(), C_o.data_ptr(), q_o.data_ptr(), X_o.data_ptr(),
         uv.data_ptr(), w.data_ptr(), O, n_views, float(huber_delta),
-        dtd.data_ptr(), wblk.data_ptr(), bp.data_ptr(), partial.data_ptr(),
-        acc.data_ptr(), kernels.stream_ptr(dev),
+        dtd.data_ptr(), wblk.data_ptr(), bp.data_ptr(), scratch.data_ptr(),
+        scratch.data_ptr() + 4 * n_rows, acc.data_ptr(), kernels.stream_ptr(dev),
     )
     kernels.check(rc, "sfm_ba_blocks")
     ba_blocks.launches += 1

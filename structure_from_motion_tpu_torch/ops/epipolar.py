@@ -12,7 +12,7 @@ from typing import NamedTuple
 
 import torch
 
-from structure_from_motion_tpu.config import RansacConfig
+from structure_from_motion_tpu_torch.config import RansacConfig
 from structure_from_motion_tpu_torch.ops.linalg import floor_abs, nullspace
 from structure_from_motion_tpu_torch.ops.ransac import ransac
 from structure_from_motion_tpu_torch.utils.geometry import to_homogeneous

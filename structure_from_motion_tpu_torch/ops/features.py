@@ -26,7 +26,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from structure_from_motion_tpu.config import FrontendConfig
+from structure_from_motion_tpu_torch.config import FrontendConfig
 from structure_from_motion_tpu_torch.device import clamp_index, stable_topk
 from structure_from_motion_tpu_torch.ops.blur_cuda import blur_levels
 from structure_from_motion_tpu_torch.ops.features_cuda import candidate_response

@@ -17,7 +17,7 @@ from typing import NamedTuple
 
 import torch
 
-from structure_from_motion_tpu.config import MatcherConfig
+from structure_from_motion_tpu_torch.config import MatcherConfig
 from structure_from_motion_tpu_torch import kernels
 
 INF = 3.0e38

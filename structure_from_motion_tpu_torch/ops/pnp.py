@@ -15,7 +15,7 @@ from typing import NamedTuple
 
 import torch
 
-from structure_from_motion_tpu.config import LMConfig, RansacConfig
+from structure_from_motion_tpu_torch.config import LMConfig, RansacConfig
 from structure_from_motion_tpu_torch.device import stable_topk
 from structure_from_motion_tpu_torch.ops.linalg import (
     det3x3,

@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from structure_from_motion_tpu.config import LMConfig
+from structure_from_motion_tpu_torch.config import LMConfig
 from structure_from_motion_tpu_torch.ops.linalg import (
     floor_abs,
     inv3x3,

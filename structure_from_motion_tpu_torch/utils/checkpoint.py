@@ -39,7 +39,7 @@ def save_state(path: str, state: SfMState, frame: int, archive=None,
     os.replace(tmp, path)
 
 
-def load_state(path: str, device) -> tuple[SfMState, int, list, tuple]:
+def load_state(path: str, device="cuda") -> tuple[SfMState, int, list, tuple]:
     """Load a checkpoint of either package onto ``device`` -> ``(state,
     frame, archive, keyframes)``; ``archive`` is a list of host-numpy
     :class:`EvictionRecord` rows. Older layouts load as the JAX package

@@ -13,6 +13,7 @@ from structure_from_motion_tpu.config import FrontendConfig
 from structure_from_motion_tpu.io.synthetic import synthetic_scene_sequence
 from structure_from_motion_tpu.ops import features as JF
 from structure_from_motion_tpu_torch.ops import features as TF
+from tests.test_torch_config import port_config
 
 T = torch.from_numpy
 
@@ -24,7 +25,7 @@ def frontends():
     cfg = FrontendConfig(max_keypoints=256, num_octaves=2, blur_impl="pallas",
                          extrema_impl="pallas", extrema_dtype="f32")
     jk, jd = jax.device_get(JF.detect_and_describe(jnp.asarray(img), cfg))
-    tk, td = TF.detect_and_describe(T(img), cfg)
+    tk, td = TF.detect_and_describe(T(img), port_config(cfg))
     return jk, np.asarray(jd), tk, td.numpy()
 
 

@@ -25,6 +25,7 @@ from structure_from_motion_tpu_torch.ops import pnp as Tp
 from structure_from_motion_tpu_torch.ops import triangulation as Tt
 from structure_from_motion_tpu_torch.utils import geometry as Tg
 from structure_from_motion_tpu_torch.utils import rotations as Tr
+from tests.test_torch_config import port_config
 
 f32 = np.float32
 K = np.array([[500.0, 0, 320.0], [0, 500.0, 240.0], [0, 0, 1.0]], f32)
@@ -154,7 +155,7 @@ def test_find_fundamental_on_jax_index_sets():
     want = Je.find_fundamental(key, jnp.asarray(uv0), jnp.asarray(uv1), jnp.asarray(mask), cfg)
     idx = np.asarray(sample_index_sets(key, jnp.asarray(mask), cfg.num_hypotheses, 8))
     got = Te.find_fundamental(torch.as_tensor(idx), *(torch.as_tensor(a) for a in (uv0, uv1, mask)),
-                              cfg)
+                              port_config(cfg))
     np.testing.assert_array_equal(got.inliers.numpy(), np.asarray(want.inliers))
     assert int(got.num_inliers) == int(want.num_inliers) > 150
     np.testing.assert_allclose(_unit_sign(got.F.numpy()), _unit_sign(np.asarray(want.F)), atol=1e-4)
@@ -172,10 +173,10 @@ def test_find_fundamental_batched_and_exact8():
     idx = torch.as_tensor(np.stack([np.asarray(sample_index_sets(
         jax.random.key(v), jnp.asarray(m), cfg.num_hypotheses, 8)) for v, m in enumerate(masks)]))
     b = lambda a: torch.as_tensor(np.stack([a, a]))  # noqa: E731
-    both = Te.find_fundamental(idx, b(uv0), b(uv1), torch.as_tensor(masks), cfg)
+    both = Te.find_fundamental(idx, b(uv0), b(uv1), torch.as_tensor(masks), port_config(cfg))
     for v in range(2):
         one = Te.find_fundamental(idx[v], torch.as_tensor(uv0), torch.as_tensor(uv1),
-                                  torch.as_tensor(masks[v]), cfg)
+                                  torch.as_tensor(masks[v]), port_config(cfg))
         assert torch.equal(both.inliers[v], one.inliers)
         np.testing.assert_allclose(both.F[v].numpy(), one.F.numpy(), atol=1e-5, rtol=1e-5)
     assert torch.equal(both.inliers[1], torch.as_tensor(m8))
@@ -222,7 +223,8 @@ def test_linear_pnp_ransac_on_jax_index_sets(score_subset):
         k_draw = key
     idx = np.asarray(sample_index_sets(k_draw, jnp.asarray(mask), cfg.num_hypotheses, 6))
     got = Tp.linear_pnp_ransac(torch.as_tensor(idx),
-                               *(torch.as_tensor(a) for a in (X, uv1, K, mask)), cfg, sub=sub)
+                               *(torch.as_tensor(a) for a in (X, uv1, K, mask)),
+                               port_config(cfg), sub=sub)
     np.testing.assert_array_equal(got.inliers.numpy(), np.asarray(want.inliers))
     np.testing.assert_allclose(got.R.numpy(), np.asarray(want.R), atol=1e-4)
     np.testing.assert_allclose(got.C.numpy(), np.asarray(want.C), atol=1e-3)
@@ -236,7 +238,7 @@ def test_refine_pnp_matches_jax():
     args = (X, uv1, K, mask, R0.astype(f32), (C1 + 0.1).astype(f32))
     cfg = LMConfig(damping=5.0, iterations=100)
     want = Jp.refine_pnp(*(jnp.asarray(a) for a in args), cfg)
-    got = Tp.refine_pnp(*(torch.as_tensor(a) for a in args), cfg)
+    got = Tp.refine_pnp(*(torch.as_tensor(a) for a in args), port_config(cfg))
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-4)
 
@@ -317,7 +319,7 @@ def test_triangulation_matches_jax():
                                atol=1e-4, rtol=1e-4)
     cfg = LMConfig(damping=5.0, iterations=50)
     want = np.asarray(Jt.refine_triangulate(*J(P, uv, om, X0), cfg))
-    got = Tt.refine_triangulate(*Tn(P, uv, om, X0), cfg).numpy()
+    got = Tt.refine_triangulate(*Tn(P, uv, om, X0), port_config(cfg)).numpy()
     np.testing.assert_allclose(got[ok], want[ok], atol=1e-4, rtol=1e-4)
     # residuals = projection - measurement at |uv| ~ 500 px, where one f32
     # ulp is 6e-5 px: hold the projections (residual + measurement) to 1e-4

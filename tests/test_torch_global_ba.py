@@ -36,6 +36,7 @@ from structure_from_motion_tpu_torch.models.incremental import IncrementalSfM
 from structure_from_motion_tpu_torch.ops import ba as Tba
 from structure_from_motion_tpu_torch.ops.linalg import pcg_solve
 from structure_from_motion_tpu_torch.utils import checkpoint as Tck
+from tests.test_torch_config import port_config
 from tests.test_incremental import (
     pipeline_config,  # noqa: F401  (fixture)
     synthetic_sequence,
@@ -142,7 +143,7 @@ def _run_tiered_both(arrays, counts, order, cfg, round_to):
     t_st = Tba.BAState(T(arrays["C"]), T(arrays["q"]), T(arrays["X"]),
                        torch.ones(V, dtype=torch.bool), torch.ones(M, dtype=torch.bool))
     cg: list = []
-    _, tc = Tba.run_bundle_adjustment(t_st, t_obs, cfg, cg_iters=cg)
+    _, tc = Tba.run_bundle_adjustment(t_st, t_obs, port_config(cfg), cg_iters=cg)
     return np.asarray(jc), tc.numpy(), cg
 
 
@@ -197,10 +198,10 @@ def test_sharded_only_layouts_raise(layout):
     with pytest.raises(NotImplementedError, match="A13"):
         if layout == "shards":
             prob = Tg.GlobalProblem(st, obs, np.zeros(4, np.int64), 3, 4, 0, 0)
-            Tg.solve_global(prob, BAConfig(), num_shards=4)
+            Tg.solve_global(prob, port_config(BAConfig()), num_shards=4)
         else:
             cfg = BAConfig(obs_layout="csr") if layout == "csr" else BAConfig(ell_tail=64)
-            Tba.run_bundle_adjustment(st, obs, cfg)
+            Tba.run_bundle_adjustment(st, obs, port_config(cfg))
 
 
 @pytest.mark.parametrize("round_to", [16, 256])
@@ -275,7 +276,7 @@ def slide_runs(pipeline_config):  # noqa: F811
     K, frames, C_gt, _, _ = synthetic_sequence(n_views=12, n_points=300, seed=2, noise=0.4)
     cfg = dataclasses.replace(pipeline_config, window_size=6, window_mode="slide")
     jeng = JaxSfM(cfg, K, frontend="precomputed")
-    teng = IncrementalSfM(cfg, K, frontend="precomputed", device="cpu")
+    teng = IncrementalSfM(port_config(cfg), K, frontend="precomputed", device="cpu")
     for f in frames:
         jeng.process_features(*f)
         teng.process_features(*f)
@@ -353,7 +354,7 @@ def test_checkpoint_round_trip_between_packages(slide_runs, tmp_path, direction)
         want_state, want_archive = _np(jeng.state), jeng._archive
         want_kf = (jeng.keyframe_indices, jeng._input_index)
         got_state, got_archive = state_to_numpy(state), archive_to_numpy(archive)
-        resumed = IncrementalSfM(slide_runs["cfg"], slide_runs["K"], frontend="precomputed",
+        resumed = IncrementalSfM(port_config(slide_runs["cfg"]), slide_runs["K"], frontend="precomputed",
                                  device="cpu")
         assert resumed.load_checkpoint(path) == 12
         np.testing.assert_array_equal(resumed.poses()[0], jeng.poses()[0])
@@ -407,7 +408,7 @@ def _finalize_artifact(cfg, iterations):
     jeng = JaxSfM(cfg, np.eye(3), frontend="precomputed")
     jeng.load_checkpoint(ARTIFACT)
     want = jeng.finalize_global(iterations=iterations)
-    teng = IncrementalSfM(cfg, np.eye(3), frontend="precomputed", device="cpu")
+    teng = IncrementalSfM(port_config(cfg), np.eye(3), frontend="precomputed", device="cpu")
     teng.load_checkpoint(ARTIFACT)
     got = teng.finalize_global(iterations=iterations)
     return got, want, teng

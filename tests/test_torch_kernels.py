@@ -26,6 +26,7 @@ from structure_from_motion_tpu_torch.ops import (
     matching,
 )
 from structure_from_motion_tpu_torch.ops.ba import compute_cam_ell
+from tests.test_torch_config import port_config
 
 T = torch.from_numpy
 
@@ -97,12 +98,40 @@ def test_match_descriptors_matches_jax():
     cfg = MatcherConfig(ratio=0.8, impl="pallas")
     want = JM.match_descriptors(jnp.asarray(ref), jnp.asarray(que), jnp.asarray(mr),
                                 jnp.asarray(mq), cfg)
-    got = matching.match_descriptors(T(ref), T(que), T(mr), T(mq), cfg)
+    got = matching.match_descriptors(T(ref), T(que), T(mr), T(mq), port_config(cfg))
     w1, w2, _ = matching.match_top2_reference(T(ref), T(que), T(mq))
     sep = ((w2 - w1) > 1e-3).numpy()
     assert np.asarray(want.valid).sum() > 50
     np.testing.assert_array_equal(got.valid.numpy()[sep], np.asarray(want.valid)[sep])
     np.testing.assert_array_equal(got.target.numpy()[sep], np.asarray(want.target)[sep])
+
+
+@pytest.mark.parametrize("seed", [15, 16])
+def test_match_top2_and_descriptors_match_pallas_at_the_pipelines_scale(seed):
+    """B3 on x512 descriptors, the scale the frontend feeds the matcher
+    (``features.py``: ``desc * 512``): every d^2 and its rounding grow by
+    512^2, so the unit-norm tolerances (rtol 1e-5 / atol 1e-4, separation
+    1e-3) are scaled by 512^2; the matcher's decisions must be equal on
+    every separated row."""
+    ref, que, mr, mq = _descriptors(np.random.default_rng(seed))
+    ref, que, sc = ref * np.float32(512), que * np.float32(512), 512.0**2
+    w1, w2, wj = (np.asarray(a) for a in JM.pallas_match_top2(
+        jnp.asarray(ref), jnp.asarray(que), jnp.asarray(mq), interpret=True))
+    g1, g2, gj = (a.numpy() for a in matching.match_top2_reference(T(ref), T(que), T(mq)))
+    np.testing.assert_allclose(g1, w1, rtol=1e-5, atol=1e-4 * sc)
+    np.testing.assert_allclose(g2, w2, rtol=1e-5, atol=1e-4 * sc)
+    sep = (w2 - w1) > 1e-3 * sc
+    assert sep.mean() > 0.9
+    np.testing.assert_array_equal(gj[sep], wj[sep])
+    cfg = MatcherConfig(ratio=0.8, impl="pallas")
+    want = JM.match_descriptors(jnp.asarray(ref), jnp.asarray(que), jnp.asarray(mr),
+                                jnp.asarray(mq), cfg)
+    got = matching.match_descriptors(T(ref), T(que), T(mr), T(mq), port_config(cfg))
+    assert np.asarray(want.valid).sum() > 50
+    np.testing.assert_array_equal(got.valid.numpy()[sep], np.asarray(want.valid)[sep])
+    np.testing.assert_array_equal(got.target.numpy()[sep], np.asarray(want.target)[sep])
+    np.testing.assert_allclose(got.distance.numpy()[sep & mr], np.asarray(want.distance)[sep & mr],
+                               rtol=1e-4)
 
 
 def test_match_descriptors_batched_equals_per_view():
@@ -111,7 +140,7 @@ def test_match_descriptors_batched_equals_per_view():
     rng = np.random.default_rng(7)
     views = [_descriptors(rng) for _ in range(3)]
     que, mq = views[0][1], views[0][3]
-    cfg = MatcherConfig(ratio=0.8)
+    cfg = port_config(MatcherConfig(ratio=0.8))
     ref = T(np.stack([v[0] for v in views]))
     mr = T(np.stack([v[2] for v in views]))
     batched = matching.match_descriptors(ref, T(que), mr, T(mq), cfg)
@@ -132,6 +161,37 @@ def test_ba_blocks_plain_matches_pallas():
         wv = np.asarray(wv, np.float32)
         scale = max(1.0, float(np.abs(wv).max()))
         assert np.abs(g.numpy() - wv).max() <= 1e-3 * scale, name
+
+
+def test_ba_blocks_plain_matches_pallas_with_foreign_camera_ids():
+    """B4 at V = 40 with camera ids outside [0, V) on a tenth of the
+    observations: they get their per-observation blocks like any other, and
+    enter no camera sum (U, b_c). Same tolerance as above. The cost is the
+    one output where the two sides differ on such input: the kernels (TPU and
+    CUDA) add up the cameras' shares, which leaves a weighted foreign
+    observation out; the plain version sums every residual. The pipeline
+    never gives a foreign id a weight, so each is held to its own rule."""
+    rng = np.random.default_rng(18)
+    V, O = 40, 1536
+    cam, C, q, X, uv, w = _ba_inputs(rng, O, V)
+    foreign = rng.random(O) < 0.1
+    cam = np.where(foreign, rng.choice(np.array([-1, -7, V, V + 3], np.int32), O), cam)
+    args = (cam.astype(np.int32), C, q, X, uv, w)
+    want = pallas_ba_blocks(*(jnp.asarray(a) for a in args), n_views=V, huber_delta=0.01,
+                            interpret=True)
+    got = ba_cuda.ba_blocks_reference(*(T(a) for a in args), V, 0.01)
+    for name, g, wv in zip(["U", "b_c", "DtD", "W", "b_p"], got, want):
+        wv = np.asarray(wv, np.float32)
+        scale = max(1.0, float(np.abs(wv).max()))
+        assert np.abs(g.numpy() - wv).max() <= 1e-3 * scale, name
+    # the camera sums hold exactly the observations whose id is a camera
+    own = ~foreign
+    inside = ba_cuda.ba_blocks_reference(*(T(a[own]) for a in args), V, 0.01)
+    np.testing.assert_allclose(got[0].numpy(), inside[0].numpy(), rtol=1e-5, atol=1e-4)
+    np.testing.assert_allclose(got[1].numpy(), inside[1].numpy(), rtol=1e-5, atol=1e-4)
+    assert (w[foreign] > 0).sum() > 50 and float(got[5]) > float(inside[5])
+    assert abs(float(want[5]) - float(inside[5])) <= 1e-3 * max(1.0, float(inside[5]))
+    assert np.abs(got[3].numpy()[foreign]).max() > 0
 
 
 def _matvec_inputs(rng, O, V):

@@ -32,6 +32,7 @@ from structure_from_motion_tpu_torch.models import incremental as Ti
 from structure_from_motion_tpu_torch.models import tracks as Ttr
 from structure_from_motion_tpu_torch.models.incremental import IncrementalSfM
 from tests.test_incremental import umeyama_ate
+from tests.test_torch_config import port_config
 
 # 4 frames with the per-frame motion of tests/test_synthetic_gt.py:77-79
 # (loops 0.7 over 10 frames = 0.07 per frame)
@@ -63,7 +64,7 @@ def runs():
         jeng.process_image(im)
         if f == 2:
             after3 = {k: np.asarray(v) for k, v in jax.device_get(jeng.state)._asdict().items()}
-    teng = IncrementalSfM(CONFIG, K, frontend="native", seed=0, device="cpu")
+    teng = IncrementalSfM(port_config(CONFIG), K, frontend="native", seed=0, device="cpu")
     for im in imgs:
         teng.process_image(im)
     return dict(jax=jeng, port=teng, after3=after3, C_gt=C_gt)
@@ -81,7 +82,7 @@ def test_ba_stage_matches_jax_on_a_shared_state(runs):
         np.testing.assert_array_equal(back[k], v.astype(back[k].dtype))
     j_state = Jtr.SfMState(**{k: jnp.asarray(v) for k, v in snap.items()})
     jo, jcost, _, jpo, jpp = Ji._ba_stage(j_state, config=cfg)
-    to, tcost, _, tpo, tpp = Ti._ba_stage(st, cfg)
+    to, tcost, _, tpo, tpp = Ti._ba_stage(st, port_config(cfg))
     np.testing.assert_allclose(tcost.numpy(), np.asarray(jcost), rtol=1e-4)
     assert (int(tpo), int(tpp)) == (int(jpo), int(jpp))
     np.testing.assert_array_equal(to.pt_valid.numpy(), np.asarray(jo.pt_valid))
@@ -123,7 +124,7 @@ def test_capacity_overflow_is_counted_like_jax():
         return st
 
     js = run(Jtr, jnp.asarray, Jtr.init_state(cap, K))
-    ts = run(Ttr, torch.as_tensor, Ttr.init_state(cap, K, device="cpu"))
+    ts = run(Ttr, torch.as_tensor, Ttr.init_state(port_config(cap), K, device="cpu"))
     jd = {k: np.asarray(v) for k, v in js._asdict().items()}
     for k, v in state_to_numpy(ts).items():
         np.testing.assert_array_equal(v, jd[k].astype(v.dtype), err_msg=k)
@@ -189,7 +190,7 @@ def test_exact_gt_trajectory_native_frontend_port():
         prune_max_error_px=8.0,
     )
     imgs, K, C_gt, _ = synthetic_scene_sequence(n_frames=10, size=(240, 320), seed=3, loops=0.7)
-    engine = IncrementalSfM(cfg, K, frontend="native", seed=0, device="cpu")
+    engine = IncrementalSfM(port_config(cfg), K, frontend="native", seed=0, device="cpu")
     for im in imgs:
         info = engine.process_image(im)
     assert not info.get("skipped")
