@@ -15,7 +15,9 @@ the script exits non-zero without printing the final result line:
    kernel's bound (the larger of its bytes over the card's memory rate and
    its operations over the card's peak rate, computed here from the shapes
    of this run) and, where one PyTorch call computes the same function,
-   that call's time: B1-B4 at the per-frame slice's shapes (B3 also on the
+   that call's time: B1-B4 at the per-frame slice's shapes (B1 and B2 at
+   every shape a frame launches them at: the base blur and the five
+   octaves from 1920x2560 down to 120x160, one entry a shape; B3 also on the
    x512 descriptors of rendered frames, with the matcher's decisions), then
    B4, B5 and B6 at the shape of the 500-camera global solve (the real
    stream of ``artifacts/longrun500_pre_globalba.ckpt.npz``) and B4 at the
@@ -24,7 +26,8 @@ the script exits non-zero without printing the final result line:
    ``IncrementalSfM`` at the CLI's default reconstruct configuration
    (window 16 in slide mode, so frames 16-23 evict and archive a view),
    then ``finalize_global`` over all 24 cameras (a dense Schur solve);
-   every kernel's launch count, the per-frame wall time, and the
+   every kernel's launch count (B1's and B2's by shape too), the per-frame
+   wall time, and the
    similarity-aligned ATE (before and after the global solve) and mean
    reprojection error against the exact rendered ground truth;
 5. global: the 500-camera checkpoint loaded with the port's
@@ -165,7 +168,8 @@ def long_sequence_config():
 
 def slice_phase(dev, imgs, K, C_gt, cfg, counted, sync, card: str) -> dict:
     """Frames through the engine in slide mode, then ``finalize_global``;
-    raises when a bound fails. Returns the launch counts of the phase.
+    raises when a bound fails. Returns the launch counts of the phase and,
+    for the wrappers that tally them, the counts by shape.
     ``card`` (name and power limit) is printed beside every time."""
     import numpy as np
 
@@ -175,6 +179,7 @@ def slice_phase(dev, imgs, K, C_gt, cfg, counted, sync, card: str) -> dict:
     window = cfg.window_size
     for fn in counted.values():
         fn.launches = 0
+        getattr(fn, "by_shape", {}).clear()
     engine = IncrementalSfM(cfg, K, frontend="native", seed=0, device=dev)
     frame_s = []
     for im in imgs:
@@ -194,7 +199,10 @@ def slice_phase(dev, imgs, K, C_gt, cfg, counted, sync, card: str) -> dict:
     sync()
     global_s = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in counted.items()}
+    by_shape = {name: dict(fn.by_shape) for name, fn in counted.items()
+                if hasattr(fn, "by_shape")}
     print(f"slice launches: {launches}")
+    print(f"slice launches by shape: {by_shape}")
     print(f"slice frame time: first (frame 0) {frame_s[0]:.3f} s, bootstrap (frame 1) "
           f"{frame_s[1]:.3f} s, frames 2-{window - 1} median "
           f"{float(np.median(frame_s[2:window])):.3f} s, frames {window}-{n - 1} (evicting) "
@@ -232,7 +240,7 @@ def slice_phase(dev, imgs, K, C_gt, cfg, counted, sync, card: str) -> dict:
           f"finalize(3) cost {fcosts[0]:.6g} -> {fcosts[-1]:.6g}")
     if not (resumed_frame == n and same and np.isfinite(fcosts).all()):
         raise AssertionError("checkpoint round trip or finalize failed")
-    return launches
+    return launches, by_shape
 
 
 def global_phase(dev, counted, sync, card: str) -> dict:
@@ -299,7 +307,6 @@ def kernel_phase(dev, imgs, cfg, smi: str) -> list:
     fe = cfg.frontend
     img = torch.as_tensor(imgs[0]).to(dev).to(torch.float32)
     img = img / img.max()
-    base = features._blur(features._upsample2x(img), math.sqrt(fe.sigma0**2 - 1.0))
     S = fe.scales_per_octave
     sig = [fe.sigma0 * 2.0 ** (i / S) for i in range(S + 3)]
     rel = [features._gaussian_kernel1d(math.sqrt(s**2 - sig[0] ** 2)) for s in sig[1:]]
@@ -310,10 +317,12 @@ def kernel_phase(dev, imgs, cfg, smi: str) -> list:
         return sum(t.numel() * t.element_size() for t in tensors)
 
     def record(name, src, replaces, err, tol, fn, plain, ok, *, moved, flops,
-               flop_rate=PEAK_F32_FLOPS, library=None):
+               flop_rate=PEAK_F32_FLOPS, library=None, shape=None):
         """``moved``: bytes the function must move (inputs once, outputs
         once); ``flops``: its operations at ``flop_rate``; ``library``: one
-        PyTorch call computing the same function, where there is one."""
+        PyTorch call computing the same function, where there is one;
+        ``shape``: the wrapper's ``by_shape`` key, where its launches are
+        tallied by shape."""
         ms, plain_ms = _median_ms(torch, fn), _median_ms(torch, plain)
         library_ms = _median_ms(torch, library) if library is not None else None
         t_bytes, t_ops = 1e3 * moved / PEAK_BYTES_PER_S, 1e3 * flops / flop_rate
@@ -327,32 +336,48 @@ def kernel_phase(dev, imgs, cfg, smi: str) -> list:
         results.append(dict(name=name, route="cuda",
                             source=f"structure_from_motion_tpu_torch/csrc/{src}",
                             replaces=replaces, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                            bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms))
+                            bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
+                            shape=shape))
 
-    # B1: 1920x2560 base, the 5 relative kernels of one octave; two
-    # separable passes of 2r + 1 taps a level
-    got = blur_cuda.blur_levels(base, rel)
-    ref = blur_cuda.blur_levels_reference(base, rel)
-    err = float((got - ref).abs().max())
-    record("B1 blur_levels", "blur.cu", "structure_from_motion_tpu/ops/blur_pallas.py:85",
-           err, "atol 2e-5", lambda: blur_cuda.blur_levels(base, rel),
-           lambda: blur_cuda.blur_levels_reference(base, rel), err <= 2e-5,
-           moved=nbytes(base, got), flops=sum(2 * 2 * len(k) for k in rel) * base.numel())
+    # B1 and B2 at every shape a frame launches them at: the base blur (one
+    # level over the upsampled image), then each octave's five levels and its
+    # DoG stack, every shape against the plain version with its own bound.
+    # B1: two separable passes of 2r + 1 taps a level; B2: ~40 compares and a
+    # 2x2 Hessian test per output value
+    def b1_case(label, src_img, ks):
+        got = blur_cuda.blur_levels(src_img, ks)
+        ref = blur_cuda.blur_levels_reference(src_img, ks)
+        err = float((got - ref).abs().max())
+        h, w = src_img.shape
+        record(f"B1 blur_levels{label}", "blur.cu",
+               "structure_from_motion_tpu/ops/blur_pallas.py:85", err,
+               f"atol 2e-5; {h}x{w}, radii {[len(k) // 2 for k in ks]}",
+               lambda: blur_cuda.blur_levels(src_img, ks),
+               lambda: blur_cuda.blur_levels_reference(src_img, ks), err <= 2e-5,
+               moved=nbytes(src_img, got), flops=sum(2 * 2 * len(k) for k in ks) * src_img.numel(),
+               shape=(h, w, len(ks)))
+        return got
 
-    # B2: (5, 1920, 2560) DoG of the rendered frame; ~40 compares and a 2x2
-    # Hessian test per output value
-    gauss = torch.cat([base[None], got])
-    dog = (gauss[1:] - gauss[:-1]).contiguous()
+    up = features._upsample2x(img).contiguous()
+    base_k = [features._gaussian_kernel1d(math.sqrt(fe.sigma0**2 - 1.0))]
+    base = b1_case(f" (base blur, {up.shape[0]}x{up.shape[1]}, 1 level)", up, base_k)[0]
     args = (fe.contrast_threshold, fe.edge_threshold, 8)
-    got = features_cuda.candidate_response(dog, *args)
-    ref = features_cuda.candidate_response_reference(dog, *args)
-    err = float((got - ref).abs().max())
-    record("B2 candidate_response", "cand.cu",
-           "structure_from_motion_tpu/ops/features_pallas.py:95", err, "atol 0 (exact)",
-           lambda: features_cuda.candidate_response(dog, *args),
-           lambda: features_cuda.candidate_response_reference(dog, *args), err == 0.0,
-           moved=nbytes(dog, got), flops=40 * got.numel())
-    print(f"kernel B2 candidates: {int((got > 0).sum())} nonzero of {got.numel()}")
+    for octave in range(fe.num_octaves):
+        h, w = base.shape
+        label = "" if octave == 0 else f" ({h}x{w})"
+        gauss = torch.cat([base[None], b1_case(label, base, rel)])
+        dog = (gauss[1:] - gauss[:-1]).contiguous()
+        got = features_cuda.candidate_response(dog, *args)
+        ref = features_cuda.candidate_response_reference(dog, *args)
+        err = float((got - ref).abs().max())
+        record(f"B2 candidate_response{label}", "cand.cu",
+               "structure_from_motion_tpu/ops/features_pallas.py:95", err,
+               f"atol 0 (exact); ({dog.shape[0]}, {h}, {w}), {int((got > 0).sum())} candidates",
+               lambda: features_cuda.candidate_response(dog, *args),
+               lambda: features_cuda.candidate_response_reference(dog, *args), err == 0.0,
+               moved=nbytes(dog, got), flops=40 * got.numel(), shape=(h, w))
+        base = features._downsample2(gauss[S])
+    del gauss, dog, up
 
     # B3: 16 views x 2048 reference rows against 2048 query rows, D = 128;
     # unit-norm rows (the tolerance is stated for unit-norm descriptors: the
@@ -489,7 +514,7 @@ def kernel_phase(dev, imgs, cfg, smi: str) -> list:
               f"two launches same bits {same}")
         if not (ok and same):
             raise AssertionError("B3 disagrees with its plain version on a ragged shape")
-    del gauss, dog, ref_d, que_d
+    del ref_d, que_d
 
     # B4, B5, B6 at the global solve's shape: the tiered stream of the
     # 500-camera checkpoint (233,984 slots, V = 500); B4 also at the same O
@@ -595,7 +620,8 @@ def main() -> None:
     }
     counted = dict(slice_kernels, **{"B5 expand_cam": ba_matvec.expand_cam,
                                      "B6 reduce_cam": ba_matvec.reduce_cam})
-    launches = slice_phase(dev, imgs, K, C_gt, cfg, counted, torch.cuda.synchronize, smi)
+    launches, by_shape = slice_phase(dev, imgs, K, C_gt, cfg, counted, torch.cuda.synchronize,
+                                     smi)
     missing = [name for name in slice_kernels if launches[name] < 1]
     if missing:
         raise AssertionError(f"a kernel of the slice never launched: {missing}")
@@ -604,8 +630,14 @@ def main() -> None:
     g_launches = global_phase(dev, counted, torch.cuda.synchronize, smi)
     for r in results:
         name = r["name"].split(" (")[0]
-        in_slice = name == r["name"] and name in slice_kernels
-        r["launches"] = (launches if in_slice else g_launches)[name]
+        shape = r.pop("shape")
+        if shape is not None:  # B1, B2: the slice's launches at this entry's shape
+            r["launches"] = by_shape[name].get(shape, 0)
+            if r["launches"] < 1:
+                raise AssertionError(f"{r['name']} never launched at {shape} in the slice")
+        else:
+            in_slice = name == r["name"] and name in slice_kernels
+            r["launches"] = (launches if in_slice else g_launches)[name]
     foreign = sorted(k for k in sys.modules
                      if k in ("jax", "jaxlib", "structure_from_motion_tpu")
                      or k.startswith("structure_from_motion_tpu."))

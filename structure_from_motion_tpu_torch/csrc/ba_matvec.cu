@@ -23,22 +23,50 @@
 // neighbouring W rows. No limit on V.
 //
 // B6 design: the output must be the same bits on every run, so there are no
-// float atomics. Of the two deterministic forms (per-block partial (V, 7)
-// tables plus a fixed-order second pass, as B4 does; or a segment sum per
-// camera) this is the segment sum: the BA call builds the camera-major view
-// of the stream once (ops/ba.compute_cam_ell: perm[v * rows + r] is camera
-// v's r-th observation, mask marks filled slots), and one warp per camera
-// sums its rows slots, lane l taking slots l, l + 32, ... in order, then a
-// fixed shuffle tree. The work is O(V * rows) ~ O(O) and independent of V,
-// where a partial table costs O(blocks * V) and B4's per-block camera loop
-// grows with V.
+// float atomics; it is a segment sum over the camera-major view of the stream
+// that the BA call builds once (ops/ba.compute_cam_ell: perm[v * rows + r] is
+// camera v's r-th observation, mask marks filled slots). What bounds it is
+// neither its 16 MB (4.9 us at the 500-camera shape) nor arithmetic but how
+// the W rows are asked for: an 84-byte row at a 4-byte alignment, one row per
+// slot at an address only perm knows.
+//
+// * One block a camera (512 threads), so 500 cameras fill the card; warp w
+//   takes the 32-slot chunks w, w + 16, ... of the camera's rows.
+// * A chunk's mask and perm are read by the 32 lanes at once (one coalesced
+//   request each, neither waiting for the other), and the next chunk's are
+//   requested before this chunk's rows. A chunk with no filled slot ends at
+//   the ballot without touching W.
+// * The warp then reads W ROW BY ROW: lanes 0..20 take the 21 components of
+//   one row, so a row's three or four 32-byte sectors are one request, and
+//   lane i*3+c reads y[3 o + c] beside it. 16 rows' loads are issued before
+//   the first multiply.
+// * Fixed order: lane i*3+c sums W[i][c] y[c] over its warp's slots in slot
+//   order; at the end z_i = (c0 + c1) + c2 by two shuffles, and thread i adds
+//   the warps' z_i from shared memory in warp order. The order depends on
+//   rows and the block size only, never on timing.
+// * No limit on V or rows. 32 registers, 448 bytes of shared memory.
+//
+// Measured on an NVIDIA H100 80GB HBM3 at 700 W (500 cameras x 432 slots,
+// 159,035 filled; device time under torch.profiler, tools/profile_kernels.py,
+// both versions in one run): the first port's kernel (one warp a camera,
+// each lane walking its slots one after another with 21 strided scalar loads
+// a row) 15.8 us -> 7.2 us, 68% of the bound; after 64 MB of other traffic
+// 37 -> 16.5 us by events. Tried and set aside (tools/kernel_variants.py,
+// device time, 7.2 us for the tree's kernel in that run): 256 threads a
+// camera 7.8 us, 128 threads 9.4, 1024 threads 8.8; 8 rows in flight 7.6, 32
+// rows 7.1; one slot a thread with scalar loads
+// (tools/variant_sources/reduce_slot_per_thread.cu), 128 or 256 threads a
+// camera and 2 or 4 slots in flight, 9.5-9.9 us.
 
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kExpandThreads = 256;
-constexpr int kWarps = 4;  // cameras per B6 block
+constexpr int kReduceThreads = 512;  // B6: one block a camera
+constexpr int kReduceWarps = kReduceThreads / 32;
+constexpr int kReduceBatch = 16;  // rows of one warp whose loads are in flight together
+constexpr unsigned kReduceBatchMask = (1u << kReduceBatch) - 1u;
 
 __global__ void __launch_bounds__(kExpandThreads)
 expand_cam_kernel(const int* __restrict__ cam, const float* __restrict__ w21,
@@ -68,37 +96,64 @@ expand_cam_kernel(const int* __restrict__ cam, const float* __restrict__ w21,
   }
 }
 
-__global__ void __launch_bounds__(32 * kWarps)
+// The r-th slot of camera-major row `base`: its observation, or -1 where the
+// slot is beyond `rows`, unfilled, or names no observation. mask and perm are
+// read together (neither waits for the other).
+__device__ __forceinline__ int slot_observation(const int* __restrict__ perm,
+                                                const unsigned char* __restrict__ mask,
+                                                size_t base, int r, int rows, int O) {
+  if (r >= rows) return -1;
+  const unsigned char m = mask[base + r];
+  const int o = perm[base + r];
+  return (m && o < O) ? o : -1;
+}
+
+__global__ void __launch_bounds__(kReduceThreads)
 reduce_cam_kernel(const float* __restrict__ w21, const float* __restrict__ y,
                   const int* __restrict__ perm,
-                  const unsigned char* __restrict__ mask, int O, int V,
-                  int rows, float* __restrict__ coup) {
-  const int lane = threadIdx.x & 31;
-  const int v = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (v >= V) return;  // warp-uniform: the whole warp leaves together
-  float acc[7];
-#pragma unroll
-  for (int i = 0; i < 7; ++i) acc[i] = 0.f;
+                  const unsigned char* __restrict__ mask, int O, int rows,
+                  float* __restrict__ coup) {
+  __shared__ float part[kReduceWarps][7];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int v = blockIdx.x;
   const size_t base = (size_t)v * rows;
-  for (int r = lane; r < rows; r += 32) {
-    if (!mask[base + r]) continue;
-    const int o = perm[base + r];
-    if (o < 0 || o >= O) continue;
-    const float* w = w21 + (size_t)o * 21;
-    const float y0 = y[3 * (size_t)o], y1 = y[3 * (size_t)o + 1],
-                y2 = y[3 * (size_t)o + 2];
+  const bool comp = lane < 21;  // lane i*3+c owns component (i, c) of W
+  const int c = lane % 3;
+  float acc = 0.f;
+  // warp w takes the 32-slot chunks w, w + kReduceWarps, ..: one slot a lane,
+  // the next chunk's slots requested before this chunk's rows
+  int r = warp * 32 + lane;
+  int o = slot_observation(perm, mask, base, r, rows, O);
+  while (r - lane < rows) {  // warp-uniform
+    r += kReduceThreads;
+    const int o_next = slot_observation(perm, mask, base, r, rows, O);
+    const unsigned filled = __ballot_sync(0xffffffffu, o >= 0);
 #pragma unroll
-    for (int i = 0; i < 7; ++i)
-      acc[i] += w[3 * i] * y0 + w[3 * i + 1] * y1 + w[3 * i + 2] * y2;
+    for (int b = 0; b < 32; b += kReduceBatch) {
+      if (((filled >> b) & kReduceBatchMask) == 0) continue;  // warp-uniform
+      float wv[kReduceBatch], yv[kReduceBatch];
+#pragma unroll
+      for (int k = 0; k < kReduceBatch; ++k) {  // every load of the batch first
+        const int ok = __shfl_sync(0xffffffffu, o, b + k);
+        const bool on = comp && ok >= 0;
+        wv[k] = on ? w21[(size_t)ok * 21 + lane] : 0.f;
+        yv[k] = on ? y[(size_t)ok * 3 + c] : 0.f;
+      }
+#pragma unroll
+      for (int k = 0; k < kReduceBatch; ++k) acc = fmaf(wv[k], yv[k], acc);  // slot order
+    }
+    o = o_next;
   }
+  // component sums -> z_i = (c0 + c1) + c2 on lane 3i, then the warps in order
+  const float z = (acc + __shfl_down_sync(0xffffffffu, acc, 1)) +
+                  __shfl_down_sync(0xffffffffu, acc, 2);
+  if (comp && c == 0) part[warp][lane / 3] = z;
+  __syncthreads();
+  if (threadIdx.x < 7) {
+    float sum = part[0][threadIdx.x];
 #pragma unroll
-  for (int i = 0; i < 7; ++i)
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      acc[i] += __shfl_down_sync(0xffffffffu, acc[i], off);
-  if (lane == 0) {
-#pragma unroll
-    for (int i = 0; i < 7; ++i) coup[7 * (size_t)v + i] = acc[i];
+    for (int w = 1; w < kReduceWarps; ++w) sum += part[w][threadIdx.x];
+    coup[7 * (size_t)v + threadIdx.x] = sum;
   }
 }
 
@@ -120,8 +175,7 @@ extern "C" int sfm_reduce_cam(const float* w21, const float* y, const int* perm,
                               const unsigned char* mask, int O, int V, int rows,
                               float* coup, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int nb = (V + kWarps - 1) / kWarps;
-  if (nb > 0)
-    reduce_cam_kernel<<<nb, 32 * kWarps, 0, s>>>(w21, y, perm, mask, O, V, rows, coup);
+  if (V > 0)
+    reduce_cam_kernel<<<V, kReduceThreads, 0, s>>>(w21, y, perm, mask, O, rows, coup);
   return static_cast<int>(cudaGetLastError());
 }

@@ -37,8 +37,8 @@ NVCC_FLAGS = (
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # entry point -> argtypes (all return int = cudaError_t)
 _SIGNATURES = {
-    # base, taps (L, 33), radii (L,), L, H, W, mid, out, stream
-    "sfm_blur_levels": (_P, _P, _P, _I, _I, _I, _P, _P, _P),
+    # base, taps (a host BlurTaps), L, H, W, out, stream
+    "sfm_blur_levels": (_P, _P, _I, _I, _I, _P, _P),
     # dog, S, H, W, contrast, edge_r, (edge_r + 1)^2, border, out, stream
     "sfm_candidate_response": (_P, _I, _I, _I, _F, _F, _F, _I, _P, _P),
     # ref, que, sqq, mask_que, Nr, Nq, d1, d2, j1, stream

@@ -9,6 +9,8 @@ rounded); any H and W.
 
 from __future__ import annotations
 
+import collections
+
 import torch
 import torch.nn.functional as F
 
@@ -68,7 +70,9 @@ def candidate_response(
     )
     kernels.check(rc, "sfm_candidate_response")
     candidate_response.launches += 1
+    candidate_response.by_shape[(H, W)] += 1
     return out
 
 
 candidate_response.launches = 0
+candidate_response.by_shape = collections.Counter()  # launches by (H, W)

@@ -1,0 +1,296 @@
+"""Device time of variants of B1 and B6 that are NOT in the tree.
+
+Run on a machine with an NVIDIA card, from the repository root:
+
+    python3 -m structure_from_motion_tpu_torch.tools.kernel_variants [--only b1,ablate,b6,ffma]
+
+The notes at the head of ``csrc/blur.cu`` and at B6 in ``csrc/ba_matvec.cu``
+say what else was tried; this script is where those times come from. It
+builds each variant from the source in the tree with one constant or
+statement substituted (a substitution that no longer finds its text
+raises), compiles all of a group together with the library's flags into
+``build/kernel_variants/``, holds the result against the plain version and
+prints the median device time of the kernel under ``torch.profiler``:
+
+* ``b1``: B1 with another tile (threads, tile width, tile height, outputs
+  a thread in the H- and V-pass, blocks an SM), with or without one block a
+  level, at the six shapes a 960x1280 frame launches it at, and five
+  levels of one radius beside the five radii;
+* ``ablate``: B1's 64 x 128 tile with a part taken out (the result is then
+  wrong and is not compared): where its time goes;
+* ``b6``: B6 with other block sizes and rows in flight, and the variant
+  ``variant_sources/reduce_slot_per_thread.cu``, over the 500-camera stream;
+* ``ffma``: the FMA rate of B1's inner code alone
+  (``variant_sources/ffma_rate.cu``).
+
+Every line carries the card's name and power limit.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import re
+import shutil
+import subprocess
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from structure_from_motion_tpu_torch import kernels
+from structure_from_motion_tpu_torch.ops import ba_matvec, blur_cuda
+from structure_from_motion_tpu_torch.tools.profile_kernels import (
+    ARTIFACT,
+    frame_kernels,
+    frame_shapes,
+    global_stream,
+)
+
+HERE = Path(__file__).resolve().parent / "variant_sources"
+OUT = kernels.BUILD_DIR.parent / "kernel_variants"
+_P, _I = ctypes.c_void_p, ctypes.c_int
+BLUR_ARGS = [_P, _P, _I, _I, _I, _P, _P]
+REDUCE_ARGS = [_P, _P, _P, _P, _I, _I, _I, _P, _P]
+
+# B1: template arguments of csrc/blur.cu's launch<NT, TW, TH, NH, NV, MINB>,
+# "+split" for one block a level
+B1_TILES = [
+    "256,64,128,8,8,2", "256,64,120,8,8,2", "256,64,96,8,8,2", "256,64,64,8,8,3",
+    "256,32,64,8,8,4", "256,64,32,8,8,4", "256,32,32,8,8,6", "512,64,64,8,8,2",
+    "256,64,128,16,8,2", "256,64,128,8,16,2", "256,32,64,4,4,4",
+    "256,64,128,8,8,2+split", "256,64,32,8,8,4+split",
+]
+_H_LOOP = "for (int item = threadIdx.x; item < kHItems; item += NT) {"
+_V_LOOP = "for (int item = threadIdx.x; item < kVItems; item += NT) {"
+_NEVER = " && H < 0; item += NT) {"  # a condition the compiler cannot fold
+# B1 ablations: name -> substitutions on the 64 x 128 variant's source
+B1_ABLATIONS = {
+    "as in the tree": [],
+    "staging by plain loads, each stored before the next": [
+        ("copy_async_or_zero(sbase + ry * pb + rx, in ? grow + gx : base, in);",
+         "sbase[ry * pb + rx] = in ? __ldg(grow + gx) : 0.f;")],
+    "no staging": [("for (int ry = warp; ry < hb; ry += NT / 32) {",
+                    "for (int ry = warp; ry < hb && H < 0; ry += NT / 32) {")],
+    "no shared loads (inputs made up in registers)": [
+        ("const float v = src[j];", "const float v = __int_as_float(__float_as_int(v0) + j);"),
+        ("const float v = src[j * kPm];",
+         "const float v = __int_as_float(__float_as_int(v0) + j);"),
+        ("    float acc[NH];\n", "    float acc[NH];\n    const float v0 = sbase[item];\n"),
+        ("    float acc[NV];\n", "    float acc[NV];\n    const float v0 = smid[item];\n")],
+    "no barriers between the passes": [
+        ("  __syncthreads();\n\n  // V-pass", "\n  // V-pass"),
+        ("  __syncthreads();  // smid is free for the next level\n", "")],
+    "no H-pass": [(_H_LOOP, _H_LOOP.replace("; item += NT) {", _NEVER))],
+    "no V-pass": [(_V_LOOP, _V_LOOP.replace("; item += NT) {", _NEVER))],
+    "neither pass (staging and launch alone)": [
+        (_H_LOOP, _H_LOOP.replace("; item += NT) {", _NEVER)),
+        (_V_LOOP, _V_LOOP.replace("; item += NT) {", _NEVER))],
+    "taps in ordinary registers (through shared memory)": [
+        ("  for (int t = 0; t <= 2 * R; ++t) k[t] = taps[t];",
+         "  for (int t = 0; t <= 2 * R; ++t) k[t] = stap[t];"),
+        ("const float* __restrict__ taps, int x0, int y0, int H,",
+         "const float* __restrict__ stap, int x0, int y0, int H,"),
+        ("  extern __shared__ float smem[];",
+         "  extern __shared__ float smem[];\n"
+         "  __shared__ float stap_all[kMaxLevels * kMaxTaps];\n"
+         "  for (int i = threadIdx.x; i < kMaxLevels * kMaxTaps; i += NT)\n"
+         "    stap_all[i] = taps.k[i / kMaxTaps][i % kMaxTaps];"),
+        ("smid, taps.k[l], x0", "smid, stap_all + l * kMaxTaps, x0")],
+}
+# B6: (threads a camera, rows in flight a warp); "slot:T,K" is the variant file
+B6_VARIANTS = ["512,16", "256,16", "128,16", "1024,16", "512,8", "512,32",
+               "slot:128,4", "slot:256,2", "slot:128,2"]
+
+
+def _substitute(src: str, pairs) -> str:
+    for old, new in pairs:
+        if old not in src:
+            raise RuntimeError(f"kernel_variants: the source no longer holds {old!r}")
+        src = src.replace(old, new)
+    return src
+
+
+def blur_source(tile: str, pairs=()) -> str:
+    """``csrc/blur.cu`` with its choice of tile replaced by ``tile``."""
+    src = (kernels.CSRC / "blur.cu").read_text()
+    cfg, _, split = tile.partition("+")
+    a = src.index("  cudaError_t rc;\n  if (tiles(64, 128)")
+    b = src.index("  return static_cast<int>(rc);")
+    forced = (f"  cudaError_t rc = launch<{cfg}>(base, taps, L, halo, H, W, out, "
+              f"{'L > 1' if split else 'false'}, s);\n")
+    return _substitute(src[:a] + forced + src[b:], pairs)
+
+
+def reduce_source(variant: str) -> str:
+    if variant.startswith("slot:"):
+        t, k = variant[5:].split(",")
+        return _substitute((HERE / "reduce_slot_per_thread.cu").read_text(), [
+            ("constexpr int kT = 128;", f"constexpr int kT = {t};"),
+            ("constexpr int kK = 4;", f"constexpr int kK = {k};")])
+    t, b = variant.split(",")
+    pairs = [("constexpr int kReduceThreads = 512;", f"constexpr int kReduceThreads = {t};"),
+             ("constexpr int kReduceBatch = 16;", f"constexpr int kReduceBatch = {b};")]
+    if b == "32":
+        pairs.append(("(1u << kReduceBatch) - 1u", "0xffffffffu"))
+    return _substitute((kernels.CSRC / "ba_matvec.cu").read_text(), pairs)
+
+
+def build(group: str, sources: dict, entry: str, argtypes: list) -> dict:
+    """Compile ``{name: source text}`` together; ``{name: loaded library}``."""
+    OUT.mkdir(parents=True, exist_ok=True)
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    procs = []
+    for i, (name, text) in enumerate(sources.items()):
+        cu, so = OUT / f"{group}_{i}.cu", OUT / f"{group}_{i}.so"
+        cu.write_text(text)
+        procs.append((name, so, subprocess.Popen(
+            [nvcc, *kernels.NVCC_FLAGS, "-shared", "-o", str(so), str(cu)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    libs = {}
+    for name, so, proc in procs:
+        log = proc.communicate()[0]
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on variant {name}:\n{log[-3000:]}")
+        regs = [int(m) for m in re.findall(r"Used (\d+) registers", log)]
+        spills = len(re.findall(r"[1-9]\d* bytes spill", log))
+        print(f"built {group} [{name}]: registers {regs}, kernels that spill {spills}")
+        lib = ctypes.CDLL(str(so))
+        getattr(lib, entry).argtypes = argtypes
+        getattr(lib, entry).restype = _I
+        libs[name] = lib
+    return libs
+
+
+def device_us(fn, key: str, reps: int = 20) -> float:
+    """Median device microseconds of the kernels named ``*key*`` over
+    ``reps`` calls of ``fn``, each after a short spin of the card. After
+    some hundred traces in one process a trace now and then comes back
+    without device records: it is taken again, three times at most."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    for _ in range(3):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(reps):
+                torch.cuda._sleep(200_000)
+                fn()
+            torch.cuda.synchronize()
+        times = [t for ev in prof.events() if key in ev.name
+                 for t in [getattr(ev, "device_time_total", 0) or getattr(ev, "cuda_time_total", 0)]
+                 if t > 0]
+        if times:
+            return float(np.median(times))
+    raise RuntimeError(f"the profiler saw no kernel named *{key}*")
+
+
+def _time_blur(libs: dict, shapes, dev, rng, card: str, check: bool) -> None:
+    stream = kernels.stream_ptr(dev)
+    for label, (h, w), ks in shapes:
+        img = torch.as_tensor(rng.random((h, w)).astype(np.float32)).to(dev)
+        out = torch.empty((len(ks), h, w), device=dev)
+        ref = blur_cuda.blur_levels_reference(img, ks)
+        table = blur_cuda.taps_table(ks)
+        for name, lib in libs.items():
+            def call():
+                return lib.sfm_blur_levels(img.data_ptr(), ctypes.byref(table), len(ks), h, w,
+                                           out.data_ptr(), stream)
+            out.zero_()
+            kernels.check(call(), f"variant {name}")
+            torch.cuda.synchronize()
+            err = float((out - ref).abs().max())
+            if check and not err <= 2e-5:
+                raise AssertionError(f"B1 variant {name} at {label}: max_abs_err {err:.2e}")
+            print(f"B1 {label} {h}x{w} [{name}]: {device_us(call, 'blur_'):.1f} us"
+                  + (f", max_abs_err {err:.1e}" if check else "") + f" ({card})")
+
+
+def b1_tiles(dev, rng, card) -> None:
+    rel, _ = frame_kernels()
+    libs = build("b1", {t: blur_source(t) for t in B1_TILES}, "sfm_blur_levels", BLUR_ARGS)
+    shapes = frame_shapes() + [("octave 0, radius 9 five times", (1920, 2560), [rel[2]] * 5),
+                               ("octave 4, radius 9 five times", (120, 160), [rel[2]] * 5)]
+    _time_blur(libs, shapes, dev, rng, card, check=True)
+
+
+def b1_ablations(dev, rng, card) -> None:
+    rel, base_k = frame_kernels()
+    libs = build("ablate", {n: blur_source("256,64,128,8,8,2", p) for n, p in B1_ABLATIONS.items()},
+                 "sfm_blur_levels", BLUR_ARGS)
+    shapes = [("octave 0", (1920, 2560), rel), ("radius 15 alone", (1920, 2560), [rel[4]]),
+              ("base blur", (1920, 2560), base_k)]
+    _time_blur(libs, shapes, dev, rng, card, check=False)
+
+
+def b6_variants(dev, rng, card, artifact: str) -> None:
+    libs = build("b6", {v: reduce_source(v) for v in B6_VARIANTS}, "sfm_reduce_cam", REDUCE_ARGS)
+    w21, y, perm, mask, O, V, cam_rows = global_stream(dev, rng, artifact)
+    ref = ba_matvec.reduce_cam_reference(w21, y, perm, mask, V)
+    bound = 1e-4 * max(1.0, float(ref.abs().max()))
+    coup = torch.empty((V, 7), device=dev)
+    stream = kernels.stream_ptr(dev)
+    for name, lib in libs.items():
+        def call():
+            return lib.sfm_reduce_cam(w21.data_ptr(), y.data_ptr(), perm.data_ptr(),
+                                      mask.data_ptr(), O, V, cam_rows, coup.data_ptr(), stream)
+        coup.zero_()
+        kernels.check(call(), f"variant {name}")
+        torch.cuda.synchronize()
+        err = float((coup - ref).abs().max())
+        if not err <= bound:
+            raise AssertionError(f"B6 variant {name}: max_abs_err {err:.2e} over {bound:.2e}")
+        print(f"B6 {V} cameras x {cam_rows} slots [{name}]: {device_us(call, 'reduce_'):.2f} us, "
+              f"max_abs_err {err:.1e} ({card})")
+
+
+def ffma_rate(dev, card) -> None:
+    lib = build("ffma", {"ffma_rate": (HERE / "ffma_rate.cu").read_text()}, "sfm_ffma_rate",
+                [_I, _I, _I, _P, _P])["ffma_rate"]
+    out = torch.zeros(4, device=dev)
+    stream = kernels.stream_ptr(dev)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    clock_hz = 1e6 * float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout.split()[0])
+    for which, K, rep in ((0, 31, 1), (3, 31, 4), (1, 31, 16), (2, 9, 1)):
+        for blocks_per_sm in (2, 8):
+            blocks, n = sms * blocks_per_sm, 1600 // rep
+
+            def call():
+                return lib.sfm_ffma_rate(which, blocks, n, out.data_ptr(), stream)
+            kernels.check(call(), "ffma_rate")
+            us = device_us(call, "ffma_rate", reps=5)
+            warp_fmas = blocks * 8 * n * rep * K * 8
+            code_kb = rep * K * 8 * 16 / 1024
+            print(f"FMA rate, {K} taps x 8 outputs, {rep} copies in a row ({code_kb:.0f} KB of "
+                  f"code), {blocks_per_sm} blocks of 8 warps an SM: {us:.0f} us, "
+                  f"{warp_fmas / (us * 1e-6) / sms / clock_hz:.2f} of 4 warp FMAs a clock an SM "
+                  f"at {clock_hz / 1e6:.0f} MHz ({card})")
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--only", default="b1,ablate,b6,ffma")
+    ap.add_argument("--artifact", default=str(ARTIFACT), help="checkpoint whose stream B6 walks")
+    args = ap.parse_args()
+    only = set(args.only.split(","))
+    if not torch.cuda.is_available():
+        raise SystemExit("kernel_variants: no CUDA device")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(0)
+    if "b1" in only:
+        b1_tiles(dev, rng, card)
+    if "ablate" in only:
+        b1_ablations(dev, rng, card)
+    if "b6" in only:
+        b6_variants(dev, rng, card, args.artifact)
+    if "ffma" in only:
+        ffma_rate(dev, card)
+
+
+if __name__ == "__main__":
+    main()

@@ -54,15 +54,57 @@ def _ba_inputs(rng, O=1024, V=8):
     return cam, Cv[cam], qv[cam], X, uv, w
 
 
-def test_blur_plain_matches_pallas():
+def _cli_relative_kernels():
+    """The five relative kernels of an octave at the CLI's defaults (sigma0
+    1.6, 3 scales an octave): radii 4, 6, 9, 12, 15."""
+    sig = [1.6 * 2.0 ** (i / 3) for i in range(6)]
+    return [JF._gaussian_kernel1d(float(np.sqrt(s**2 - sig[0] ** 2))) for s in sig[1:]]
+
+
+@pytest.mark.parametrize("case", ["three_sigmas", "base_blur_radius_4", "cli_radii_4_to_15"])
+def test_blur_plain_matches_pallas(case):
     """B1: zero-padded 'SAME' separable blur, all levels; atol 2e-5 is the
-    f32 sum-order bound the JAX package holds its own kernel to."""
+    f32 sum-order bound the JAX package holds its own kernel to. The cases
+    are the shapes of call of a frame: ONE level of radius 4 (the base blur)
+    and the five radii of an octave at the CLI's defaults."""
     rng = np.random.default_rng(4)
     img = rng.normal(size=(64, 256)).astype(np.float32)
-    ks = [JF._gaussian_kernel1d(s) for s in (1.2, 2.5, 4.8)]
+    ks = {
+        "three_sigmas": [JF._gaussian_kernel1d(s) for s in (1.2, 2.5, 4.8)],
+        "base_blur_radius_4": [JF._gaussian_kernel1d(float(np.sqrt(1.6**2 - 1.0)))],
+        "cli_radii_4_to_15": _cli_relative_kernels(),
+    }[case]
+    if case != "three_sigmas":
+        want_radii = [4] if case == "base_blur_radius_4" else [4, 6, 9, 12, 15]
+        assert [len(k) // 2 for k in ks] == want_radii
     want = np.asarray(pallas_blur_levels(jnp.asarray(img), ks, interpret=True))
     got = blur_cuda.blur_levels_reference(T(img), ks).numpy()
+    assert got.shape == (len(ks), 64, 256)
     np.testing.assert_allclose(got, want, atol=2e-5)
+
+
+def test_blur_taps_table_is_keyed_by_content():
+    """The launch parameter of B1 is built once per distinct list of taps:
+    other taps of the same lengths give another table (and another result),
+    the same taps the same table; the table holds each level's radius and
+    taps as the kernel reads them."""
+    rng = np.random.default_rng(12)
+    img = T(rng.normal(size=(40, 56)).astype(np.float32))
+    a = [JF._gaussian_kernel1d(1.2), JF._gaussian_kernel1d(2.0)]
+    b = [JF._gaussian_kernel1d(1.3), JF._gaussian_kernel1d(1.9)]
+    assert [len(k) for k in a] == [len(k) for k in b]
+    out_a, out_b = blur_cuda.blur_levels(img, a), blur_cuda.blur_levels(img, b)
+    assert float((out_a - out_b).abs().max()) > 1e-3
+    ta, tb = blur_cuda.taps_table(a), blur_cuda.taps_table(b)
+    assert ta is not tb and ta is blur_cuda.taps_table([k.copy() for k in a])
+    for table, ks in ((ta, a), (tb, b)):
+        for lvl, k in enumerate(ks):
+            assert table.radius[lvl] == len(k) // 2
+            np.testing.assert_array_equal(np.asarray(table.k[lvl][: len(k)], np.float32), k)
+    with pytest.raises(ValueError, match="radius"):
+        blur_cuda.taps_table([np.ones(35, np.float32) / 35])
+    with pytest.raises(ValueError, match="levels"):
+        blur_cuda.taps_table([a[0]] * (blur_cuda.MAX_LEVELS + 1))
 
 
 def test_candidate_response_plain_matches_pallas_exactly():
@@ -226,6 +268,32 @@ def test_ba_matvec_plain_matches_pallas(O):
     np.testing.assert_allclose(got_c, want_c, atol=1e-4)
 
 
+@pytest.mark.parametrize("rows", [45, 70])
+def test_reduce_cam_plain_matches_pallas_on_ragged_rows(rows):
+    """B6 with ``rows`` not a multiple of 32 (the width of the chunks the
+    CUDA kernel walks), one camera with no filled slot and one with every
+    slot filled; atol 1e-4 as above."""
+    V, O = 6, 512
+    rng = np.random.default_rng(rows)
+    _, W, _, y, _ = _matvec_inputs(rng, O, V)
+    counts = np.array([rows - 7, 0, rows, 23, rows - 1, 17])
+    n = int(counts.sum())
+    # the valid observations in a shuffled order, then unfilled padding slots
+    cam = np.concatenate([rng.permutation(np.repeat(np.arange(V), counts)),
+                          rng.integers(0, V, O - n)]).astype(np.int32)
+    valid = np.arange(O) < n
+    W[~valid] = 0.0
+    w21 = W.reshape(O, 21)
+    assert n < O and counts[1] == 0 and counts.max() == counts[2] == rows and rows % 32
+    want = np.asarray(pallas_reduce_cam(jnp.asarray(cam), jnp.asarray(w21.T), jnp.asarray(y.T), V,
+                                        interpret=True))
+    perm, mask = compute_cam_ell(T(cam), T(valid), V, rows)
+    assert not mask.view(V, rows)[1].any() and mask.view(V, rows)[2].all()
+    got = ba_matvec.reduce_cam_reference(T(w21), T(y), perm, mask, V).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-4)
+    assert np.abs(got[1]).max() == 0.0
+
+
 def test_cpu_tensors_take_the_plain_version():
     """Dispatch is by device only: CPU tensors run the plain version and no
     kernel launch is counted; a tensor on another device raises."""
@@ -257,6 +325,22 @@ def test_cpu_tensors_take_the_plain_version():
         assert wrapper.launches == before == 0
     with pytest.raises(ValueError, match="unsupported device"):
         blur_cuda.blur_levels(torch.empty(8, 8, device="meta"), ks)
+
+
+def test_kernel_variants_still_find_their_text():
+    """``tools/kernel_variants.py`` makes its variants by substituting text
+    of ``csrc/blur.cu`` and ``csrc/ba_matvec.cu``; every substitution must
+    still find its text and change the source."""
+    from structure_from_motion_tpu_torch.tools import kernel_variants as kv
+
+    tree = (kernels.CSRC / "blur.cu").read_text()
+    for tile in kv.B1_TILES:
+        assert f"launch<{tile.partition('+')[0]}>" in kv.blur_source(tile)
+    sources = {kv.blur_source("256,64,128,8,8,2", pairs) for pairs in kv.B1_ABLATIONS.values()}
+    assert len(sources) == len(kv.B1_ABLATIONS) and tree not in sources
+    assert len({kv.reduce_source(v) for v in kv.B6_VARIANTS}) == len(kv.B6_VARIANTS)
+    with pytest.raises(RuntimeError, match="no longer holds"):
+        kv.blur_source("256,64,128,8,8,2", [("not in the source", "")])
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
