@@ -9,15 +9,21 @@ the script exits non-zero without printing the final result line:
 1. environment: a CUDA card must be visible; prints its nvidia-smi name and
    power limit, the torch/CUDA versions and both TF32 switches;
 2. build: compiles ``structure_from_motion_tpu_torch/csrc/*.cu`` for sm_90a;
-3. kernels: each of the six Hopper kernels against its plain PyTorch
+3. kernels: each of the Hopper kernels against its plain PyTorch
    version on the card, at the shapes its path gives it, with the
    tolerance stated beside it, the median CUDA-event time of both, the
    kernel's bound (the larger of its bytes over the card's memory rate and
    its operations over the card's peak rate, computed here from the shapes
    of this run) and, where one PyTorch call computes the same function,
-   that call's time: B1-B4 at the per-frame slice's shapes (B1 and B2 at
-   every shape a frame launches them at: the base blur and the five
-   octaves from 1920x2560 down to 120x160, one entry a shape; B3 also on the
+   that call's time: B1-B4 at the per-frame slice's shapes (B1 and the
+   fused B2, "B2f", at every shape a frame launches them at: the base blur
+   and the five octaves from 1920x2560 down to 120x160, one entry a shape,
+   B2f bit for bit, also on a stack full of ties and all-zero blocks and on
+   two launches; the B2 kernel that writes the whole response map, and B1
+   again, at every shape a 600x800 frame launches them at, 1200x1600 down
+   to 75x100, 300x400 and below not multiples of 8; ``topk_block`` 4 (the
+   map kernel and two reductions) against the CPU; the whole candidate
+   stage at octave 0 before and after the fusion; B3 also on the
    x512 descriptors of rendered frames, with the matcher's decisions), then
    B4, B5 and B6 at the shape of the 500-camera global solve (the real
    stream of ``artifacts/longrun500_pre_globalba.ckpt.npz``) and B4 at the
@@ -26,15 +32,27 @@ the script exits non-zero without printing the final result line:
    ``IncrementalSfM`` at the CLI's default reconstruct configuration
    (window 16 in slide mode, so frames 16-23 evict and archive a view),
    then ``finalize_global`` over all 24 cameras (a dense Schur solve);
-   every kernel's launch count (B1's and B2's by shape too), the per-frame
-   wall time, and the
+   every kernel's launch count (B1's and B2's by shape too: five fused B2
+   launches a frame, none of the map kernel), the per-frame wall time, and the
    similarity-aligned ATE (before and after the global solve) and mean
    reprojection error against the exact rendered ground truth;
 5. global: the 500-camera checkpoint loaded with the port's
    ``load_checkpoint`` and solved by ``finalize_global(iterations=20)``
    (tiered layout, PCG through B5/B6): problem size, CG iterations per LM
    step, costs, synchronised wall time, launches, and the final cost
-   against the JAX package's f32 result for the same input.
+   against the JAX package's f32 result for the same input;
+6. CLI: the first 20 of the rendered frames written as 24-bit BMP files and
+   reconstructed by ``python -m structure_from_motion_tpu_torch
+   reconstruct`` (called in-process) at its default flags plus the three
+   exports and ``--checkpoint-every 8``, through the stream prefetcher;
+   then ``--resume`` on a directory holding 4 more frames. Checked: exit
+   code 0, ATE and reprojection against the rendered truth, every export
+   read back to the same poses, the resume starting at input 20, B1-B4
+   launched. Then the median frame time with the prefetcher and with a
+   plain loop (host wall time), ``selftest``, and 6 frames of 600x800
+   with ``--config`` (``topk_block`` 0), the path that launches the B2 map
+   kernel (8 does not divide 300x400 either), held to the same ATE and
+   reprojection bounds.
 
 Every phase's launch counts are set to 0 just before it and read just
 after. The last two lines are a JSON object of the kernels' numbers and
@@ -43,8 +61,12 @@ after. The last two lines are a JSON object of the kernels' numbers and
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import math
+import shutil
+import struct
 import subprocess
 import sys
 import time
@@ -52,6 +74,8 @@ from pathlib import Path
 
 # 0.07 loops per frame, the motion of tests/test_synthetic_gt.py:77-79
 RENDER = dict(n_frames=24, size=(960, 1280), seed=3, loops=1.68)
+# a frame size whose deeper octaves (300x400 and below) 8 does not divide
+RENDER_SMALL = dict(n_frames=6, size=(600, 800), seed=3, loops=0.42)
 ATE_BOUND = 0.05  # of the trajectory span (tests/test_synthetic_gt.py:86-90)
 REPROJ_BOUND_PX = 2.0
 ARTIFACT = Path(__file__).resolve().parent / "artifacts" / "longrun500_pre_globalba.ckpt.npz"
@@ -166,6 +190,181 @@ def long_sequence_config():
     )
 
 
+def write_bmp_gray(path, gray) -> None:
+    """(H, W) uint8 -> an uncompressed bottom-up 24-bit BMP file."""
+    import numpy as np
+
+    h, w = gray.shape
+    stride = (3 * w + 3) & ~3
+    rows = np.zeros((h, stride), np.uint8)
+    rows[:, : 3 * w] = np.repeat(gray[::-1], 3, axis=1)
+    with open(path, "wb") as f:
+        f.write(b"BM" + struct.pack("<IHHI", 54 + rows.size, 0, 0, 54))
+        f.write(struct.pack("<IiiHHIIiiII", 40, w, h, 1, 24, 0, rows.size, 2835, 2835, 0, 0))
+        f.write(rows.tobytes())
+
+
+def _reset(counted) -> None:
+    for fn in counted.values():
+        fn.launches = 0
+        getattr(fn, "by_shape", {}).clear()
+
+
+def _read(counted):
+    return ({name: fn.launches for name, fn in counted.items()},
+            {name: dict(fn.by_shape) for name, fn in counted.items() if hasattr(fn, "by_shape")})
+
+
+def _run_cli(argv) -> tuple:
+    """``__main__.main(argv)`` in this process -> (exit code, its stdout)."""
+    from structure_from_motion_tpu_torch.__main__ import main as cli_main
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli_main(argv)
+    return rc, out.getvalue()
+
+
+def cli_phase(dev, imgs, small_imgs, K, small_K, C_gt, small_C_gt, cfg, counted, sync,
+              card: str):
+    """The command line on BMP files, on ``dev`` ("cuda" in the smoke, "cpu"
+    in a rehearsal); raises when a check fails. Returns the launch counts
+    (all, by shape) of the 600x800 run with ``topk_block`` 0, the path of
+    the B2 map kernel."""
+    import dataclasses
+
+    import numpy as np
+
+    from structure_from_motion_tpu_torch.io.colmap import read_colmap_text
+    from structure_from_motion_tpu_torch.io.datasets import load_image_grayscale
+    from structure_from_motion_tpu_torch.io.ply import read_ply
+    from structure_from_motion_tpu_torch.io.prefetch import DevicePrefetcher
+    from structure_from_motion_tpu_torch.io.tum import load_tum_trajectory
+    from structure_from_motion_tpu_torch.models.incremental import IncrementalSfM
+
+    device = str(dev).split(":")[0]
+    root = Path(__file__).resolve().parent / "build" / "chip_smoke_cli"
+    shutil.rmtree(root, ignore_errors=True)
+    n_first, n_all = len(imgs) - 4, len(imgs)
+    for name, frames in (("first", imgs[:n_first]), ("all", imgs), ("small", small_imgs)):
+        (root / name).mkdir(parents=True)
+        for i, im in enumerate(frames):
+            write_bmp_gray(str(root / name / f"frame{i:04d}.bmp"), np.asarray(im))
+    out = root / "out"
+
+    def argv(images, Km, *extra):
+        return ["reconstruct", "--images", str(root / images), "--pattern", "*.bmp",
+                "--out", str(out), "--fx", repr(float(Km[0, 0])), "--fy", repr(float(Km[1, 1])),
+                "--cx", repr(float(Km[0, 2])), "--cy", repr(float(Km[1, 2])),
+                "--device", device, *extra]
+
+    def quality(n, cfg=cfg, K=K, C_gt=C_gt):
+        """ATE and mean reprojection of the run under ``out`` over n frames."""
+        rec = np.load(out / "reconstruction.npz")
+        locs, rots = rec["locations"], rec["rotations"]
+        if locs.shape != (n, 3) or not (np.isfinite(locs).all() and np.isfinite(rots).all()):
+            raise AssertionError(f"reconstruction.npz holds {locs.shape} poses, expected {n}")
+        span = float(np.linalg.norm(C_gt[:n].max(0) - C_gt[:n].min(0)))
+        ate = _umeyama_ate(locs, C_gt[:n]) / span
+        engine = IncrementalSfM(cfg, K, frontend="native", device=dev)
+        engine.load_checkpoint(str(out / "state.npz"))
+        reproj = engine.reprojection_error()
+        if not (ate < ATE_BOUND and reproj < REPROJ_BOUND_PX):
+            raise AssertionError(f"CLI quality outside its bounds: ATE {ate}, {reproj} px")
+        return locs, rots, rec["points"], ate, reproj, engine
+
+    # -- reconstruct at the default flags, with the exports and checkpoints
+    _reset(counted)
+    rc, text = _run_cli(argv("first", K, "--export-tum", "--export-ply", "--export-colmap",
+                             "--checkpoint-every", "8"))
+    sync()
+    launches, _ = _read(counted)
+    print(text.rstrip())
+    if rc != 0:
+        raise AssertionError(f"reconstruct exited with {rc}")
+    rate = [ln for ln in text.splitlines() if "frames/s" in ln]
+    print(f"cli reconstruct: {rate[0].strip()} ({card})")
+    locs, rots, pts, ate, reproj, engine = quality(n_first)
+    if len(engine._archive) != n_first - cfg.window_size:
+        raise AssertionError(f"{len(engine._archive)} views archived in the CLI run")
+    ts, tum_C, tum_R = load_tum_trajectory(str(out / "trajectory.tum"))
+    xyz, _ = read_ply(str(out / "reconstruction.ply"))
+    model = read_colmap_text(str(out / "colmap"))
+    # the files hold 9 (TUM), ~7 (PLY, f32) and 12 (COLMAP) digits
+    exports_ok = (
+        np.array_equal(ts, np.arange(n_first))
+        and np.abs(tum_C - locs).max() < 1e-6 and np.abs(tum_R - rots).max() < 1e-5
+        and len(xyz) == len(pts) + n_first and np.abs(xyz[len(pts):] - locs).max() < 1e-4
+        and np.abs(xyz[:len(pts)] - pts).max() < 1e-4
+        and np.abs(model["locs"] - locs).max() < 1e-5 and np.abs(model["rots"] - rots).max() < 1e-5
+        and model["names"] == [f"frame{i:04d}.bmp" for i in range(n_first)]
+        and len(model["points"]) == len(pts)
+    )
+    print(f"cli quality over {n_first} frames: ATE {ate:.5f} of span (bound {ATE_BOUND}), "
+          f"reprojection {reproj:.4f} px (bound {REPROJ_BOUND_PX}), {len(pts)} map points, "
+          f"{len(engine._archive)} views archived; TUM, PLY and COLMAP read back to the same "
+          f"poses: {exports_ok}; launches {launches}")
+    if not exports_ok:
+        raise AssertionError("an export does not read back to the poses of reconstruction.npz")
+    main_kernels = ("B1 blur_levels", "B2f candidate_block_max", "B3 match_top2", "B4 ba_blocks")
+    if any(launches[k] < 1 for k in main_kernels) or launches["B2 candidate_response"]:
+        raise AssertionError(f"CLI launches: {launches}")
+
+    # -- resume on a directory with 4 more frames
+    _reset(counted)
+    rc, text = _run_cli(argv("all", K, "--resume", "--export-tum"))
+    sync()
+    launches, _ = _read(counted)
+    print(text.rstrip())
+    resumed = f"resumed at frame {n_first} (input file {n_first})" in text
+    if rc != 0 or not resumed or f"frame{n_first - 1:04d}.bmp:" in text:
+        raise AssertionError(f"--resume: exit {rc}, started at input {n_first}: {resumed}")
+    _, _, _, ate, reproj, engine = quality(n_all)
+    print(f"cli resume: started at input {n_first}, {n_all} poses, ATE {ate:.5f} of span, "
+          f"reprojection {reproj:.4f} px; launches {launches}")
+    if any(launches[k] < 1 for k in main_kernels):
+        raise AssertionError(f"resume launches: {launches}")
+
+    # -- the prefetcher against a plain loop: host wall time per frame
+    files = sorted(str(f) for f in (root / "first").glob("*.bmp"))[:12]
+    medians = {}
+    for mode in ("prefetcher", "plain loop", "plain loop", "prefetcher"):
+        engine = IncrementalSfM(cfg, K, frontend="native", device=dev)
+        feed = (DevicePrefetcher(files, load_image_grayscale, device=device)
+                if mode == "prefetcher" else ((f, load_image_grayscale(f)) for f in files))
+        times, t0 = [], time.perf_counter()
+        for _, img in feed:
+            engine.process_image(img)
+            sync()
+            times.append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+        medians.setdefault(mode, []).append(float(np.median(times[2:])))
+    print(f"cli ingest: median host wall time a frame (frames 2-{len(files) - 1}, decode and upload "
+          f"included, two runs each): with the prefetcher {medians['prefetcher']} s, with a plain "
+          f"loop {medians['plain loop']} s ({card})")
+
+    # -- selftest, and the B2 map kernel's path: --config with topk_block 0
+    rc, text = _run_cli(["selftest", "--device", device])
+    print(f"cli {text.strip()}")
+    if rc != 0:
+        raise AssertionError("selftest failed")
+    map_cfg = dataclasses.replace(cfg, frontend=dataclasses.replace(cfg.frontend, topk_block=0))
+    (root / "map_config.json").write_text(map_cfg.to_json())
+    _reset(counted)
+    rc, text = _run_cli(argv("small", small_K, "--config", str(root / "map_config.json")))
+    sync()
+    map_launches, map_by_shape = _read(counted)
+    if rc != 0 or map_launches["B2f candidate_block_max"]:
+        raise AssertionError(f"the --config run exited with {rc} or took the fused kernel")
+    _, _, pts, ate, reproj, _ = quality(len(small_imgs), map_cfg, small_K, small_C_gt)
+    print(f"cli --config (topk_block 0, {len(small_imgs)} frames of "
+          f"{small_imgs[0].shape[0]}x{small_imgs[0].shape[1]}): ATE {ate:.5f} of span (bound "
+          f"{ATE_BOUND}), reprojection {reproj:.4f} px (bound {REPROJ_BOUND_PX}), {len(pts)} map "
+          f"points; launches {map_launches}, by shape {map_by_shape}")
+    shutil.rmtree(root)
+    return map_launches, map_by_shape
+
+
 def slice_phase(dev, imgs, K, C_gt, cfg, counted, sync, card: str) -> dict:
     """Frames through the engine in slide mode, then ``finalize_global``;
     raises when a bound fails. Returns the launch counts of the phase and,
@@ -177,9 +376,7 @@ def slice_phase(dev, imgs, K, C_gt, cfg, counted, sync, card: str) -> dict:
 
     n = len(imgs)
     window = cfg.window_size
-    for fn in counted.values():
-        fn.launches = 0
-        getattr(fn, "by_shape", {}).clear()
+    _reset(counted)
     engine = IncrementalSfM(cfg, K, frontend="native", seed=0, device=dev)
     frame_s = []
     for im in imgs:
@@ -198,9 +395,7 @@ def slice_phase(dev, imgs, K, C_gt, cfg, counted, sync, card: str) -> dict:
     ginfo = engine.finalize_global(iterations=20)
     sync()
     global_s = time.perf_counter() - t0
-    launches = {name: fn.launches for name, fn in counted.items()}
-    by_shape = {name: dict(fn.by_shape) for name, fn in counted.items()
-                if hasattr(fn, "by_shape")}
+    launches, by_shape = _read(counted)
     print(f"slice launches: {launches}")
     print(f"slice launches by shape: {by_shape}")
     print(f"slice frame time: first (frame 0) {frame_s[0]:.3f} s, bootstrap (frame 1) "
@@ -255,14 +450,13 @@ def global_phase(dev, counted, sync, card: str) -> dict:
                             device=dev)
     frame = engine.load_checkpoint(str(ARTIFACT))
     print(f"global: checkpoint at frame {frame}, {len(engine._archive)} archived views")
-    for fn in counted.values():
-        fn.launches = 0
+    _reset(counted)
     sync()
     t0 = time.perf_counter()
     info = engine.finalize_global(iterations=20)
     sync()
     wall = time.perf_counter() - t0
-    launches = {name: fn.launches for name, fn in counted.items()}
+    launches, _ = _read(counted)
     costs = [float(c) for c in info["costs"]]
     print(f"global problem: V {info['n_cams']}, points {info['n_points']}, observations "
           f"{info['n_obs']}, max track {info['max_track_len']}, slots {info['slots']}, "
@@ -292,10 +486,12 @@ def global_phase(dev, counted, sync, card: str) -> dict:
     return launches
 
 
-def kernel_phase(dev, imgs, cfg, smi: str) -> list:
+def kernel_phase(dev, imgs, small_img, cfg, smi: str) -> list:
     """Every kernel against its plain version on the card at the shapes its
     path gives it; raises on a disagreement. Returns the kernels' entries
-    (without ``launches``)."""
+    (without ``launches``; ``path`` names the run whose launches count)."""
+    import dataclasses
+
     import numpy as np
     import torch
 
@@ -317,12 +513,13 @@ def kernel_phase(dev, imgs, cfg, smi: str) -> list:
         return sum(t.numel() * t.element_size() for t in tensors)
 
     def record(name, src, replaces, err, tol, fn, plain, ok, *, moved, flops,
-               flop_rate=PEAK_F32_FLOPS, library=None, shape=None):
+               flop_rate=PEAK_F32_FLOPS, library=None, shape=None, path="slice"):
         """``moved``: bytes the function must move (inputs once, outputs
         once); ``flops``: its operations at ``flop_rate``; ``library``: one
         PyTorch call computing the same function, where there is one;
         ``shape``: the wrapper's ``by_shape`` key, where its launches are
-        tallied by shape."""
+        tallied by shape; ``path``: the run that launches it ("slice",
+        "global", or "cli map" for the CLI run with ``topk_block`` 0)."""
         ms, plain_ms = _median_ms(torch, fn), _median_ms(torch, plain)
         library_ms = _median_ms(torch, library) if library is not None else None
         t_bytes, t_ops = 1e3 * moved / PEAK_BYTES_PER_S, 1e3 * flops / flop_rate
@@ -337,14 +534,14 @@ def kernel_phase(dev, imgs, cfg, smi: str) -> list:
                             source=f"structure_from_motion_tpu_torch/csrc/{src}",
                             replaces=replaces, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                             bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
-                            shape=shape))
+                            shape=shape, path=path))
 
     # B1 and B2 at every shape a frame launches them at: the base blur (one
     # level over the upsampled image), then each octave's five levels and its
     # DoG stack, every shape against the plain version with its own bound.
     # B1: two separable passes of 2r + 1 taps a level; B2: ~40 compares and a
     # 2x2 Hessian test per output value
-    def b1_case(label, src_img, ks):
+    def b1_case(label, src_img, ks, path="slice"):
         got = blur_cuda.blur_levels(src_img, ks)
         ref = blur_cuda.blur_levels_reference(src_img, ks)
         err = float((got - ref).abs().max())
@@ -355,29 +552,114 @@ def kernel_phase(dev, imgs, cfg, smi: str) -> list:
                lambda: blur_cuda.blur_levels(src_img, ks),
                lambda: blur_cuda.blur_levels_reference(src_img, ks), err <= 2e-5,
                moved=nbytes(src_img, got), flops=sum(2 * 2 * len(k) for k in ks) * src_img.numel(),
-               shape=(h, w, len(ks)))
+               shape=(h, w, len(ks)), path=path)
         return got
 
     up = features._upsample2x(img).contiguous()
     base_k = [features._gaussian_kernel1d(math.sqrt(fe.sigma0**2 - 1.0))]
     base = b1_case(f" (base blur, {up.shape[0]}x{up.shape[1]}, 1 level)", up, base_k)[0]
     args = (fe.contrast_threshold, fe.edge_threshold, 8)
+    cand_src = "structure_from_motion_tpu/ops/features_pallas.py:95"
+
+    def b2f_equal(stack, a=args):
+        """Fused B2 against its plain version, bit for bit; two launches."""
+        got = features_cuda.candidate_block_max(stack, *a)
+        again = features_cuda.candidate_block_max(stack, *a)
+        ref = features_cuda.candidate_block_max_reference(stack, *a)
+        same = all(torch.equal(x, y) for x, y in zip(got, again))
+        return got, ref, torch.equal(got[0], ref[0]), torch.equal(got[1], ref[1]), same
+
     for octave in range(fe.num_octaves):
         h, w = base.shape
         label = "" if octave == 0 else f" ({h}x{w})"
         gauss = torch.cat([base[None], b1_case(label, base, rel)])
         dog = (gauss[1:] - gauss[:-1]).contiguous()
+        got, ref, cand_ok, pos_ok, same = b2f_equal(dog)
+        err = float((got[0] - ref[0]).abs().max())
+        record(f"B2f candidate_block_max{label}", "cand.cu", cand_src, err,
+               f"atol 0 (cand equal bits: {cand_ok}, pos equal: {pos_ok}, two launches same "
+               f"bits: {same}); ({dog.shape[0]}, {h}, {w}), {int((ref[0] > 0).sum())} of "
+               f"{ref[0].numel()} blocks hold a candidate",
+               lambda: features_cuda.candidate_block_max(dog, *args),
+               lambda: features_cuda.candidate_block_max_reference(dog, *args),
+               cand_ok and pos_ok and same, moved=nbytes(dog, *got),
+               flops=40 * (dog.shape[0] - 2) * h * w, shape=(h, w))
+        if octave == 0:
+            # the whole candidate stage, the map kernel and the four
+            # reductions that followed it against the fused kernel alone
+            def old_stage():
+                r = features_cuda.candidate_response(dog, *args)
+                r4 = r.reshape(r.shape[0], h, w // 8, 8)
+                r5 = r4.amax(dim=3).reshape(r.shape[0], h // 8, 8, w // 8)
+                return r5.amax(dim=2), torch.argmax(r4, dim=3), torch.argmax(r5, dim=2)
+
+            old_ms = _median_ms(torch, old_stage)
+            new_ms = _median_ms(torch, lambda: features_cuda.candidate_block_max(dog, *args))
+            print(f"kernel B2 candidate stage at ({dog.shape[0]}, {h}, {w}): map kernel + four "
+                  f"reductions {old_ms:.4f} ms, fused kernel {new_ms:.4f} ms by events ({smi})")
+        if octave == 2:
+            # ties and empty blocks: the stack quantised to steps of 1/64,
+            # every test but the extremum wide open (contrast 0, border 1)
+            tied = (torch.round(dog * 64.0) / 64.0).contiguous()
+            targs = (0.0, 1e6, 1)
+            got, ref, cand_ok, pos_ok, same = b2f_equal(tied, targs)
+            full = features_cuda.candidate_response_reference(tied, *targs)
+            blocks = full.reshape(full.shape[0], h // 8, 8, w // 8, 8)
+            n_max = (blocks == blocks.amax(dim=(2, 4), keepdim=True)).sum(dim=(2, 4))
+            n_tied = int(((n_max > 1) & (ref[0] > 0)).sum())
+            n_zero = int((ref[0] == 0).sum())
+            print(f"kernel B2f ties: ({tied.shape[0]}, {h}, {w}) quantised to 1/64: {n_tied} "
+                  f"blocks with several equal maxima, {n_zero} all-zero blocks of "
+                  f"{ref[0].numel()}; cand equal bits {cand_ok}, pos equal {pos_ok}, two "
+                  f"launches same bits {same}")
+            if not (cand_ok and pos_ok and same and n_tied > 100 and n_zero > 100
+                    and bool((ref[1][ref[0] == 0] == 0).all())):
+                raise AssertionError("fused B2 disagrees with its plain version on ties")
+        base = features._downsample2(gauss[S])
+    # fused B2 at other layer counts and ragged widths (whole and partial
+    # warps; the paths above give it S = 3 only)
+    for s2, h, w in ((3, 64, 128), (4, 72, 200), (6, 136, 264), (5, 8, 8)):
+        stack = torch.as_tensor((rng.normal(size=(s2, h, w)) * 0.05).astype(np.float32)).to(dev)
+        stack = ((stack + stack.roll(1, 1) + stack.roll(1, 2)) / 3).contiguous()
+        _, ref, cand_ok, pos_ok, same = b2f_equal(stack)
+        print(f"kernel B2f ragged: ({s2}, {h}, {w}): {int((ref[0] > 0).sum())} candidates, cand "
+              f"equal bits {cand_ok}, pos equal {pos_ok}, two launches same bits {same}")
+        if not (cand_ok and pos_ok and same):
+            raise AssertionError("fused B2 disagrees with its plain version on a ragged shape")
+
+    # the B2 kernel that writes the whole map: the path for topk_block <= 1
+    # and for sizes 8 does not divide. Every shape a 600x800 frame launches
+    # it and B1 at (the CLI run with topk_block 0), one entry a shape
+    small = torch.as_tensor(small_img).to(dev).to(torch.float32)
+    up = features._upsample2x(small / small.max()).contiguous()
+    base = b1_case(f" (base blur, {up.shape[0]}x{up.shape[1]}, 1 level)", up, base_k,
+                   "cli map")[0]
+    for octave in range(fe.num_octaves):
+        h, w = base.shape
+        gauss = torch.cat([base[None], b1_case(f" ({h}x{w})", base, rel, "cli map")])
+        dog = (gauss[1:] - gauss[:-1]).contiguous()
         got = features_cuda.candidate_response(dog, *args)
         ref = features_cuda.candidate_response_reference(dog, *args)
         err = float((got - ref).abs().max())
-        record(f"B2 candidate_response{label}", "cand.cu",
-               "structure_from_motion_tpu/ops/features_pallas.py:95", err,
-               f"atol 0 (exact); ({dog.shape[0]}, {h}, {w}), {int((got > 0).sum())} candidates",
+        record(f"B2 candidate_response ({h}x{w})", "cand.cu", cand_src, err,
+               f"atol 0 (exact); ({dog.shape[0]}, {h}, {w}), {int((got > 0).sum())} "
+               "candidates",
                lambda: features_cuda.candidate_response(dog, *args),
                lambda: features_cuda.candidate_response_reference(dog, *args), err == 0.0,
-               moved=nbytes(dog, got), flops=40 * got.numel(), shape=(h, w))
+               moved=nbytes(dog, got), flops=40 * got.numel(), shape=(h, w), path="cli map")
+        if octave == 1:
+            # a block other than 8: the map kernel, then two reductions;
+            # the same candidates as the plain versions on the CPU
+            fe4 = dataclasses.replace(fe, topk_block=4)
+            on_card = features._octave_candidates(gauss, fe4, 512)[1:]
+            on_cpu = features._octave_candidates(gauss.cpu(), fe4, 512)[1:]
+            same = all(torch.equal(a.cpu(), b) for a, b in zip(on_card, on_cpu))
+            print(f"kernel B2 topk_block 4 at ({dog.shape[0]}, {h}, {w}): "
+                  f"{int(on_cpu[-1].sum())} candidates, equal to the CPU's: {same}")
+            if not (same and int(on_cpu[-1].sum()) > 100):
+                raise AssertionError("topk_block 4 on the card disagrees with the CPU")
         base = features._downsample2(gauss[S])
-    del gauss, dog, up
+    del gauss, dog, up, small
 
     # B3: 16 views x 2048 reference rows against 2048 query rows, D = 128;
     # unit-norm rows (the tolerance is stated for unit-norm descriptors: the
@@ -455,7 +737,7 @@ def kernel_phase(dev, imgs, cfg, smi: str) -> list:
         raise AssertionError("B3 disagrees with its plain version at the pipeline's scale")
     del feats, ref_f, que_f, got_m, want_m
 
-    def b4_case(name, bargs):
+    def b4_case(name, bargs, path="slice"):
         """B4 against its plain version, two launches bit for bit."""
         O, V = bargs[0].shape[0], bargs[6]
         got = ba_cuda.ba_blocks(*bargs)
@@ -471,7 +753,7 @@ def kernel_phase(dev, imgs, cfg, smi: str) -> list:
                f"V = {V}; two launches same bits: {same}",
                lambda: ba_cuda.ba_blocks(*bargs), lambda: ba_cuda.ba_blocks_reference(*bargs),
                max(scaled) <= 1e-3 and same,
-               moved=nbytes(*bargs[:6], *got[2:5]) + 4 * 57 * V, flops=400 * O)
+               moved=nbytes(*bargs[:6], *got[2:5]) + 4 * 57 * V, flops=400 * O, path=path)
         return got
 
     def b4_random(O, V):
@@ -530,8 +812,8 @@ def kernel_phase(dev, imgs, cfg, smi: str) -> list:
              ba._point_gather(st.X, lay).contiguous(), obs.uv_norm.contiguous(),
              obs.valid.to(torch.float32), V, 0.01)
     print(f"kernel global shape: O = {O} slots, V = {V}, tiers {tiers}, cam_rows {cam_rows}")
-    got = b4_case("B4 ba_blocks (global shape)", bargs)
-    b4_case("B4 ba_blocks (global O, V = 16)", b4_random(O, 16))
+    got = b4_case("B4 ba_blocks (global shape)", bargs, "global")
+    b4_case("B4 ba_blocks (global O, V = 16)", b4_random(O, 16), "global")
     w21 = got[3].reshape(O, 21)
     x = torch.as_tensor(rng.normal(size=(V, 7)).astype(np.float32)).to(dev)
     t = ba_matvec.expand_cam(gcam, w21, x)
@@ -542,7 +824,7 @@ def kernel_phase(dev, imgs, cfg, smi: str) -> list:
            err, f"1e-5 x max(1, |t|) = {bound:.3e}",
            lambda: ba_matvec.expand_cam(gcam, w21, x),
            lambda: ba_matvec.expand_cam_reference(gcam, w21, x), err <= bound,
-           moved=nbytes(gcam, w21, x, t), flops=2 * 21 * O)
+           moved=nbytes(gcam, w21, x, t), flops=2 * 21 * O, path="global")
     y = torch.as_tensor(rng.normal(size=(O, 3)).astype(np.float32)).to(dev)
     perm, mask = ba.compute_cam_ell(gcam, obs.valid, V, cam_rows)
     c1 = ba_matvec.reduce_cam(w21, y, perm, mask, V)
@@ -558,7 +840,8 @@ def kernel_phase(dev, imgs, cfg, smi: str) -> list:
            err, f"1e-4 x max(1, |coup|) = {bound:.3e}; two launches same bits: {same}",
            lambda: ba_matvec.reduce_cam(w21, y, perm, mask, V),
            lambda: ba_matvec.reduce_cam_reference(w21, y, perm, mask, V), err <= bound and same,
-           moved=n_filled * (84 + 12) + nbytes(perm, mask, c1), flops=2 * 21 * n_filled)
+           moved=n_filled * (84 + 12) + nbytes(perm, mask, c1), flops=2 * 21 * n_filled,
+           path="global")
     torch.cuda.empty_cache()
     return results
 
@@ -608,36 +891,42 @@ def main() -> None:
 
     # -- 3. kernels against their plain versions at the paths' shapes ------
     imgs, K, C_gt, _ = synthetic_scene_sequence(**RENDER)
+    small_imgs, small_K, small_C_gt, _ = synthetic_scene_sequence(**RENDER_SMALL)
     cfg = cli_default_config()
-    results = kernel_phase(dev, imgs, cfg, smi)
+    results = kernel_phase(dev, imgs, small_imgs[0], cfg, smi)
 
     # -- 4. the slice: the CLI's default slide mode, then finalize_global ----
     slice_kernels = {
         "B1 blur_levels": blur_cuda.blur_levels,
-        "B2 candidate_response": features_cuda.candidate_response,
+        "B2f candidate_block_max": features_cuda.candidate_block_max,
         "B3 match_top2": matching.match_top2,
         "B4 ba_blocks": ba_cuda.ba_blocks,
     }
-    counted = dict(slice_kernels, **{"B5 expand_cam": ba_matvec.expand_cam,
+    counted = dict(slice_kernels, **{"B2 candidate_response": features_cuda.candidate_response,
+                                     "B5 expand_cam": ba_matvec.expand_cam,
                                      "B6 reduce_cam": ba_matvec.reduce_cam})
-    launches, by_shape = slice_phase(dev, imgs, K, C_gt, cfg, counted, torch.cuda.synchronize,
-                                     smi)
+    runs = {"slice": slice_phase(dev, imgs, K, C_gt, cfg, counted, torch.cuda.synchronize, smi)}
+    launches = runs["slice"][0]
     missing = [name for name in slice_kernels if launches[name] < 1]
     if missing:
         raise AssertionError(f"a kernel of the slice never launched: {missing}")
+    if launches["B2f candidate_block_max"] != cfg.frontend.num_octaves * len(imgs) \
+            or launches["B2 candidate_response"]:
+        raise AssertionError(f"the slice's candidate stage is not the fused kernel's: {launches}")
 
     # -- 5. the 500-camera global solve --------------------------------------
-    g_launches = global_phase(dev, counted, torch.cuda.synchronize, smi)
+    runs["global"] = (global_phase(dev, counted, torch.cuda.synchronize, smi), {})
+
+    # -- 6. the command line ---------------------------------------------------
+    runs["cli map"] = cli_phase(dev, imgs, small_imgs, K, small_K, C_gt, small_C_gt, cfg,
+                                counted, torch.cuda.synchronize, smi)
     for r in results:
         name = r["name"].split(" (")[0]
-        shape = r.pop("shape")
-        if shape is not None:  # B1, B2: the slice's launches at this entry's shape
-            r["launches"] = by_shape[name].get(shape, 0)
-            if r["launches"] < 1:
-                raise AssertionError(f"{r['name']} never launched at {shape} in the slice")
-        else:
-            in_slice = name == r["name"] and name in slice_kernels
-            r["launches"] = (launches if in_slice else g_launches)[name]
+        shape, (all_launches, by_shape) = r.pop("shape"), runs[r.pop("path")]
+        # B1, B2: the launches at this entry's shape; else all of the run's
+        r["launches"] = all_launches[name] if shape is None else by_shape[name].get(shape, 0)
+        if r["launches"] < 1:
+            raise AssertionError(f"{r['name']} never launched on its path")
     foreign = sorted(k for k in sys.modules
                      if k in ("jax", "jaxlib", "structure_from_motion_tpu")
                      or k.startswith("structure_from_motion_tpu."))

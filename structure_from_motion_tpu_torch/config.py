@@ -89,7 +89,8 @@ class FrontendConfig:
     blur_precision: str = "high"  # round trip only
     topk: str = "exact"  # round trip only: the port's top-k is exact
     # block-local pre-reduction before the per-octave top-k: keep only the
-    # strongest candidate per (scale layer, B x B pixel block); 0 disables
+    # strongest candidate per (scale layer, B x B pixel block); 0 disables.
+    # B = 8 takes the fused kernel; another B > 1 reduces the response map
     topk_block: int = 8
     grad_pack: str = "quad"  # round trip only
     grad_dtype: str = "bf16"  # round trip only
@@ -213,8 +214,11 @@ class PipelineConfig:
     # (or negative depth) are dropped and points left with < 2 observations
     # die; 0 disables
     prune_max_error_px: float = 16.0
-    keyframe_min_flow_px: float = 0.0  # keyframe gate; the port covers 0 (off)
-    distortion: tuple = ()  # lens distortion; the port covers () (pinhole)
+    # keyframe gate: admit a frame only when its median match displacement
+    # against the last accepted frame is at least this many pixels; 0 = off
+    keyframe_min_flow_px: float = 0.0
+    # lens distortion (k1, k2[, p1, p2[, k3]]), undistorted at ingest; () = pinhole
+    distortion: tuple = ()
     ba_num_shards: int = 1  # sharded BA; the port covers 1
     # per-frame BA runs on the smallest power-of-2 prefix bucket that holds
     # the live counts (one host read per stage picks it)

@@ -24,7 +24,8 @@ from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["synthetic_scene_sequence", "synthetic_scene_poses", "default_synthetic_K"]
+__all__ = ["synthetic_scene_sequence", "synthetic_scene_poses", "default_synthetic_K",
+           "synthetic_sequence"]
 
 
 def _texture(seed: int, size: int = 512) -> np.ndarray:
@@ -203,3 +204,37 @@ def synthetic_scene_sequence(
             best_t = np.where(hit, ti, best_t)
         imgs[f] = np.clip(shade * 255.0, 0, 255).astype(np.uint8)
     return imgs, K, C_gt, R_gt
+
+
+def synthetic_sequence(n_views=5, n_points=300, kp_cap=512, seed=0, noise=0.0):
+    """Precomputed features with perfect correspondences: views on an arc
+    looking at a point cloud, every point visible in every view, descriptors
+    unique random codes shared across views (the same numbers as the JAX
+    package's ``tests/test_incremental.synthetic_sequence`` for the same
+    seed). Returns ``(K, frames, C_gt, R_gt, X)``; ``frames`` is a list of
+    ``(xy (kp_cap, 2), desc (kp_cap, 128), valid (kp_cap,))``."""
+    rng = np.random.default_rng(seed)
+    K = np.array([[500.0, 0, 320.0], [0, 500.0, 240.0], [0, 0, 1.0]])
+    X = rng.uniform([-4, -3, 10], [4, 3, 20], size=(n_points, 3))
+    desc_codes = rng.normal(size=(n_points, 128)).astype(np.float32) * 10
+
+    frames, C_gt, R_gt = [], [], []
+    for v in range(n_views):
+        C = np.array([v * 1.0, 0.05 * v**2, 0.3 * v])
+        a = -0.06 * v  # rotation about the y axis
+        R = np.array([[np.cos(a), 0.0, np.sin(a)], [0.0, 1.0, 0.0], [-np.sin(a), 0.0, np.cos(a)]])
+        C_gt.append(C)
+        R_gt.append(R)
+        Xc = (R.T @ (X - C).T).T
+        uv = Xc[:, :2] / Xc[:, 2:3] * [K[0, 0], K[1, 1]] + [K[0, 2], K[1, 2]]
+        uv = uv + rng.normal(size=uv.shape) * noise
+        # fill fixed-capacity buffers (shuffled order per view)
+        perm = rng.permutation(n_points)
+        xy = np.zeros((kp_cap, 2), np.float32)
+        d = np.zeros((kp_cap, 128), np.float32)
+        valid = np.zeros(kp_cap, bool)
+        xy[:n_points] = uv[perm]
+        d[:n_points] = desc_codes[perm]
+        valid[:n_points] = True
+        frames.append((xy, d, valid))
+    return K, frames, np.stack(C_gt), np.stack(R_gt), X

@@ -41,6 +41,8 @@ _SIGNATURES = {
     "sfm_blur_levels": (_P, _P, _I, _I, _I, _P, _P),
     # dog, S, H, W, contrast, edge_r, (edge_r + 1)^2, border, out, stream
     "sfm_candidate_response": (_P, _I, _I, _I, _F, _F, _F, _I, _P, _P),
+    # dog, S, H, W, contrast, edge_r, (edge_r + 1)^2, border, cand, pos, stream
+    "sfm_candidate_block_max": (_P, _I, _I, _I, _F, _F, _F, _I, _P, _P, _P),
     # ref, que, sqq, mask_que, Nr, Nq, d1, d2, j1, stream
     "sfm_match_top2": (_P, _P, _P, _P, _I, _I, _P, _P, _P, _P),
     # cam, C, q, X, uv, w, O, V, huber, dtd, wblk, bp, rows, slot, cam_out, stream

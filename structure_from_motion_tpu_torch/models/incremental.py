@@ -20,8 +20,10 @@ the F-gate RANSAC carries a leading view axis. Random draws come from
 keeps its record on the host; :meth:`IncrementalSfM.finalize_global` solves
 the whole trajectory from that archive plus the live window
 (``models/global_ba.py``), and checkpoints use the JAX package's npz
-layout. Not ported yet (they raise): keyframe gating, lens distortion and
-sharded BA.
+layout. With ``config.keyframe_min_flow_px`` set, a frame whose median match
+displacement against the last accepted frame is too small is skipped before
+it is admitted; with ``config.distortion`` set, keypoints are undistorted
+once at ingest. Not ported yet (it raises): sharded BA.
 """
 
 from __future__ import annotations
@@ -37,6 +39,7 @@ from structure_from_motion_tpu_torch.device import generator, stable_topk
 from structure_from_motion_tpu_torch.models import global_ba, tracks
 from structure_from_motion_tpu_torch.models.tracks import SfMState
 from structure_from_motion_tpu_torch.ops.ba import BAObservations, BAState, run_bundle_adjustment
+from structure_from_motion_tpu_torch.ops.distortion import undistort_pixels
 from structure_from_motion_tpu_torch.ops.campose import (
     candidate_projections,
     decompose_essential,
@@ -354,7 +357,9 @@ def _frame_step(state: SfMState, v: int, keys: tuple, xy, desc, valid, config: P
     views, then the v == 0 / bootstrap / localise + BA stage, and the
     reprojection metric. ``keys`` = (seed, frame) seeds the generators."""
     if any(config.distortion):
-        raise NotImplementedError("lens distortion is not ported")
+        # known lens distortion: undistort the measurements ONCE at ingest,
+        # so that every later residual is the pinhole residual
+        xy = undistort_pixels(xy, state.K[v], config.distortion)
     dev = state.points.device
     state = tracks.set_view_features(state, v, xy, desc, valid)
     state = _match_stage(state, v, generator(dev, *keys, _STREAM_MATCH), config)
@@ -378,6 +383,39 @@ def _frame_step(state: SfMState, v: int, keys: tuple, xy, desc, valid, config: P
     return state, info
 
 
+def _assess_frame(state: SfMState, prev_slot: int, xy, desc, valid,
+                  config: PipelineConfig) -> torch.Tensor:
+    """Keyframe statistic: median pixel displacement of the candidate
+    frame's descriptor matches against the stored view ``prev_slot`` (the
+    last ACCEPTED frame), without the fundamental gate: raw ratio matches
+    are a fine flow estimate before the frame is admitted.
+
+    Returns +inf (so the frame is admitted) when fewer than 8 matches exist:
+    a scene cut carries new content even with no matched flow."""
+    mcfg = dataclasses.replace(config.matcher, use_fundamental_gate=False)
+    res = match_descriptors(state.kp_desc[prev_slot], desc, state.kp_valid[prev_slot], valid,
+                            mcfg)
+    if any(config.distortion):
+        # the STORED keypoints were undistorted at ingest; raw candidate
+        # coordinates against them would measure the distortion, not motion.
+        # prev_slot's K stands in for the candidate's (a flow statistic)
+        xy = undistort_pixels(xy, state.K[prev_slot], config.distortion)
+    disp = torch.linalg.norm(xy[res.target.clamp_min(0).long()] - state.kp_xy[prev_slot], dim=-1)
+    n = res.valid.sum()
+    med = _nanmedian_mid(torch.where(res.valid, disp, torch.full_like(disp, math.nan)), n)
+    return torch.where(n >= 8, med, torch.full_like(med, math.inf))
+
+
+def _nanmedian_mid(x: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
+    """Median of the ``n`` non-NaN entries of ``x`` as numpy's ``nanmedian``
+    takes it: the mean of the two middle values when ``n`` is even
+    (``torch.nanmedian`` returns the lower one). NaN when ``n`` is 0."""
+    srt = torch.sort(x).values  # NaNs last
+    lo = ((n - 1) // 2).clamp_min(0)
+    hi = (n // 2).clamp(0, x.numel() - 1)
+    return 0.5 * (srt[lo] + srt[hi])
+
+
 def _frame_step_native(state: SfMState, v: int, keys: tuple, img, config: PipelineConfig):
     """Frame step with the frontend in front: image -> features -> frame."""
     kps, desc = detect_and_describe(img, config.frontend)
@@ -397,14 +435,8 @@ class IncrementalSfM:
                  *, device="cuda"):
         if config.frontend.max_keypoints != config.capacity.max_keypoints:
             raise ValueError("frontend.max_keypoints must equal capacity.max_keypoints")
-        unported = {
-            "keyframe gating": config.keyframe_min_flow_px > 0,
-            "lens distortion": any(config.distortion),
-            "sharded BA": config.ba_num_shards > 1,
-        }
-        missing = [name for name, on in unported.items() if on]
-        if missing:
-            raise NotImplementedError(f"not ported yet (ROADMAP A12/A13): {', '.join(missing)}")
+        if config.ba_num_shards > 1:
+            raise NotImplementedError("not ported yet (ROADMAP A13): sharded BA")
         self.config = config
         self.device = torch.device(device)
         self.state = tracks.init_state(config.capacity, np.asarray(K, np.float32),
@@ -415,7 +447,34 @@ class IncrementalSfM:
         self._window = min(config.capacity.max_views, config.window_size)
         # slide mode's evicted views, oldest first, as host-numpy records
         self._archive: list = []
+        # keyframe bookkeeping: the input index of every ACCEPTED frame (the
+        # identity when keyframe_min_flow_px == 0) and the next input's index
+        self._input_index = 0
         self.keyframe_indices: list = []
+
+    def _to_device(self, a, dtype=None) -> torch.Tensor:
+        """A tensor on the engine's device as it is, a CPU tensor or an array
+        by upload; a tensor of another device is refused."""
+        if torch.is_tensor(a):
+            if a.device.type != "cpu" and a.device != self.state.points.device:
+                raise ValueError(f"input on {a.device}, the engine runs on {self.device}")
+        else:
+            a = torch.as_tensor(np.asarray(a))
+        return a.to(self.device, dtype) if dtype is not None else a.to(self.device)
+
+    def _keyframe_flow(self, assess):
+        """Run the keyframe gate: the flow statistic (one host read), or None
+        when gating is off or no previous view exists. ``assess`` takes the
+        slot of the last accepted frame."""
+        if self.config.keyframe_min_flow_px <= 0 or self._frame < 1:
+            return None
+        return float(assess(min(self._frame, self._window) - 1))
+
+    def _skip_info(self, flow: float) -> dict:
+        info = {"keyframe_skipped": True, "flow_px": flow, "frame": self._frame,
+                "input_index": self._input_index}
+        self._input_index += 1
+        return info
 
     def _begin_frame(self, v: int, K):
         """Window policy: the slot for frame v, or None past the window in
@@ -435,34 +494,55 @@ class IncrementalSfM:
             self.state = tracks.set_view_K(self.state, slot, K)
         return slot
 
+    def detect(self, img):
+        """The frontend alone: (H, W) image (array, CPU tensor or tensor on
+        the engine's device) -> ``(Keypoints, descriptors)`` on the device."""
+        return detect_and_describe(self._to_device(img), self.config.frontend)
+
     def process_image(self, img, K=None) -> dict:
-        """One frame from a raw (H, W) image; ``K`` optional per-frame
-        intrinsics."""
+        """One frame from a raw (H, W) image (an array, a CPU tensor, or a
+        tensor already on the engine's device, as a prefetcher hands over);
+        ``K`` optional per-frame intrinsics. With the keyframe gate on, a
+        low-parallax frame is rejected after detection and one host read; an
+        admitted frame reuses the detected features."""
         if self.frontend != "native":
             raise RuntimeError("process_image requires the native frontend")
+        img = self._to_device(img)
+        if self.config.keyframe_min_flow_px > 0 and self._frame >= 1:
+            kps, desc = detect_and_describe(img, self.config.frontend)
+            return self._gated(kps.xy, desc, kps.mask, K)
         v = self._frame
         slot = self._begin_frame(v, K)
         if slot is None:
             return {"skipped": True, "frame": v}
-        img = torch.as_tensor(np.asarray(img)).to(self.device)
         self.state, info = _frame_step_native(self.state, slot, (self.seed, v), img, self.config)
         return self._finish_frame(v, info)
 
     def process_features(self, xy, desc, valid, K=None) -> dict:
+        return self._gated(self._to_device(xy, torch.float32), self._to_device(desc, torch.float32),
+                           self._to_device(valid, torch.bool), K)
+
+    def _gated(self, xy, desc, valid, K) -> dict:
+        """The keyframe gate, then the frame step, on device features."""
+        flow = self._keyframe_flow(
+            lambda prev: _assess_frame(self.state, prev, xy, desc, valid, self.config))
+        if flow is not None and flow < self.config.keyframe_min_flow_px:
+            return self._skip_info(flow)
         v = self._frame
         slot = self._begin_frame(v, K)
         if slot is None:
             return {"skipped": True, "frame": v}
-        t = lambda a, dt: torch.as_tensor(np.asarray(a)).to(self.device, dt)  # noqa: E731
-        self.state, info = _frame_step(
-            self.state, slot, (self.seed, v), t(xy, torch.float32), t(desc, torch.float32),
-            t(valid, torch.bool), self.config,
-        )
-        return self._finish_frame(v, info)
+        self.state, info = _frame_step(self.state, slot, (self.seed, v), xy, desc, valid,
+                                       self.config)
+        info = self._finish_frame(v, info)
+        if flow is not None:
+            info["flow_px"] = flow
+        return info
 
     def _finish_frame(self, v: int, info: dict) -> dict:
         self._frame = v + 1
-        self.keyframe_indices.append(v)
+        self.keyframe_indices.append(self._input_index)
+        self._input_index += 1
         info = {k: (val.cpu().numpy() if torch.is_tensor(val) else val)
                 for k, val in dict(info, frame=v).items()}
         info["reprojection_px"] = float(info["reprojection_px"])
@@ -475,14 +555,14 @@ class IncrementalSfM:
         from structure_from_motion_tpu_torch.utils import checkpoint
 
         checkpoint.save_state(path, self.state, self._frame, archive=self._archive,
-                              keyframes=(self.keyframe_indices, self._frame))
+                              keyframes=(self.keyframe_indices, self._input_index))
 
     def load_checkpoint(self, path: str) -> int:
         """Restore a checkpoint of either package; returns the resume frame."""
         from structure_from_motion_tpu_torch.utils import checkpoint
 
         self.state, self._frame, self._archive, kf = checkpoint.load_state(path, self.device)
-        self.keyframe_indices = kf[0]
+        self.keyframe_indices, self._input_index = kf
         return self._frame
 
     # -- results -------------------------------------------------------------

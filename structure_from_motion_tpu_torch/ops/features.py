@@ -4,7 +4,7 @@
 
 Same pipeline as the JAX frontend: optional 2x bilinear upsample, Gaussian
 scale space (kernel B1 on the card, every octave), DoG candidate response
-(kernel B2) with an 8x8 block argmax and an exact per-octave top-k, the
+(kernel B2, the 8x8 block argmax fused in) and an exact per-octave top-k, the
 cross-octave merge, the 3-D subpixel fit, 36-bin orientation histograms with
 a second peak, the duplication/re-rank, and the descriptors.
 
@@ -29,7 +29,12 @@ import torch.nn.functional as F
 from structure_from_motion_tpu_torch.config import FrontendConfig
 from structure_from_motion_tpu_torch.device import clamp_index, stable_topk
 from structure_from_motion_tpu_torch.ops.blur_cuda import blur_levels
-from structure_from_motion_tpu_torch.ops.features_cuda import candidate_response
+from structure_from_motion_tpu_torch.ops.features_cuda import (
+    BLOCK,
+    block_argmax,
+    candidate_block_max,
+    candidate_response,
+)
 from structure_from_motion_tpu_torch.ops.linalg import inv3x3
 
 _BORDER = 8
@@ -78,27 +83,26 @@ def _octave_candidates(gauss: torch.Tensor, cfg: FrontendConfig, per_octave_k: i
     """(S+3, H, W) gaussian stack -> (dog, xx, yy, s_idx, response, ok):
     integer candidate positions of one octave."""
     dog = (gauss[1:] - gauss[:-1]).contiguous()
-    S = dog.shape[0] - 2
     h, w = dog.shape[1], dog.shape[2]
-    resp3 = candidate_response(dog, cfg.contrast_threshold, cfg.edge_threshold, _BORDER)
+    args = (cfg.contrast_threshold, cfg.edge_threshold, _BORDER)
     B = cfg.topk_block
     if B > 1 and h % B == 0 and w % B == 0:
-        # strongest candidate per (layer, BxB block), then an exact top-k
+        # strongest candidate per (layer, BxB block), then an exact top-k;
+        # at B = 8 the (S, h, w) response map is never stored
         hb, wb = h // B, w // B
-        r4 = resp3.reshape(S, h, wb, B)
-        ax1 = torch.argmax(r4, dim=3)
-        r5 = r4.amax(dim=3).reshape(S, hb, B, wb)
-        ax2 = torch.argmax(r5, dim=2)
-        cand = r5.amax(dim=2).reshape(-1)
+        if B == BLOCK:
+            cand, pos = candidate_block_max(dog, *args)
+        else:
+            cand, pos = block_argmax(candidate_response(dog, *args), B)
         k = min(per_octave_k, cand.numel())
-        top_resp, ci = stable_topk(cand, k)
+        top_resp, ci = stable_topk(cand.reshape(-1), k)
+        p = pos.reshape(-1)[ci].long()
         s_idx = ci // (hb * wb)
         remb = ci % (hb * wb)
-        yb, xb = remb // wb, remb % wb
-        yy = yb * B + ax2[s_idx, yb, xb]
-        xx = xb * B + ax1[s_idx, yy, xb]
+        yy = (remb // wb) * B + p // B
+        xx = (remb % wb) * B + p % B
     else:
-        resp = resp3.reshape(-1)
+        resp = candidate_response(dog, *args).reshape(-1)
         k = min(per_octave_k, resp.numel())
         top_resp, top_idx = stable_topk(resp, k)
         s_idx = top_idx // (h * w)

@@ -1,11 +1,11 @@
-"""Device time of variants of B1 and B6 that are NOT in the tree.
+"""Device time of variants of B1, B2 and B6 that are NOT in the tree.
 
 Run on a machine with an NVIDIA card, from the repository root:
 
-    python3 -m structure_from_motion_tpu_torch.tools.kernel_variants [--only b1,ablate,b6,ffma]
+    python3 -m structure_from_motion_tpu_torch.tools.kernel_variants [--only b1,ablate,b2,b6,ffma]
 
-The notes at the head of ``csrc/blur.cu`` and at B6 in ``csrc/ba_matvec.cu``
-say what else was tried; this script is where those times come from. It
+The notes at the head of ``csrc/blur.cu`` and ``csrc/cand.cu`` and at B6 in
+``csrc/ba_matvec.cu`` say what else was tried; this script is where those times come from. It
 builds each variant from the source in the tree with one constant or
 statement substituted (a substitution that no longer finds its text
 raises), compiles all of a group together with the library's flags into
@@ -18,6 +18,11 @@ prints the median device time of the kernel under ``torch.profiler``:
   levels of one radius beside the five radii;
 * ``ablate``: B1's 64 x 128 tile with a part taken out (the result is then
   wrong and is not compared): where its time goes;
+* ``b2``: the fused B2 (``candidate_block_max``) with another tile (columns
+  a thread, rows a strip) at the five DoG stacks of a rendered 960x1280
+  frame, and the tree's tile with a part taken out or changed
+  (threads a block, blocks an SM, the Hessian test, the prefetch of the row
+  after next, the loads of the row loop);
 * ``b6``: B6 with other block sizes and rows in flight, and the variant
   ``variant_sources/reduce_slot_per_thread.cu``, over the 500-camera stream;
 * ``ffma``: the FMA rate of B1's inner code alone
@@ -39,9 +44,11 @@ import numpy as np
 import torch
 
 from structure_from_motion_tpu_torch import kernels
-from structure_from_motion_tpu_torch.ops import ba_matvec, blur_cuda
+from structure_from_motion_tpu_torch.config import FrontendConfig
+from structure_from_motion_tpu_torch.ops import ba_matvec, blur_cuda, features_cuda
 from structure_from_motion_tpu_torch.tools.profile_kernels import (
     ARTIFACT,
+    frame_dog_stacks,
     frame_kernels,
     frame_shapes,
     global_stream,
@@ -49,9 +56,10 @@ from structure_from_motion_tpu_torch.tools.profile_kernels import (
 
 HERE = Path(__file__).resolve().parent / "variant_sources"
 OUT = kernels.BUILD_DIR.parent / "kernel_variants"
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 BLUR_ARGS = [_P, _P, _I, _I, _I, _P, _P]
 REDUCE_ARGS = [_P, _P, _P, _P, _I, _I, _I, _P, _P]
+BLOCK_MAX_ARGS = [_P, _I, _I, _I, _F, _F, _F, _I, _P, _P, _P]
 
 # B1: template arguments of csrc/blur.cu's launch<NT, TW, TH, NH, NV, MINB>,
 # "+split" for one block a level
@@ -98,6 +106,37 @@ B1_ABLATIONS = {
          "    stap_all[i] = taps.k[i / kMaxTaps][i % kMaxTaps];"),
         ("smid, taps.k[l], x0", "smid, stap_all + l * kMaxTaps, x0")],
 }
+# B2 (fused): the tile kC, kR, kU of csrc/cand.cu's launch_block_max<S, C, R, U>
+# (columns a thread, rows a strip, row unroll), then optionally "bN": at
+# least N blocks an SM
+B2_TILES = ["2,8,2", "4,8,1", "4,8,2", "4,8,3", "4,16,1", "4,16,2", "4,16,3", "4,24,3", "4,32,2",
+            "2,8,1", "2,8,3", "2,16,2", "2,24,3", "2,8,1,b5", "2,8,2,b5", "2,8,3,b4",
+            "2,16,2,b4",
+            "1,8,1", "1,8,2", "1,16,2"]
+_B2_BOUNDS = "__launch_bounds__(kFusedThreads)\ncandidate_block_max"
+_B2_LOOP_LOAD = ("    // in flight while this row is computed\n"
+                 "    load_row<S, C>(col, layer_stride, W, min(y + 2, H - 1), nxt);\n")
+_B2_LOOP_END = "    copy_row<S, C>(c3, nxt);\n  }\n}"
+# B2 changes: name -> substitutions on the tree's source; the ones
+# marked "wrong result" are not compared with the plain version
+B2_CHANGES = {
+    "as in the tree": [],
+    "64 threads a block": [("constexpr int kFusedThreads = 128;",
+                            "constexpr int kFusedThreads = 64;")],
+    "256 threads a block": [("constexpr int kFusedThreads = 128;",
+                             "constexpr int kFusedThreads = 256;")],
+    "at least 6 blocks an SM (80 registers)": [
+        (_B2_BOUNDS, _B2_BOUNDS.replace("kFusedThreads)", "kFusedThreads, 6)"))],
+    "no prefetch (the next row loaded after the compute)": [
+        (_B2_LOOP_LOAD, ""),
+        (_B2_LOOP_END, "    load_row<S, C>(col, layer_stride, W, min(y + 2, H - 1), nxt);\n"
+         + _B2_LOOP_END)],
+    "no Hessian test (wrong result)": [
+        ("if (edge_ok && mag > best[s]) {", "if ((edge_ok || H > 0) && mag > best[s]) {")],
+    "no candidate ever passes (wrong result)": [
+        ("const bool row_in = y >= border && y < H - border;", "const bool row_in = H < 0;")],
+    "no loads in the row loop (wrong result)": [(_B2_LOOP_LOAD, "")],
+}
 # B6: (threads a camera, rows in flight a warp); "slot:T,K" is the variant file
 B6_VARIANTS = ["512,16", "256,16", "128,16", "1024,16", "512,8", "512,32",
                "slot:128,4", "slot:256,2", "slot:128,2"]
@@ -120,6 +159,19 @@ def blur_source(tile: str, pairs=()) -> str:
     forced = (f"  cudaError_t rc = launch<{cfg}>(base, taps, L, halo, H, W, out, "
               f"{'L > 1' if split else 'false'}, s);\n")
     return _substitute(src[:a] + forced + src[b:], pairs)
+
+
+def cand_source(tile: str, pairs=()) -> str:
+    """``csrc/cand.cu`` with every shape sent to the tile ``tile`` =
+    "C,R,U[,bN]"."""
+    src = (kernels.CSRC / "cand.cu").read_text()
+    parts = tile.replace(" ", "").split(",")
+    tile, pairs = ",".join(parts[:3]), list(pairs)
+    for o in parts[3:]:
+        pairs.append((_B2_BOUNDS, _B2_BOUNDS.replace("kFusedThreads)", f"kFusedThreads, {o[1:]})")))
+    c, r, u = tile.split(",")
+    return _substitute(src, [("constexpr int kC = 2, kR = 8, kU = 2;",
+                              f"constexpr int kC = {c}, kR = {r}, kU = {u};")] + pairs)
 
 
 def reduce_source(variant: str) -> str:
@@ -223,9 +275,44 @@ def b1_ablations(dev, rng, card) -> None:
     _time_blur(libs, shapes, dev, rng, card, check=False)
 
 
+def _time_block_max(libs: dict, stacks, dev, card: str, check) -> None:
+    fe = FrontendConfig()
+    args = (fe.contrast_threshold, fe.edge_threshold, 8)
+    stream = kernels.stream_ptr(dev)
+    for dog in stacks:
+        S2, h, w = dog.shape
+        ref = features_cuda.candidate_block_max_reference(dog, *args)
+        cand = torch.empty_like(ref[0])
+        pos = torch.empty_like(ref[1])
+        for name, lib in libs.items():
+            def call():
+                return lib.sfm_candidate_block_max(
+                    dog.data_ptr(), S2 - 2, h, w, args[0], args[1], (args[1] + 1.0) ** 2, args[2],
+                    cand.data_ptr(), pos.data_ptr(), stream)
+            cand.zero_()
+            kernels.check(call(), f"variant {name}")
+            torch.cuda.synchronize()
+            same = torch.equal(cand, ref[0]) and torch.equal(pos, ref[1])
+            if check(name) and not same:
+                raise AssertionError(f"B2 variant {name} at {h}x{w} differs from the plain version")
+            print(f"B2 fused ({S2}, {h}, {w}) [{name}]: "
+                  f"{device_us(call, 'candidate_block_max'):.1f} us"
+                  + (", equal to the plain version" if same else ", NOT equal") + f" ({card})")
+
+
+def b2_variants(dev, card) -> None:
+    stacks = frame_dog_stacks(dev)
+    libs = build("b2", {t: cand_source(t) for t in B2_TILES}, "sfm_candidate_block_max",
+                 BLOCK_MAX_ARGS)
+    _time_block_max(libs, stacks, dev, card, lambda name: True)
+    libs = build("b2c", {n: cand_source("2,8,2", p) for n, p in B2_CHANGES.items()},
+                 "sfm_candidate_block_max", BLOCK_MAX_ARGS)
+    _time_block_max(libs, stacks, dev, card, lambda name: "wrong result" not in name)
+
+
 def b6_variants(dev, rng, card, artifact: str) -> None:
     libs = build("b6", {v: reduce_source(v) for v in B6_VARIANTS}, "sfm_reduce_cam", REDUCE_ARGS)
-    w21, y, perm, mask, O, V, cam_rows = global_stream(dev, rng, artifact)
+    w21, y, perm, mask, O, V, cam_rows, _ = global_stream(dev, rng, artifact)
     ref = ba_matvec.reduce_cam_reference(w21, y, perm, mask, V)
     bound = 1e-4 * max(1.0, float(ref.abs().max()))
     coup = torch.empty((V, 7), device=dev)
@@ -271,7 +358,7 @@ def ffma_rate(dev, card) -> None:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--only", default="b1,ablate,b6,ffma")
+    ap.add_argument("--only", default="b1,ablate,b2,b6,ffma")
     ap.add_argument("--artifact", default=str(ARTIFACT), help="checkpoint whose stream B6 walks")
     args = ap.parse_args()
     only = set(args.only.split(","))
@@ -286,6 +373,8 @@ def main() -> None:
         b1_tiles(dev, rng, card)
     if "ablate" in only:
         b1_ablations(dev, rng, card)
+    if "b2" in only:
+        b2_variants(dev, card)
     if "b6" in only:
         b6_variants(dev, rng, card, args.artifact)
     if "ffma" in only:

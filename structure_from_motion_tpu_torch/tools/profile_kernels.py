@@ -1,15 +1,22 @@
-"""Device time of the redesigned kernels B1, B3, B4 and B6, kernel by kernel.
+"""Device time of the kernels B1 to B6, kernel by kernel.
 
 Run on a machine with an NVIDIA card, from the repository root:
 
-    python3 -m structure_from_motion_tpu_torch.tools.profile_kernels [--only B1,B6]
+    python3 -m structure_from_motion_tpu_torch.tools.profile_kernels [--only B1,B2,B6]
 
 For B1 (``blur_levels``) at the six shapes a 960x1280 frame launches it at
 (the base blur, 1920x2560 with one level of radius 4, then the five levels
-of the default sigmas at the octaves from 1920x2560 down to 120x160); for
+of the default sigmas at the octaves from 1920x2560 down to 120x160) and
+the six of a 600x800 frame (1200x1600 down to 75x100); for
 B4 (``ba_blocks``) at (O, V) = (262144, 16), (233984, 16) and (233984, 500)
-with random camera ids; for B3 (``match_top2``) at 32768 x 2048 x 128; and
-for B6 (``reduce_cam``) over
+with random camera ids; for B3 (``match_top2``) at 32768 x 2048 x 128; for
+B2 over the five DoG stacks of a rendered 960x1280 frame (the kernel that
+writes the response map, the fused ``candidate_block_max`` where the
+version under test has it; the map kernel also over the five stacks of a
+600x800 frame, 1200x1600 down to 75x100; and at octave 0 the whole candidate stage: the
+map kernel followed by the four reductions that used to keep one candidate
+a block, against the fused kernel alone); and for B5 (``expand_cam``) and
+B6 (``reduce_cam``) over
 the camera-major view of the 500-camera checkpoint's stream (``--artifact``,
 by default ``artifacts/longrun500_pre_globalba.ckpt.npz``), it prints what
 ``torch.profiler`` measured for each CUDA kernel of a wrapper call (mean
@@ -37,12 +44,13 @@ import torch
 from structure_from_motion_tpu_torch.config import FrontendConfig
 from structure_from_motion_tpu_torch.models import global_ba
 from structure_from_motion_tpu_torch.ops import ba, ba_cuda, ba_matvec, blur_cuda
-from structure_from_motion_tpu_torch.ops import features, matching
+from structure_from_motion_tpu_torch.io.synthetic import synthetic_scene_sequence
+from structure_from_motion_tpu_torch.ops import features, features_cuda, matching
 from structure_from_motion_tpu_torch.utils import checkpoint
 
 REPS = 30
 ARTIFACT = Path(__file__).resolve().parents[2] / "artifacts" / "longrun500_pre_globalba.ckpt.npz"
-_KERNEL_NAMES = ("ba_", "match_top2", "blur_", "reduce_cam")
+_KERNEL_NAMES = ("ba_", "match_top2", "blur_", "reduce_cam", "expand_cam", "candidate_")
 
 
 def _event_ms(fn, flush=None) -> float:
@@ -105,16 +113,21 @@ def frame_kernels():
     return rel, [features._gaussian_kernel1d(math.sqrt(fe.sigma0**2 - 1.0))]
 
 
-def frame_shapes():
-    """(label, (H, W), taps) of B1's six launches on a 960x1280 frame."""
+def frame_shapes(size=(960, 1280)):
+    """(label, (H, W), taps) of B1's six launches on a frame of ``size``
+    (2x first octave, five octaves, each half the one before, rounded up)."""
     rel, base_k = frame_kernels()
-    return [("base blur", (1920, 2560), base_k)] + [
-        (f"octave {o}", (1920 >> o, 2560 >> o), rel) for o in range(5)]
+    h, w = 2 * size[0], 2 * size[1]
+    shapes = [("base blur", (h, w), base_k)]
+    for o in range(5):
+        shapes.append((f"octave {o}", (h, w), rel))
+        h, w = (h + 1) // 2, (w + 1) // 2
+    return shapes
 
 
 def global_stream(dev, rng, artifact: str):
-    """B6's inputs over the checkpoint's tiered stream, W and y random:
-    (w21, y, perm, mask, O, V, rows)."""
+    """B5's and B6's inputs over the checkpoint's tiered stream, W and y
+    random: (w21, y, perm, mask, O, V, rows, cam)."""
     state, frame, archive, _ = checkpoint.load_state(artifact, dev)
     prob = global_ba.build_global_problem(state, archive, min(frame, 8))
     st, obs, _, _, cam_rows = global_ba.tiered_problem(prob)
@@ -122,19 +135,82 @@ def global_stream(dev, rng, artifact: str):
     w21 = torch.as_tensor(rng.normal(size=(O, 21)).astype(np.float32)).to(dev)
     y = torch.as_tensor(rng.normal(size=(O, 3)).astype(np.float32)).to(dev)
     perm, mask = ba.compute_cam_ell(obs.cam.contiguous(), obs.valid, V, cam_rows)
-    return w21, y, perm, mask, O, V, cam_rows
+    return w21, y, perm, mask, O, V, cam_rows, obs.cam.contiguous()
 
+
+def frame_dog_stacks(dev, size=(960, 1280)) -> list:
+    """The five (5, H, W) DoG stacks of a rendered frame of ``size`` at the
+    command line's default frontend config (2x first octave, 5 octaves),
+    octave 0 (twice ``size``) first."""
+    fe = FrontendConfig()
+    rel, base_k = frame_kernels()
+    img = torch.as_tensor(synthetic_scene_sequence(1, size, seed=3)[0][0]).to(dev)
+    img = img.to(torch.float32) / img.max()
+    base = blur_cuda.blur_levels(features._upsample2x(img).contiguous(), base_k)[0]
+    stacks = []
+    for _ in range(5):
+        gauss = torch.cat([base[None], blur_cuda.blur_levels(base.contiguous(), rel)])
+        stacks.append((gauss[1:] - gauss[:-1]).contiguous())
+        base = features._downsample2(gauss[fe.scales_per_octave])
+    return stacks
+
+
+def block_reductions(resp, B: int = 8):
+    """The four single-axis reductions that kept one candidate a block
+    before the block argmax moved into the kernel."""
+    S, h, w = resp.shape
+    r4 = resp.reshape(S, h, w // B, B)
+    ax1 = torch.argmax(r4, dim=3)
+    r5 = r4.amax(dim=3).reshape(S, h // B, B, w // B)
+    return r5.amax(dim=2), ax1, torch.argmax(r5, dim=2)
 
 def _b1_cases(dev, rng, card, flush) -> None:
-    for label, (h, w), ks in frame_shapes():
+    # a 600x800 frame's shapes too: 8 does not divide its deeper octaves
+    for label, (h, w), ks in frame_shapes() + frame_shapes((600, 800)):
         img = torch.as_tensor(rng.random((h, w)).astype(np.float32)).to(dev)
         _report(f"B1 blur_levels {label}: {h}x{w}, radii {[len(k) // 2 for k in ks]}",
                 lambda: blur_cuda.blur_levels(img, ks), 4 * h * w * (1 + len(ks)),
                 sum(2 * 2 * len(k) for k in ks) * h * w, flush, card)
 
 
-def _b6_case(dev, rng, card, flush, artifact: str) -> None:
-    w21, y, perm, mask, O, V, cam_rows = global_stream(dev, rng, artifact)
+def _b2_cases(dev, card, flush) -> None:
+    fe = FrontendConfig()
+    args = (fe.contrast_threshold, fe.edge_threshold, 8)
+    fused = getattr(features_cuda, "candidate_block_max", None)
+    for dog in frame_dog_stacks(dev):
+        S2, h, w = dog.shape
+        n_in, n_map = 4 * dog.numel(), 4 * (S2 - 2) * h * w
+        ops = 40 * (S2 - 2) * h * w
+        _report(f"B2 candidate_response (the map) ({S2}, {h}, {w})",
+                lambda: features_cuda.candidate_response(dog, *args), n_in + n_map, ops, flush,
+                card)
+        if fused is not None:
+            _report(f"B2 candidate_block_max (fused) ({S2}, {h}, {w})", lambda: fused(dog, *args),
+                    n_in + 8 * (S2 - 2) * (h // 8) * (w // 8), ops, flush, card)
+    # the map kernel alone over a 600x800 frame's stacks (topk_block <= 1
+    # sends every octave to it; 8 does not divide 300x400 and below)
+    for dog in frame_dog_stacks(dev, (600, 800)):
+        S2, h, w = dog.shape
+        _report(f"B2 candidate_response (the map) ({S2}, {h}, {w})",
+                lambda: features_cuda.candidate_response(dog, *args),
+                4 * dog.numel() + 4 * (S2 - 2) * h * w, 40 * (S2 - 2) * h * w, flush, card)
+    dog = frame_dog_stacks(dev)[0]
+    old_ms = _event_ms(lambda: block_reductions(features_cuda.candidate_response(dog, *args)))
+    line = (f"B2 candidate stage at {tuple(dog.shape)}: map kernel + four reductions "
+            f"{old_ms:.4f} ms by events")
+    if fused is not None:
+        line += f", fused kernel {_event_ms(lambda: fused(dog, *args)):.4f} ms"
+    print(f"{line} ({card})")
+
+
+def _b5_b6_cases(dev, rng, card, flush, artifact: str, only) -> None:
+    w21, y, perm, mask, O, V, cam_rows, cam = global_stream(dev, rng, artifact)
+    if "B5" in only:
+        x = torch.as_tensor(rng.normal(size=(V, 7)).astype(np.float32)).to(dev)
+        _report(f"B5 expand_cam O = {O}, V = {V}", lambda: ba_matvec.expand_cam(cam, w21, x),
+                O * (4 + 84 + 12) + 28 * V, 2 * 21 * O, flush, card)
+    if "B6" not in only:
+        return
     filled = int(mask.sum())
     # the function reads the W and y rows of the filled slots only
     _report(f"B6 reduce_cam {V} cameras x {cam_rows} slots, {filled} filled, O = {O}",
@@ -144,8 +220,9 @@ def _b6_case(dev, rng, card, flush, artifact: str) -> None:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--only", default="B1,B3,B4,B6", help="kernels to time, e.g. B1,B6")
-    ap.add_argument("--artifact", default=str(ARTIFACT), help="checkpoint whose stream B6 walks")
+    ap.add_argument("--only", default="B1,B2,B3,B4,B5,B6", help="kernels to time, e.g. B1,B6")
+    ap.add_argument("--artifact", default=str(ARTIFACT),
+                    help="checkpoint whose stream B5 and B6 walk")
     args = ap.parse_args()
     only = set(args.only.split(","))
     if not torch.cuda.is_available():
@@ -158,8 +235,10 @@ def main() -> None:
     flush = torch.zeros(16 * 1024 * 1024, dtype=torch.float32, device=dev)
     if "B1" in only:
         _b1_cases(dev, rng, card, flush)
-    if "B6" in only:
-        _b6_case(dev, rng, card, flush, args.artifact)
+    if "B2" in only:
+        _b2_cases(dev, card, flush)
+    if only & {"B5", "B6"}:
+        _b5_b6_cases(dev, rng, card, flush, args.artifact, only)
 
     for O, V in ((262144, 16), (233984, 16), (233984, 500)) if "B4" in only else ():
         cam = torch.as_tensor(rng.integers(0, V, O).astype(np.int32)).to(dev)

@@ -5,7 +5,8 @@ The ``.npz`` layout is the JAX package's, key for key: one array per
 :class:`SfMState` field, ``__frame``, the eviction archive as stacked
 ``__archive_<field>`` arrays, and the keyframe bookkeeping
 (``__keyframe_indices``, ``__next_input_index``). A checkpoint written by
-either package loads into the other.
+either package loads into the other, and so does a per-image feature cache
+(``xy``, ``desc``, ``valid``).
 """
 
 from __future__ import annotations
@@ -77,3 +78,22 @@ def load_state(path: str, device="cuda") -> tuple[SfMState, int, list, tuple]:
         else:
             keyframes = (list(range(frame)), frame)
     return state_from_numpy(fields, torch.device(device)), frame, archive, keyframes
+
+
+def _host(a) -> np.ndarray:
+    return a.detach().cpu().numpy() if torch.is_tensor(a) else np.asarray(a)
+
+
+def save_features_cache(path: str, xy, desc, valid) -> None:
+    """Per-image feature cache: one ``.npz`` with ``xy``, ``desc``, ``valid``
+    (tensors on any device or arrays), written atomically."""
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        np.savez_compressed(f, xy=_host(xy), desc=_host(desc), valid=_host(valid))
+    os.replace(tmp, path)
+
+
+def load_features_cache(path: str):
+    """-> ``(xy, desc, valid)`` numpy arrays of a cache of either package."""
+    with np.load(path) as d:
+        return d["xy"], d["desc"], d["valid"]

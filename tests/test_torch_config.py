@@ -142,6 +142,7 @@ def test_no_source_line_imports_the_jax_package():
     ("models.tracks:init_state", "device"),
     ("convert:state_from_numpy", "device"),
     ("utils.checkpoint:load_state", "device"),
+    ("io.prefetch:DevicePrefetcher", "device"),
 ])
 def test_entry_points_default_to_the_card(entry, param):
     import importlib

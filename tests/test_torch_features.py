@@ -43,6 +43,22 @@ def test_keypoints_match_jax(frontends):
     assert found.mean() >= 0.95, found.mean()
 
 
+def test_keypoints_match_jax_at_a_block_other_than_8():
+    """``topk_block`` = 4 (the response map reduced by two single-axis
+    reductions, in both packages): >= 95% of the JAX keypoints have a port
+    keypoint within 0.05 px."""
+    imgs, *_ = synthetic_scene_sequence(n_frames=1, size=(128, 192), seed=3, loops=0.21)
+    img = imgs[0].astype(np.float32)
+    cfg = FrontendConfig(max_keypoints=128, num_octaves=1, topk_block=4, blur_impl="pallas",
+                         extrema_impl="pallas", extrema_dtype="f32")
+    jk, _ = jax.device_get(JF.detect_and_describe(jnp.asarray(img), cfg))
+    tk, _ = TF.detect_and_describe(T(img), port_config(cfg))
+    jm, tm = np.asarray(jk.mask), tk.mask.numpy()
+    assert jm.sum() == tm.sum() > 64
+    d = np.linalg.norm(np.asarray(jk.xy)[jm][:, None] - tk.xy.numpy()[tm][None], axis=-1)
+    assert (d < 0.05).any(1).mean() >= 0.95
+
+
 def test_descriptors_match_jax(frontends):
     """Descriptors of matched keypoints (same position, scale and angle)
     agree to max-abs 2e-2 on the unit-norm descriptor (the outputs carry a

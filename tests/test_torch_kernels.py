@@ -5,6 +5,8 @@ On a CPU tensor each wrapper runs its plain PyTorch version, so these tests
 check the plain versions' semantics; ``chip_smoke.py`` holds the CUDA
 kernels against the same plain versions on the card."""
 
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -117,6 +119,99 @@ def test_candidate_response_plain_matches_pallas_exactly():
     got = features_cuda.candidate_response_reference(T(dog), 0.015, 10.0, 8).numpy()
     assert (want > 0).sum() > 20
     np.testing.assert_array_equal(got, want)
+
+
+def _jax_block_max(resp, B=8):
+    """The JAX package's two-stage block reduction (``ops/features.py``,
+    ``_octave_candidates``) on a response map -> (cand, row in block, column
+    in block), each (S, H/B, W/B)."""
+    S, h, w = resp.shape
+    hb, wb = h // B, w // B
+    r4 = resp.reshape(S, h, wb, B)
+    ax1 = jnp.argmax(r4, axis=3).astype(jnp.int32)
+    r5 = jnp.max(r4, axis=3).reshape(S, hb, B, wb)
+    ax2 = jnp.argmax(r5, axis=2).astype(jnp.int32)
+    yy = jnp.arange(hb)[None, :, None] * B + ax2
+    dx = ax1[jnp.arange(S)[:, None, None], yy, jnp.arange(wb)[None, None, :]]
+    return np.asarray(jnp.max(r5, axis=2)), np.asarray(ax2), np.asarray(dx)
+
+
+@pytest.mark.parametrize("shape", [(64, 128), (128, 256)])
+def test_candidate_block_max_plain_matches_pallas_and_the_jax_reduction_exactly(shape):
+    """B2 fused: each 8x8 block's largest masked response and its place,
+    against the interpreted Pallas kernel followed by the JAX package's
+    two-stage reduction: values and positions exactly equal (atol 0)."""
+    rng = np.random.default_rng(3 + shape[0])
+    dog = (rng.normal(size=(5, *shape)) * 0.05).astype(np.float32)
+    resp = pallas_candidate_response(jnp.asarray(dog), 0.015, 10.0, border=8, interpret=True)
+    want, want_dy, want_dx = _jax_block_max(resp)
+    cand, pos = features_cuda.candidate_block_max_reference(T(dog), 0.015, 10.0, 8)
+    assert cand.shape == pos.shape == (3, shape[0] // 8, shape[1] // 8)
+    assert cand.dtype == torch.float32 and pos.dtype == torch.int32
+    assert (want > 0).sum() > 20 and (want == 0).sum() > 20
+    np.testing.assert_array_equal(cand.numpy(), want)
+    np.testing.assert_array_equal(pos.numpy() // 8, want_dy)
+    np.testing.assert_array_equal(pos.numpy() % 8, want_dx)
+
+
+def test_candidate_block_max_ties_and_zero_blocks():
+    """Among equal maxima of a block the lowest row that holds one wins,
+    and in that row the lowest column (the two-stage reduction's pick, not
+    the first in column-major order); a block of zeros gives position 0."""
+    dog = np.zeros((3, 32, 128), np.float32)  # the Pallas kernel needs W % 128 == 0
+    # equal isolated peaks in block (1, 1) of the one output layer: at
+    # (row, column) (11, 14), (13, 9) and (13, 12); each is a 3x3x3 maximum
+    # with a well-conditioned Hessian
+    for y, x in ((11, 14), (13, 9), (13, 12)):
+        dog[1, y, x] = 0.5
+    cand, pos = features_cuda.candidate_block_max_reference(T(dog), 0.015, 10.0, 8)
+    assert cand.shape == (1, 4, 16)
+    assert float(cand[0, 1, 1]) == 0.5 and int(pos[0, 1, 1]) == (11 - 8) * 8 + (14 - 8)
+    others = torch.ones(4, 16, dtype=torch.bool)
+    others[1, 1] = False
+    assert bool((cand[0][others] == 0).all()) and bool((pos[0][others] == 0).all())
+    resp = pallas_candidate_response(jnp.asarray(dog), 0.015, 10.0, border=8, interpret=True)
+    want, want_dy, want_dx = _jax_block_max(resp)
+    np.testing.assert_array_equal(cand.numpy(), want)
+    np.testing.assert_array_equal(pos.numpy(), want_dy * 8 + want_dx)
+    # a lower column in a LOWER row must not win over a higher column above it
+    assert int(pos[0, 1, 1]) % 8 == 6 and (13 - 8) * 8 + 1 != int(pos[0, 1, 1])
+
+
+def test_octave_candidates_take_the_unfused_path_when_8_does_not_divide(monkeypatch):
+    """``_octave_candidates`` keeps one candidate a block through the fused
+    function when the block divides H and W, and falls back to the map and
+    a top-k over every pixel when it does not (or ``topk_block`` <= 1)."""
+    from structure_from_motion_tpu_torch.config import FrontendConfig
+    from structure_from_motion_tpu_torch.ops import features
+
+    calls = []
+    for name in ("candidate_block_max", "candidate_response"):
+        fn = getattr(features, name)
+        monkeypatch.setattr(features, name,
+                            lambda *a, _fn=fn, _n=name, **k: (calls.append(_n), _fn(*a, **k))[1])
+    rng = np.random.default_rng(5)
+    cfg = FrontendConfig(max_keypoints=64)
+    for shape, block, want in (((6, 64, 96), 8, "candidate_block_max"),
+                               ((6, 60, 96), 8, "candidate_response"),
+                               ((6, 64, 96), 0, "candidate_response"),
+                               ((6, 64, 96), 4, "candidate_response"),
+                               ((6, 64, 96), 16, "candidate_response")):
+        calls.clear()
+        gauss = T(np.cumsum(rng.normal(size=shape) * 0.03, axis=0).astype(np.float32))
+        out = features._octave_candidates(gauss, dataclasses.replace(cfg, topk_block=block), 64)
+        assert calls == [want]
+        dog, xx, yy, s_idx, resp, ok = out
+        assert int(ok.sum()) > 5
+        full = features_cuda.candidate_response_reference(dog, cfg.contrast_threshold,
+                                                          cfg.edge_threshold, 8)
+        assert torch.equal(full[s_idx[ok], yy[ok], xx[ok]], resp[ok])
+        if block > 1 and shape[1] % block == 0:
+            # one candidate a block, and it is the block's maximum
+            ids = (s_idx * 10**6 + (yy // block) * 10**3 + xx // block)[ok]
+            assert len(set(ids.tolist())) == int(ok.sum())
+            want_max = features_cuda.block_argmax(full, block)[0]
+            assert torch.equal(want_max[s_idx[ok], yy[ok] // block, xx[ok] // block], resp[ok])
 
 
 def test_match_top2_plain_matches_pallas():
@@ -310,6 +405,8 @@ def test_cpu_tensors_take_the_plain_version():
         (blur_cuda.blur_levels, blur_cuda.blur_levels_reference, (img, ks)),
         (features_cuda.candidate_response, features_cuda.candidate_response_reference,
          (dog, 0.015, 10.0, 8)),
+        (features_cuda.candidate_block_max, features_cuda.candidate_block_max_reference,
+         (dog, 0.015, 10.0, 8)),
         (matching.match_top2, matching.match_top2_reference, (ref, que, mq)),
         (ba_cuda.ba_blocks, ba_cuda.ba_blocks_reference, (*ba_in, 4, 0.01)),
         (ba_matvec.expand_cam, ba_matvec.expand_cam_reference, (cam, w21, x)),
@@ -329,8 +426,8 @@ def test_cpu_tensors_take_the_plain_version():
 
 def test_kernel_variants_still_find_their_text():
     """``tools/kernel_variants.py`` makes its variants by substituting text
-    of ``csrc/blur.cu`` and ``csrc/ba_matvec.cu``; every substitution must
-    still find its text and change the source."""
+    of ``csrc/blur.cu``, ``csrc/cand.cu`` and ``csrc/ba_matvec.cu``; every
+    substitution must still find its text and change the source."""
     from structure_from_motion_tpu_torch.tools import kernel_variants as kv
 
     tree = (kernels.CSRC / "blur.cu").read_text()
@@ -339,6 +436,13 @@ def test_kernel_variants_still_find_their_text():
     sources = {kv.blur_source("256,64,128,8,8,2", pairs) for pairs in kv.B1_ABLATIONS.values()}
     assert len(sources) == len(kv.B1_ABLATIONS) and tree not in sources
     assert len({kv.reduce_source(v) for v in kv.B6_VARIANTS}) == len(kv.B6_VARIANTS)
+    for tile in kv.B2_TILES:
+        src = kv.cand_source(tile)
+        c, r, u = tile.split(",")[:3]
+        assert f"constexpr int kC = {c}, kR = {r}, kU = {u};" in src
+    sources = {kv.cand_source("2,8,2", pairs) for pairs in kv.B2_CHANGES.values()}
+    assert len(sources) == len(kv.B2_CHANGES)
+    assert len({kv.cand_source(t) for t in kv.B2_TILES}) == len(kv.B2_TILES)
     with pytest.raises(RuntimeError, match="no longer holds"):
         kv.blur_source("256,64,128,8,8,2", [("not in the source", "")])
 
