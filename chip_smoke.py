@@ -9,7 +9,8 @@ the script exits non-zero without printing the final result line:
 1. environment: a CUDA card must be visible; prints its nvidia-smi name and
    power limit, the torch/CUDA versions and both TF32 switches;
 2. build: compiles ``structure_from_motion_tpu_torch/csrc/*.cu`` for sm_90a;
-3. kernels: each of the Hopper kernels against its plain PyTorch
+3. kernels (run last, after the runs whose BA inputs it takes): each of the
+   Hopper kernels against its plain PyTorch
    version on the card, at the shapes its path gives it, with the
    tolerance stated beside it, the median CUDA-event time of both, the
    kernel's bound (the larger of its bytes over the card's memory rate and
@@ -54,6 +55,35 @@ the script exits non-zero without printing the final result line:
    kernel (8 does not divide 300x400 either), held to the same ATE and
    reprojection bounds.
 
+7. batched: ``BatchedIncrementalSfM`` at the CLI's default config with
+   B = 8 lanes, lane b on its own rendered 960x1280 sequence
+   (``synthetic_scene_sequence(10, (960, 1280), seed=3 + b, loops=0.7)``),
+   10 frames: every lane held to the ATE and reprojection bounds, lanes 0
+   and 7 against ``IncrementalSfM(seed=b)`` runs on the same frames (poses
+   to atol 5e-3), the synchronised wall time a frame, aggregate frames/s,
+   kernel launches and host synchronisations a frame at B = 8 and at B = 1
+   (lane 0 alone, same frames); then the same engine at ``bench.py``'s small
+   config (256 keypoints, 3 octaves, no 2x, capacities 8 / 256 / 2048 /
+   8192) on 8 lanes of 8 rendered 240x320 frames, held to bands fixed from
+   the JAX package on the same frames on the CPU; then 3 frames of 8 lanes
+   of 600x800 with ``topk_block`` 0 (the map kernel's lane path);
+8. Harris: ``reconstruct --detector harris`` in-process on 10 rendered
+   600x800 frames written as BMP files, held to bands fixed from the JAX
+   package's CLI on the same frames on the CPU.
+
+The kernel phase also holds the lane axis of B1, B2f, the B2 map kernel,
+B3 and B4 at B = 8 and the batched phases' shapes (the full-width run, the
+small batch with its last BA stream, the map run): each against its plain
+version, lane b against a one-lane launch on lane b's inputs, and a
+one-lane stack against the call without a lane axis, bit for bit; and B1
+and B4 at the Harris run's shapes (per octave the sigma 1.0 and 2.0
+one-level blurs and the three structure-tensor lanes of the sigma 1.5
+blur; its last BA stream). Each entry's launches are read from the run
+that launches it at that shape. The
+slice, CLI and batched phases end with ``utils/debug.validate_state`` on
+their states and fail on any finding. The frames render in worker
+processes, joined at the end.
+
 Every phase's launch counts are set to 0 just before it and read just
 after. The last two lines are a JSON object of the kernels' numbers and
 ``{"ok": true, "device": {...}}``.
@@ -65,11 +95,13 @@ import contextlib
 import io
 import json
 import math
+import multiprocessing
 import shutil
 import struct
 import subprocess
 import sys
 import time
+from concurrent.futures import ProcessPoolExecutor
 from pathlib import Path
 
 # 0.07 loops per frame, the motion of tests/test_synthetic_gt.py:77-79
@@ -77,6 +109,20 @@ RENDER = dict(n_frames=24, size=(960, 1280), seed=3, loops=1.68)
 # a frame size whose deeper octaves (300x400 and below) 8 does not divide
 RENDER_SMALL = dict(n_frames=6, size=(600, 800), seed=3, loops=0.42)
 ATE_BOUND = 0.05  # of the trajectory span (tests/test_synthetic_gt.py:86-90)
+# the batched phases: lane b renders with seed 3 + b
+BATCH = 8
+BATCH_RENDER = dict(n_frames=10, size=(960, 1280), loops=0.7)
+SMALL_BATCH_RENDER = dict(n_frames=8, size=(240, 320), loops=0.56)
+HARRIS_RENDER = dict(n_frames=10, size=(600, 800), seed=3, loops=0.7)
+# the JAX package on the CPU on the same frames (PERF.md section 4 says how):
+# BatchedIncrementalSfM at bench.py's small config, worst of its 8 lanes
+JAX_SMALL_BATCH = dict(ate=0.00890743828249003, reproj=0.4068412482738495, points=316)
+# its CLI with --detector harris (Pallas blur pinned where the shapes allow)
+JAX_HARRIS = dict(ate=0.0009084704780323498, reproj=0.7060211896896362, points=2999)
+SMALL_BATCH_BANDS = dict(ate=3.0 * JAX_SMALL_BATCH["ate"], reproj=2.0 * JAX_SMALL_BATCH["reproj"],
+                         points=int(0.75 * JAX_SMALL_BATCH["points"]))
+HARRIS_BANDS = dict(ate=5.0 * JAX_HARRIS["ate"], reproj=1.25 * JAX_HARRIS["reproj"],
+                    points=(int(0.8 * JAX_HARRIS["points"]), int(1.2 * JAX_HARRIS["points"])))
 REPROJ_BOUND_PX = 2.0
 ARTIFACT = Path(__file__).resolve().parent / "artifacts" / "longrun500_pre_globalba.ckpt.npz"
 # final cost of the JAX package's f32 solve of the artifact on the CPU
@@ -190,6 +236,237 @@ def long_sequence_config():
     )
 
 
+def small_batch_config():
+    """``bench.py``'s small-sequence config (``bench.py:284-312``): 256
+    keypoints, 3 octaves without the 2x octave, ratio 0.8, capacities 8 /
+    256 / 2048 / 8192."""
+    from structure_from_motion_tpu_torch.config import (
+        CapacityConfig,
+        FrontendConfig,
+        MatcherConfig,
+        PipelineConfig,
+    )
+
+    return PipelineConfig(
+        frontend=FrontendConfig(max_keypoints=256, num_octaves=3, upsample_first_octave=False),
+        matcher=MatcherConfig(ratio=0.8),
+        capacity=CapacityConfig(max_views=8, max_keypoints=256, max_points=2048,
+                                max_observations=8192),
+    )
+
+
+def render_all(pool) -> dict:
+    """Every rendered sequence of the smoke, submitted to ``pool``: name ->
+    future of ``synthetic_scene_sequence``'s (imgs, K, C_gt, R_gt)."""
+    from structure_from_motion_tpu_torch.io.synthetic import synthetic_scene_sequence
+
+    jobs = {"slice": RENDER, "small": RENDER_SMALL, "harris": HARRIS_RENDER}
+    for b in range(BATCH):
+        jobs[f"lane{b}"] = dict(BATCH_RENDER, seed=3 + b)
+        jobs[f"small lane{b}"] = dict(SMALL_BATCH_RENDER, seed=3 + b)
+    return {name: pool.submit(synthetic_scene_sequence, **kw) for name, kw in jobs.items()}
+
+
+def _validated(state, what: str) -> None:
+    from structure_from_motion_tpu_torch.utils.debug import validate_state
+
+    problems = validate_state(state)
+    print(f"{what} validate_state: {len(problems)} findings {problems[:5]}")
+    if problems:
+        raise AssertionError(f"{what}: the state breaks its invariants: {problems[:5]}")
+
+
+def _span_ate(locs, C_gt) -> float:
+    import numpy as np
+
+    return _umeyama_ate(locs, C_gt) / float(np.linalg.norm(C_gt.max(0) - C_gt.min(0)))
+
+
+def batched_phase(dev, seqs, small_seqs, map_seq, cfg, counted, sync, card: str) -> dict:
+    """``BatchedIncrementalSfM`` on B lanes: the CLI's default config at full
+    width (every lane held to the slice's bounds, two lanes against single
+    runs, launches and host synchronisations a frame at B and at 1), then
+    ``bench.py``'s small config, then the map kernel's lane path. Returns
+    the launch counts (all, by shape) of the full-width B-lane run, of the
+    small batch and of the map run, under "batched", "small batch" and
+    "batched map", and the small batch's last B4 inputs."""
+    import dataclasses
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from structure_from_motion_tpu_torch.models.batched import BatchedIncrementalSfM
+    from structure_from_motion_tpu_torch.models.incremental import IncrementalSfM
+    from structure_from_motion_tpu_torch.ops import ba as ba_module
+
+    B = len(seqs)
+    seeds = list(range(B))
+
+    def lockstep(config, lanes, K, label, lane_seeds):
+        """Every frame of ``lanes`` (each (imgs, ...)) through one engine:
+        (engine, wall s a frame, host synchronisations a frame, launches)."""
+        n = len(lanes[0][0])
+        frames = [torch.as_tensor(np.stack([np.asarray(s[0][t]) for s in lanes])).to(dev)
+                  for t in range(n)]
+        eng = BatchedIncrementalSfM(config, K, batch=len(lanes), seed=lane_seeds, device=dev)
+        sync()
+        _reset(counted)
+        times, syncs = [], []
+        for t in range(n):
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                t0 = time.perf_counter()
+                info = eng.process_images(frames[t])
+                sync()
+                times.append(time.perf_counter() - t0)
+                torch.cuda.set_sync_debug_mode(0)
+            syncs.append(sum("synchroniz" in str(w.message) for w in caught))
+            print(f"{label} frame {t}: {times[-1]:.3f} s, host synchronisations {syncs[-1]}, "
+                  f"matches {info['matches'].tolist()}, reprojection "
+                  f"{np.round(info['reprojection_px'], 4).tolist()} px ({card})")
+        return eng, times, syncs, _read(counted)
+
+    K = seqs[0][1]
+    if not all(np.allclose(s[1], K) for s in seqs):
+        raise AssertionError("the lanes' renders do not share K")
+    n = len(seqs[0][0])
+    eng, times, syncs, (launches, by_shape) = lockstep(cfg, seqs, K, f"batched B={B}", seeds)
+    locs, rots = eng.poses()
+    reproj = eng.reprojection_error()
+    ates = [_span_ate(locs[b], seqs[b][2]) for b in range(B)]
+    steady = float(np.median(times[2:]))
+    print(f"batched B={B} ({n} frames of {seqs[0][0][0].shape[0]}x{seqs[0][0][0].shape[1]} a "
+          f"lane): frame 0 {times[0]:.3f} s, bootstrap {times[1]:.3f} s, frames 2-{n - 1} "
+          f"median {steady:.3f} s, total {sum(times):.3f} s, aggregate "
+          f"{B * n / sum(times):.2f} frames/s, steady {B / steady:.2f} frames/s ({card})")
+    print(f"batched B={B} quality: ATE of span {np.round(ates, 5).tolist()} (bound {ATE_BOUND}), "
+          f"reprojection {np.round(reproj, 4).tolist()} px (bound {REPROJ_BOUND_PX}), map points "
+          f"{[len(eng.map_points(b)) for b in range(B)]}")
+    print(f"batched B={B} launches: {launches}; by shape {by_shape}")
+    if not (locs.shape == (B, n, 3) and np.isfinite(locs).all() and np.isfinite(rots).all()):
+        raise AssertionError("batched poses missing or not finite")
+    if not (max(ates) < ATE_BOUND and float(reproj.max()) < REPROJ_BOUND_PX):
+        raise AssertionError("a batched lane is outside the slice's bounds")
+    _validated(eng.state, f"batched B={B}")
+    for name in ("B1 blur_levels", "B2f candidate_block_max", "B3 match_top2", "B4 ba_blocks"):
+        if launches[name] < 1:
+            raise AssertionError(f"{name} never launched in the batched run")
+
+    # lane 0 alone through the same engine: launches and synchronisations
+    _, times1, syncs1, (launches1, _) = lockstep(cfg, seqs[:1], K, "batched B=1", seeds[:1])
+    per = {k: round(v / n, 1) for k, v in launches.items()}
+    per1 = {k: round(v / n, 1) for k, v in launches1.items()}
+    print(f"batched launches a frame of the counted kernels: B={B} {per}, B=1 {per1}; host "
+          f"synchronisations a frame: B={B} {syncs} (median {float(np.median(syncs[2:]))}), "
+          f"B=1 {syncs1} (median {float(np.median(syncs1[2:]))}); B=1 wall median "
+          f"{float(np.median(times1[2:])):.3f} s a frame ({card})")
+
+    # two lanes against single-sequence runs with their seeds
+    for b in (0, B - 1):
+        single = IncrementalSfM(cfg, K, frontend="native", seed=seeds[b], device=dev)
+        for im in seqs[b][0]:
+            single.process_image(im)
+        s_locs, s_rots = single.poses()
+        dl, dr = float(np.abs(locs[b] - s_locs).max()), float(np.abs(rots[b] - s_rots).max())
+        print(f"batched lane {b} against IncrementalSfM(seed={seeds[b]}): max |dC| {dl:.2e}, "
+              f"max |dR| {dr:.2e} (atol 5e-3)")
+        if not (dl <= 5e-3 and dr <= 5e-3):
+            raise AssertionError(f"batched lane {b} differs from its single run")
+    del eng
+
+    # bench.py's small config: 8 lanes of 240x320
+    scfg = small_batch_config()
+    with last_call(ba_module, "ba_blocks") as small_b4:
+        eng, times, syncs, small_counts = lockstep(scfg, small_seqs, small_seqs[0][1],
+                                                   f"small batch B={B}", seeds)
+    locs, _ = eng.poses()
+    ates = [_span_ate(locs[b], small_seqs[b][2]) for b in range(B)]
+    reproj = eng.reprojection_error()
+    points = [len(eng.map_points(b)) for b in range(B)]
+    ns = len(small_seqs[0][0])
+    print(f"small batch B={B}: frames 2-{ns - 1} median {float(np.median(times[2:])):.3f} s, "
+          f"aggregate {B * ns / sum(times):.2f} frames/s, host synchronisations {syncs} ({card}); "
+          f"ATE of span {np.round(ates, 5).tolist()} (bound {SMALL_BATCH_BANDS['ate']:.5f}), "
+          f"reprojection {np.round(reproj, 4).tolist()} px (bound "
+          f"{SMALL_BATCH_BANDS['reproj']:.4f}), map points {points} (at least "
+          f"{SMALL_BATCH_BANDS['points']}); launches {small_counts[0]}, by shape "
+          f"{small_counts[1]}")
+    if not (max(ates) <= SMALL_BATCH_BANDS["ate"] and float(reproj.max())
+            <= SMALL_BATCH_BANDS["reproj"] and min(points) >= SMALL_BATCH_BANDS["points"]):
+        raise AssertionError("the small batch is outside the JAX package's bands")
+    _validated(eng.state, f"small batch B={B}")
+    del eng
+
+    # the map kernel's lane path: topk_block 0 on 600x800 frames
+    map_cfg = dataclasses.replace(cfg, frontend=dataclasses.replace(cfg.frontend, topk_block=0))
+    eng, _, _, (map_launches, map_by_shape) = lockstep(map_cfg, map_seq, map_seq[0][1],
+                                                       f"batched map B={B}", seeds)
+    print(f"batched map B={B}: launches {map_launches}, by shape {map_by_shape}")
+    if map_launches["B2 candidate_response"] < 1 or map_launches["B2f candidate_block_max"]:
+        raise AssertionError("the batched map run did not take the map kernel")
+    if not np.isfinite(eng.poses()[0]).all():
+        raise AssertionError("batched map run: poses not finite")
+    _validated(eng.state, f"batched map B={B}")
+    runs = {"batched": (launches, by_shape), "small batch": small_counts,
+            "batched map": (map_launches, map_by_shape)}
+    return runs, small_b4["args"]
+
+
+def harris_phase(dev, seq, counted, sync, card: str):
+    """``reconstruct --detector harris`` on BMP files, held to the bands of
+    the JAX package's CLI on the same frames. Returns its launch counts
+    (all, by shape), its frontend config and its last B4 inputs."""
+    import numpy as np
+
+    from structure_from_motion_tpu_torch.config import PipelineConfig
+    from structure_from_motion_tpu_torch.models.incremental import IncrementalSfM
+    from structure_from_motion_tpu_torch.ops import ba as ba_module
+
+    imgs, K, C_gt, _ = seq
+    root = Path(__file__).resolve().parent / "build" / "chip_smoke_harris"
+    shutil.rmtree(root, ignore_errors=True)
+    (root / "frames").mkdir(parents=True)
+    for i, im in enumerate(imgs):
+        write_bmp_gray(str(root / "frames" / f"frame{i:04d}.bmp"), np.asarray(im))
+    out = root / "out"
+    _reset(counted)
+    with last_call(ba_module, "ba_blocks") as b4_in:
+        rc, text = _run_cli(["reconstruct", "--images", str(root / "frames"), "--pattern",
+                             "*.bmp", "--out", str(out), "--fx", repr(float(K[0, 0])),
+                             "--fy", repr(float(K[1, 1])), "--cx", repr(float(K[0, 2])),
+                             "--cy", repr(float(K[1, 2])), "--detector", "harris"])
+        sync()
+    launches, by_shape = _read(counted)
+    print(text.rstrip())
+    if rc != 0:
+        raise AssertionError(f"reconstruct --detector harris exited with {rc}")
+    rec = np.load(out / "reconstruction.npz")
+    locs, pts = rec["locations"], rec["points"]
+    cfg = PipelineConfig.from_json((out / "config.json").read_text())
+    engine = IncrementalSfM(cfg, K, frontend="native", device=dev)
+    engine.load_checkpoint(str(out / "state.npz"))
+    ate, reproj = _span_ate(locs, C_gt), engine.reprojection_error()
+    lo, hi = HARRIS_BANDS["points"]
+    rate = [ln for ln in text.splitlines() if "frames/s" in ln]
+    print(f"harris: {rate[0].strip() if rate else ''} ({card}); {len(locs)} poses, ATE of span "
+          f"{ate:.6f} (bound {HARRIS_BANDS['ate']:.6f}), reprojection {reproj:.4f} px (bound "
+          f"{HARRIS_BANDS['reproj']:.4f}), {len(pts)} map points (band {lo}-{hi}); JAX on the "
+          f"CPU: {JAX_HARRIS}; launches {launches}, by shape {by_shape}")
+    if not (cfg.frontend.detector == "harris" and cfg.matcher.metric == "hamming"
+            and cfg.matcher.cross_check and cfg.frontend.descriptor_dim == 256):
+        raise AssertionError(f"the harris run's config is not the JAX parser's: {cfg}")
+    if not (len(locs) == len(imgs) and np.isfinite(locs).all() and ate <= HARRIS_BANDS["ate"]
+            and reproj <= HARRIS_BANDS["reproj"] and lo <= len(pts) <= hi):
+        raise AssertionError("the harris run is outside the JAX package's bands")
+    if launches["B1 blur_levels"] < 1 or launches["B4 ba_blocks"] < 1:
+        raise AssertionError(f"harris launches: {launches}")
+    _validated(engine.state, "harris")
+    shutil.rmtree(root)
+    return (launches, by_shape), cfg.frontend, b4_in["args"]
+
+
 def write_bmp_gray(path, gray) -> None:
     """(H, W) uint8 -> an uncompressed bottom-up 24-bit BMP file."""
     import numpy as np
@@ -202,6 +479,25 @@ def write_bmp_gray(path, gray) -> None:
         f.write(b"BM" + struct.pack("<IHHI", 54 + rows.size, 0, 0, 54))
         f.write(struct.pack("<IiiHHIIiiII", 40, w, h, 1, 24, 0, rows.size, 2835, 2835, 0, 0))
         f.write(rows.tobytes())
+
+
+@contextlib.contextmanager
+def last_call(module, name: str):
+    """Keep the arguments of the last call of ``module.name`` made in the
+    block: the inputs a path gave a kernel's wrapper, whose launches still
+    count as the path's own."""
+    fn = getattr(module, name)
+    seen = {}
+
+    def spy(*args):
+        seen["args"] = args
+        return fn(*args)
+
+    setattr(module, name, spy)
+    try:
+        yield seen
+    finally:
+        setattr(module, name, fn)
 
 
 def _reset(counted) -> None:
@@ -268,6 +564,7 @@ def cli_phase(dev, imgs, small_imgs, K, small_K, C_gt, small_C_gt, cfg, counted,
         ate = _umeyama_ate(locs, C_gt[:n]) / span
         engine = IncrementalSfM(cfg, K, frontend="native", device=dev)
         engine.load_checkpoint(str(out / "state.npz"))
+        _validated(engine.state, f"cli ({n} frames)")
         reproj = engine.reprojection_error()
         if not (ate < ATE_BOUND and reproj < REPROJ_BOUND_PX):
             raise AssertionError(f"CLI quality outside its bounds: ATE {ate}, {reproj} px")
@@ -435,6 +732,7 @@ def slice_phase(dev, imgs, K, C_gt, cfg, counted, sync, card: str) -> dict:
           f"finalize(3) cost {fcosts[0]:.6g} -> {fcosts[-1]:.6g}")
     if not (resumed_frame == n and same and np.isfinite(fcosts).all()):
         raise AssertionError("checkpoint round trip or finalize failed")
+    _validated(engine.state, "slice")
     return launches, by_shape
 
 
@@ -486,9 +784,15 @@ def global_phase(dev, counted, sync, card: str) -> dict:
     return launches
 
 
-def kernel_phase(dev, imgs, small_img, cfg, smi: str) -> list:
+def kernel_phase(dev, imgs, small_img, cfg, smi: str, lane_imgs, map_lane_imgs,
+                 small_lane_imgs, harris_img, harris_fe, small_b4, harris_b4) -> list:
     """Every kernel against its plain version on the card at the shapes its
-    path gives it; raises on a disagreement. Returns the kernels' entries
+    path gives it, and the lane axis of B1-B4 at the batched phases' shapes
+    (``lane_imgs``: frame 0 of every full-width lane; ``map_lane_imgs``: of
+    every lane of the map run; ``small_lane_imgs``: of every lane of the
+    small batch, whose last B4 inputs are ``small_b4``), and B1 and B4 at
+    the Harris run's shapes (``harris_img``: its frame 0, ``harris_fe``: its
+    frontend config; ``harris_b4``: its last B4 inputs); raises on a disagreement. Returns the kernels' entries
     (without ``launches``; ``path`` names the run whose launches count)."""
     import dataclasses
 
@@ -842,7 +1146,210 @@ def kernel_phase(dev, imgs, small_img, cfg, smi: str) -> list:
            lambda: ba_matvec.reduce_cam_reference(w21, y, perm, mask, V), err <= bound and same,
            moved=n_filled * (84 + 12) + nbytes(perm, mask, c1), flops=2 * 21 * n_filled,
            path="global")
+    del state, prob, st, obs, bargs, got, w21, t, t_ref, y, perm, mask
     torch.cuda.empty_cache()
+
+    # -- the lane axis: B lanes in one launch, at the batched phases' shapes
+    B = len(lane_imgs)
+
+    def lane_checks(label, fn, lanes_in, one_in):
+        """(lane b equals a one-lane launch on lane b's inputs, for every b;
+        a one-lane stack equals the call without a lane axis), bit for bit.
+        ``fn`` returns a tuple of tensors; ``lanes_in`` / ``one_in`` slice
+        its inputs to lane b / to lane b without the lane axis."""
+        got = fn(*lanes_in(slice(None)))
+        n = got[0].shape[0]
+        lanes_same = all(
+            all(torch.equal(g[b], o) for g, o in zip(got, fn(*one_in(b)))) for b in range(n))
+        first = fn(*lanes_in(slice(0, 1)))
+        one_same = all(torch.equal(f[0], o) for f, o in zip(first, fn(*one_in(0))))
+        print(f"kernel {label}: lane b equals its one-lane launch, bit for bit, for every b: "
+              f"{lanes_same}; a one-lane stack equals the call without a lane axis: {one_same}")
+        return got, lanes_same and one_same
+
+    def lane_img(im):
+        t = torch.as_tensor(im).to(dev).to(torch.float32)
+        return t / t.max()
+
+    def b1_lanes(label, src, ks, path):
+        n, h, w = src.shape
+        got, bits = lane_checks(
+            f"B1 blur_levels lanes{label}",
+            lambda x: (blur_cuda.blur_levels(x.contiguous(), ks),),
+            lambda sl: (src[sl],), lambda b: (src[b],))
+        ref = blur_cuda.blur_levels_reference(src, ks)
+        err = float((got[0] - ref).abs().max())
+        record(f"B1 blur_levels lanes{label}", "blur.cu",
+               "structure_from_motion_tpu/ops/blur_pallas.py:85", err,
+               f"atol 2e-5; {n} lanes of {h}x{w}, radii {[len(k) // 2 for k in ks]}; lanes "
+               f"bit for bit as one-lane launches: {bits}",
+               lambda: blur_cuda.blur_levels(src, ks),
+               lambda: blur_cuda.blur_levels_reference(src, ks), err <= 2e-5 and bits,
+               moved=nbytes(src, got[0]),
+               flops=sum(2 * 2 * len(k) for k in ks) * src.numel(),
+               shape=(n, h, w, len(ks)), path=path)
+        return got[0]
+
+    def pyramid_lanes(stack, path, fe=fe, tag=""):
+        """B1 and the B2 kernel of each octave at every shape of a (B, H, W)
+        frame stack, as the frontend ``fe`` launches them: the fused B2
+        where its 8x8 blocks tile the octave, else the map kernel."""
+        if fe.upsample_first_octave:
+            src, ks = features._upsample2x(stack).contiguous(), base_k
+        else:
+            src, ks = stack, [features._gaussian_kernel1d(fe.sigma0)]
+        base = b1_lanes(f" ({tag}base blur, {src.shape[1]}x{src.shape[2]}, 1 level)", src, ks,
+                        path)[:, 0]
+        for _ in range(fe.num_octaves):
+            h, w = base.shape[-2:]
+            gauss = torch.cat([base[:, None], b1_lanes(f" ({tag}{h}x{w})", base, rel, path)],
+                              dim=1)
+            dog = (gauss[:, 1:] - gauss[:, :-1]).contiguous()
+            fused = fe.topk_block == 8 and h % 8 == 0 and w % 8 == 0
+            (b2f_lanes if fused else b2_map_lanes)(dog, h, w, path, tag)
+            base = features._downsample2(gauss[:, S])
+
+    def b2f_lanes(dog, h, w, path, tag):
+        got, bits = lane_checks(
+            f"B2f candidate_block_max lanes ({tag}{h}x{w})",
+            lambda d: features_cuda.candidate_block_max(d.contiguous(), *args),
+            lambda sl: (dog[sl],), lambda b: (dog[b],))
+        ref = features_cuda.candidate_block_max_reference(dog, *args)
+        same = torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+        record(f"B2f candidate_block_max lanes ({tag}{h}x{w})", "cand.cu", cand_src,
+               float((got[0] - ref[0]).abs().max()),
+               f"atol 0 (cand and pos equal: {same}); {tuple(dog.shape)}; lanes bit for bit as "
+               f"one-lane launches: {bits}",
+               lambda: features_cuda.candidate_block_max(dog, *args),
+               lambda: features_cuda.candidate_block_max_reference(dog, *args), same and bits,
+               moved=nbytes(dog, *got), flops=40 * dog.shape[0] * (dog.shape[1] - 2) * h * w,
+               shape=(dog.shape[0], h, w), path=path)
+
+    def b2_map_lanes(dog, h, w, path, tag):
+        got, bits = lane_checks(
+            f"B2 candidate_response lanes ({tag}{h}x{w})",
+            lambda d: (features_cuda.candidate_response(d.contiguous(), *args),),
+            lambda sl: (dog[sl],), lambda b: (dog[b],))
+        ref = features_cuda.candidate_response_reference(dog, *args)
+        err = float((got[0] - ref).abs().max())
+        record(f"B2 candidate_response lanes ({tag}{h}x{w})", "cand.cu", cand_src, err,
+               f"atol 0 (exact); {tuple(dog.shape)}, {int((ref > 0).sum())} candidates; lanes "
+               f"bit for bit as one-lane launches: {bits}",
+               lambda: features_cuda.candidate_response(dog, *args),
+               lambda: features_cuda.candidate_response_reference(dog, *args),
+               err == 0.0 and bits, moved=nbytes(dog, got[0]), flops=40 * got[0].numel(),
+               shape=(dog.shape[0], h, w), path=path)
+
+    pyramid_lanes(torch.stack([lane_img(im) for im in lane_imgs]), "batched")
+    torch.cuda.empty_cache()
+    pyramid_lanes(torch.stack([lane_img(im) for im in map_lane_imgs]), "batched map",
+                  dataclasses.replace(fe, topk_block=0))
+    torch.cuda.empty_cache()
+    # the small batch: bench.py's small config (no 2x octave: the base blur
+    # takes sigma0 whole; 8 does not divide its last octave, 60x80)
+    pyramid_lanes(torch.stack([lane_img(im) for im in small_lane_imgs]), "small batch",
+                  small_batch_config().frontend, "small batch, ")
+
+    def b3_lanes(label, nr, nq, path):
+        """Each lane's ``nr`` reference rows against its own ``nq`` queries."""
+        lref = torch.stack([descriptors(nr) for _ in range(B)])
+        lque = torch.stack([descriptors(nq) for _ in range(B)])
+        lmask = torch.as_tensor(rng.random((B, nq)) < 0.9).to(dev)
+        got, bits = lane_checks(f"B3 match_top2 lanes{label}", matching.match_top2,
+                                lambda sl: (lref[sl], lque[sl], lmask[sl]),
+                                lambda b: (lref[b], lque[b], lmask[b]))
+        r1, r2, rj = matching.match_top2_reference(lref, lque, lmask)
+        err = float(max((got[0] - r1).abs().max(), (got[1] - r2).abs().max()))
+        close = all(bool(((a - b).abs() <= 1e-4 + 1e-5 * b.abs()).all())
+                    for a, b in ((got[0], r1), (got[1], r2)))
+        same_j = bool((got[2] == rj)[(r2 - r1) > 1e-3].all())
+        record(f"B3 match_top2 lanes{label}", "match_top2.cu",
+               "structure_from_motion_tpu/ops/matching.py:220",
+               err, f"d^2 rtol 1e-5 atol 1e-4, j1 equal where d2^2-d1^2 > 1e-3; {B} lanes of "
+               f"{tuple(lref.shape[1:])} x {tuple(lque.shape[1:])}; lanes bit for bit as one-lane "
+               f"launches: {bits}",
+               lambda: matching.match_top2(lref, lque, lmask),
+               lambda: matching.match_top2_reference(lref, lque, lmask),
+               close and same_j and bits,
+               moved=nbytes(lref, lque, lmask) + 12 * B * lref.shape[1],
+               flops=3 * 2 * lref.shape[1] * int(lmask.sum()) * 128, flop_rate=PEAK_TF32_FLOPS,
+               path=path)
+        torch.cuda.empty_cache()
+
+    # B3: each lane's V views x K rows against its own K queries
+    cap, scap = cfg.capacity, small_batch_config().capacity
+    b3_lanes("", cap.max_views * cap.max_keypoints, cap.max_keypoints, "batched")
+    b3_lanes(" (small batch)", scap.max_views * scap.max_keypoints, scap.max_keypoints,
+             "small batch")
+
+    def b4_lanes(label, largs, path):
+        V = largs[6]
+        got, bits = lane_checks(f"B4 ba_blocks lanes{label}",
+                                lambda *a: ba_cuda.ba_blocks(*a, *largs[6:]),
+                                lambda sl: tuple(a[sl] for a in largs[:6]),
+                                lambda b: tuple(a[b] for a in largs[:6]))
+        ref = ba_cuda.ba_blocks_reference(*largs)
+        errs = [float((a - b).abs().max()) for a, b in zip(got, ref)]
+        scaled = [e / max(1.0, float(b.abs().max())) for e, b in zip(errs, ref)]
+        record(f"B4 ba_blocks lanes{label}", "ba_blocks.cu",
+               "structure_from_motion_tpu/ops/ba_pallas.py:163",
+               max(errs), f"1e-3 x max(1, |value|); worst scaled {max(scaled):.2e}; "
+               f"{largs[0].shape[0]} lanes of O = {largs[0].shape[1]}, V = {V}; lanes bit for "
+               f"bit as one-lane launches: {bits}",
+               lambda: ba_cuda.ba_blocks(*largs), lambda: ba_cuda.ba_blocks_reference(*largs),
+               max(scaled) <= 1e-3 and bits,
+               moved=nbytes(*largs[:6], *got[2:5]) + 4 * 57 * V * largs[0].shape[0],
+               flops=400 * largs[0].numel(), path=path)
+        torch.cuda.empty_cache()
+
+    # B4: each lane's full ELL stream, 16384 points x 16 slots, V = 16; and
+    # the small batch's last BA stream as its path gave it
+    per_lane = [b4_random(16384 * 16, 16) for _ in range(B)]
+    b4_lanes("", tuple(torch.stack([a[i] for a in per_lane]) for i in range(6)) + (16, 0.01),
+             "batched")
+    del per_lane
+    b4_lanes(" (small batch, its last BA stream)", small_b4, "small batch")
+
+    # -- the Harris run's shapes: per octave the one-level blurs at sigma
+    # 1.0 (the octave's image) and 2.0 (what BRIEF reads), the three
+    # structure-tensor products as three lanes of one sigma 1.5 blur; the
+    # last octave's sigma 1.0 blur alone; then its last BA stream
+    def gk(sigma):
+        return [features._gaussian_kernel1d(sigma)]
+
+    def b1_pair(h, w, pairs):
+        """The one-level B1 launches the Harris path makes at (h, w): a
+        list of (input, sigma), one launch each."""
+        got = [blur_cuda.blur_levels(x, gk(sg)) for x, sg in pairs]
+        ref = [blur_cuda.blur_levels_reference(x, gk(sg)) for x, sg in pairs]
+        err = max(float((g - r).abs().max()) for g, r in zip(got, ref))
+        sigmas = " and ".join(f"{sg}" for _, sg in pairs)
+        record(f"B1 blur_levels (harris, {h}x{w}, 1 level at sigma {sigmas}, "
+               f"{len(pairs)} launch{'es' if len(pairs) > 1 else ''})", "blur.cu",
+               "structure_from_motion_tpu/ops/blur_pallas.py:85", err,
+               f"atol 2e-5; radii {[len(gk(sg)[0]) // 2 for _, sg in pairs]}",
+               lambda: [blur_cuda.blur_levels(x, gk(sg)) for x, sg in pairs],
+               lambda: [blur_cuda.blur_levels_reference(x, gk(sg)) for x, sg in pairs],
+               err <= 2e-5, moved=sum(nbytes(x, g) for (x, _), g in zip(pairs, got)),
+               flops=sum(2 * 2 * len(gk(sg)[0]) * x.numel() for x, sg in pairs),
+               shape=(h, w, 1), path="harris")
+        return got
+
+    himg = lane_img(harris_img)
+    level_in = himg
+    for _ in range(harris_fe.num_octaves):
+        h, w = level_in.shape
+        level = blur_cuda.blur_levels(level_in, gk(1.0))[0]
+        b1_pair(h, w, [(level_in, 1.0), (level, 2.0)])
+        ix = 0.5 * (torch.roll(level, -1, -1) - torch.roll(level, 1, -1))
+        iy = 0.5 * (torch.roll(level, -1, -2) - torch.roll(level, 1, -2))
+        prods = torch.stack([ix * ix, iy * iy, ix * iy]).contiguous()
+        b1_lanes(f" (harris, 3 structure-tensor lanes of {h}x{w}, sigma 1.5)", prods, gk(1.5),
+                 "harris")
+        level_in = features._downsample2(level).contiguous()
+    b1_pair(*level_in.shape, [(level_in, 1.0)])
+    b4_case(f"B4 ba_blocks (harris, its last BA stream, O = {harris_b4[0].shape[0]})",
+            harris_b4, "harris")
     return results
 
 
@@ -858,11 +1365,6 @@ def main() -> None:
     # installed copy elsewhere
     if Path(port.__file__).resolve().parents[1] != Path(__file__).resolve().parent:
         raise SystemExit(f"chip_smoke: run from the repository root (found {port.__file__})")
-    from structure_from_motion_tpu_torch import kernels
-    from structure_from_motion_tpu_torch.io.synthetic import synthetic_scene_sequence
-    from structure_from_motion_tpu_torch.ops import ba_cuda, ba_matvec, blur_cuda
-    from structure_from_motion_tpu_torch.ops import features_cuda, matching
-
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
@@ -878,6 +1380,25 @@ def main() -> None:
         raise AssertionError("TF32 must be off for the f32 policy")
     dev = torch.device("cuda")
 
+    # every frame renders in worker processes (started fresh, not forked
+    # from this process, which holds the card); they are joined, and
+    # stopped on a failure, at the end
+    pool = ProcessPoolExecutor(max_workers=8, mp_context=multiprocessing.get_context("spawn"))
+    try:
+        _smoke(torch, dev, smi, pool)
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+
+
+def _smoke(torch, dev, smi: str, pool) -> None:
+    import numpy as np
+
+    from structure_from_motion_tpu_torch import kernels
+    from structure_from_motion_tpu_torch.ops import ba_cuda, ba_matvec, blur_cuda
+    from structure_from_motion_tpu_torch.ops import features_cuda, matching
+
+    renders = render_all(pool)
+
     # -- 2. build ----------------------------------------------------------
     t0 = time.perf_counter()
     path = kernels.build()
@@ -889,11 +1410,20 @@ def main() -> None:
             if "Compiling entry function" in line or "registers" in line or "spill" in line:
                 print(f"build ptxas: {line.strip()}")
 
-    # -- 3. kernels against their plain versions at the paths' shapes ------
-    imgs, K, C_gt, _ = synthetic_scene_sequence(**RENDER)
-    small_imgs, small_K, small_C_gt, _ = synthetic_scene_sequence(**RENDER_SMALL)
+    # -- the rendered sequences ------------------------------------------------
+    t0 = time.perf_counter()
+    imgs, K, C_gt, _ = renders["slice"].result()
+    small_imgs, small_K, small_C_gt, _ = renders["small"].result()
+    lanes = [renders[f"lane{b}"].result() for b in range(BATCH)]
+    small_lanes = [renders[f"small lane{b}"].result() for b in range(BATCH)]
+    print(f"render: {len(renders)} sequences in worker processes, {time.perf_counter() - t0:.1f} s "
+          "waited for them")
+    # the map run's lanes: the 600x800 sequence, every other lane mirrored
+    # (a mirrored scene under the same K, whose cx is the image centre)
+    map_lanes = [([np.ascontiguousarray(im[:, ::-1]) if b % 2 else im for im in small_imgs[:3]],
+                  small_K, small_C_gt[:3] * ([-1.0, 1.0, 1.0] if b % 2 else 1.0))
+                 for b in range(BATCH)]
     cfg = cli_default_config()
-    results = kernel_phase(dev, imgs, small_imgs[0], cfg, smi)
 
     # -- 4. the slice: the CLI's default slide mode, then finalize_global ----
     slice_kernels = {
@@ -920,8 +1450,24 @@ def main() -> None:
     # -- 6. the command line ---------------------------------------------------
     runs["cli map"] = cli_phase(dev, imgs, small_imgs, K, small_K, C_gt, small_C_gt, cfg,
                                 counted, torch.cuda.synchronize, smi)
+
+    # -- 7. the batched engine ---------------------------------------------------
+    batched_runs, small_b4 = batched_phase(dev, lanes, small_lanes, map_lanes, cfg, counted,
+                                           torch.cuda.synchronize, smi)
+    runs.update(batched_runs)
+
+    # -- 8. the Harris frontend through the command line -------------------------
+    harris = renders["harris"].result()
+    runs["harris"], harris_fe, harris_b4 = harris_phase(dev, harris, counted,
+                                                        torch.cuda.synchronize, smi)
+
+    # -- 3. every kernel against its plain version at its paths' shapes (after
+    # the runs, whose last B4 inputs it takes) ----------------------------------
+    results = kernel_phase(dev, imgs, small_imgs[0], cfg, smi, [s[0][0] for s in lanes],
+                           [s[0][0] for s in map_lanes], [s[0][0] for s in small_lanes],
+                           harris[0][0], harris_fe, small_b4, harris_b4)
     for r in results:
-        name = r["name"].split(" (")[0]
+        name = r["name"].split(" (")[0].removesuffix(" lanes")
         shape, (all_launches, by_shape) = r.pop("shape"), runs[r.pop("path")]
         # B1, B2: the launches at this entry's shape; else all of the run's
         r["launches"] = all_launches[name] if shape is None else by_shape[name].get(shape, 0)

@@ -9,8 +9,10 @@ decode -> pinned buffer -> upload on a side stream, one frame ahead
 ``--device cpu`` is given. Differences from the JAX package's CLI:
 ``--device`` takes ``cuda`` (default) or ``cpu``; ``--compile-cache`` is
 accepted and ignored (PyTorch runs eagerly; the kernels' build cache is
-``build/torch_kernels/``); ``--detector harris`` and ``--ba-shards`` > 1 are
-not ported yet and exit with a message.
+``build/torch_kernels/``); ``--ba-shards`` > 1 is not ported yet and exits
+with a message. ``--detector harris`` runs Harris corners with 256-bit
+steered-BRIEF codes, Hamming matching and the cross-check, as in the JAX
+package.
 
 Examples:
     python -m structure_from_motion_tpu_torch reconstruct \\
@@ -48,19 +50,22 @@ def _build_config(args):
             return PipelineConfig.from_json(f.read())
 
     # accuracy is the default price: the 2x first octave ships unless
-    # --no-upsample asks for the throughput config
-    upsample = not args.no_upsample
+    # --no-upsample asks for the throughput config (DoG only)
+    harris = args.detector == "harris"
+    upsample = not harris and not args.no_upsample
     frontend = FrontendConfig(
-        detector="dog",
+        detector=args.detector,
         max_keypoints=args.max_kp,
-        descriptor_dim=128,
+        descriptor_dim=256 if harris else 128,
         upsample_first_octave=upsample,
         num_octaves=5 if upsample else 4,
     )
     matcher = MatcherConfig(
         ratio=args.ratio,
-        metric="l2",
-        cross_check=False,
+        metric="hamming" if harris else "l2",
+        # binary codes: the Hamming ratio test alone is weakly
+        # discriminative, so matches must also be mutual nearest neighbours
+        cross_check=harris,
         use_fundamental_gate=not args.no_gate,
         gate_ransac=RansacConfig(inlier_threshold=3.0, iteration=128),
     )
@@ -83,9 +88,6 @@ def _build_config(args):
 
 def _not_ported(args) -> str | None:
     """The message for a flag whose code is a later slice of the port."""
-    if args.detector == "harris":
-        return ("--detector harris (Harris corners, BRIEF, Hamming matching) is not ported yet: "
-                "ROADMAP A12")
     if args.ba_shards > 1:
         return "--ba-shards > 1 (sharded bundle adjustment) is not ported yet: ROADMAP A13"
     return None
@@ -330,8 +332,7 @@ def build_parser() -> argparse.ArgumentParser:
              "keypoints are undistorted on the device at ingest",
     )
     r.add_argument("--config", help="PipelineConfig JSON (overrides flags)")
-    r.add_argument("--detector", choices=["dog", "harris"], default="dog",
-                   help="harris is not ported yet (ROADMAP A12)")
+    r.add_argument("--detector", choices=["dog", "harris"], default="dog")
     r.add_argument("--max-kp", type=int, default=2048)
     r.add_argument("--ratio", type=float, default=0.75)
     r.add_argument("--no-gate", action="store_true")

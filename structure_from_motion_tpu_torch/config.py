@@ -73,7 +73,7 @@ class FrontendConfig:
     gradient-histogram descriptor. ``max_keypoints`` fixes the per-view key
     capacity, so every downstream shape is fixed."""
 
-    detector: str = "dog"  # the port covers "dog"
+    detector: str = "dog"  # "dog" or "harris"
     max_keypoints: int = 2048
     num_octaves: int = 4
     # detect octave -1 on a 2x bilinear-upsampled image: fine keypoints
@@ -109,9 +109,9 @@ class MatcherConfig:
     ratio test and per-query dedup."""
 
     ratio: float = 0.7
-    cross_check: bool = False  # the port covers False
+    cross_check: bool = False  # mutual nearest neighbours only
     impl: str = "auto"  # round trip only
-    metric: str = "l2"  # the port covers "l2"
+    metric: str = "l2"  # "l2" or "hamming" (+-1 codes)
     use_fundamental_gate: bool = False
     # thresholds are pixel Sampson distances (ops/epipolar.py)
     gate_ransac: RansacConfig = dataclasses.field(

@@ -93,6 +93,13 @@ ba_assemble(const int* __restrict__ cam, const float* __restrict__ Cg,
   __shared__ unsigned headmask[kBO / 32];
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
   const int b = blockIdx.x, nb = gridDim.x;
+  {  // blockIdx.y is the lane: O observations and their scratch a lane
+    const size_t lo = (size_t)blockIdx.y * O;
+    cam += lo; Cg += 3 * lo; qg += 4 * lo; Xg += 3 * lo; uvg += 2 * lo; wg += lo;
+    dtd_out += 9 * lo; wblk_out += 21 * lo; bp_out += 3 * lo;
+    rows += (size_t)blockIdx.y * nb * rmax * kP;
+    slot += (size_t)blockIdx.y * nb * V;
+  }
   const int o0 = b * kBO;
   const int o = o0 + t;
   const int n_here = min(kBO, O - o0);
@@ -267,6 +274,10 @@ ba_reduce_rows(const float* __restrict__ rows,
                const unsigned char* __restrict__ slot, int nb, int V,
                int rmax, float* __restrict__ out) {
   __shared__ float part[kGroups * kP];
+  // blockIdx.y is the lane: its own scratch and its own V output rows
+  rows += (size_t)blockIdx.y * nb * rmax * kP;
+  slot += (size_t)blockIdx.y * nb * V;
+  out += (size_t)blockIdx.y * V * kOutP;
   const int v = blockIdx.x;
   const int c = threadIdx.x % kP, g = threadIdx.x / kP;
   const int chunk = (nb + kGroups - 1) / kGroups;
@@ -306,22 +317,25 @@ ba_reduce_rows(const float* __restrict__ rows,
 
 }  // namespace
 
-// cam (O,) int32; C (O, 3), q (O, 4), X (O, 3), uv (O, 2), w (O,) f32 ->
-// dtd (O, 9), wblk (O, 21), bp (O, 3), cam_out (V, 57). Scratch: rows holds
-// ceil(O / 128) * rmax * 36 floats with rmax = min(128, V); slot holds
-// V * ceil(O / 128) bytes. Observations whose camera id is outside [0, V)
-// enter no camera sum.
-extern "C" int sfm_ba_blocks(const int* cam, const float* C, const float* q,
-                             const float* X, const float* uv, const float* w,
-                             int O, int V, float huber, float* dtd, float* wblk,
-                             float* bp, float* rows, unsigned char* slot,
-                             float* cam_out, void* stream) {
+// cam (lanes, O) int32; C (lanes, O, 3), q (lanes, O, 4), X (lanes, O, 3),
+// uv (lanes, O, 2), w (lanes, O) f32 -> dtd (lanes, O, 9), wblk (lanes, O,
+// 21), bp (lanes, O, 3), cam_out (lanes, V, 57): each lane as its own launch
+// (4 | O when lanes > 1, which keeps every lane's rows 16-byte aligned).
+// Scratch: rows holds lanes * ceil(O / 128) * rmax * 36 floats with rmax =
+// min(128, V); slot holds lanes * V * ceil(O / 128) bytes. Observations whose
+// camera id is outside [0, V) enter no camera sum.
+extern "C" int sfm_ba_blocks_lanes(const int* cam, const float* C, const float* q,
+                                   const float* X, const float* uv, const float* w,
+                                   int lanes, int O, int V, float huber, float* dtd,
+                                   float* wblk, float* bp, float* rows, unsigned char* slot,
+                                   float* cam_out, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int nb = (O + kBO - 1) / kBO;
   const int rmax = V < kBO ? V : kBO;
-  if (nb <= 0 || V <= 0 || V > kNoKey) return static_cast<int>(cudaErrorInvalidValue);
-  ba_assemble<<<nb, kBO, 0, s>>>(cam, C, q, X, uv, w, O, V, huber, dtd, wblk,
-                                 bp, rows, slot, rmax);
-  ba_reduce_rows<<<V, kP * kGroups, 0, s>>>(rows, slot, nb, V, rmax, cam_out);
+  if (nb <= 0 || V <= 0 || V > kNoKey || lanes < 1 || lanes > 65535 || (lanes > 1 && O % 4))
+    return static_cast<int>(cudaErrorInvalidValue);
+  ba_assemble<<<dim3(nb, lanes), kBO, 0, s>>>(cam, C, q, X, uv, w, O, V, huber, dtd, wblk,
+                                              bp, rows, slot, rmax);
+  ba_reduce_rows<<<dim3(V, lanes), kP * kGroups, 0, s>>>(rows, slot, nb, V, rmax, cam_out);
   return static_cast<int>(cudaGetLastError());
 }

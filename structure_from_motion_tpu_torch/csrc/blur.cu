@@ -165,11 +165,17 @@ __device__ __forceinline__ void blur_level(const float* __restrict__ sbase, int 
 template <int NT, int TW, int TH, int NH, int NV, int MINB>
 __global__ void __launch_bounds__(NT, MINB)
 blur_levels_kernel(const float* __restrict__ base, const __grid_constant__ BlurTaps taps, int L,
-                   int max_radius, int H, int W, float* __restrict__ out) {
+                   int max_radius, int H, int W, float* __restrict__ out, int zper,
+                   long long out_lane) {
   static_assert(TW % NH == 0 && TH % NV == 0 && NT % 32 == 0, "tile shape");
   extern __shared__ float smem[];
-  // gridDim.z is 1 (a block makes every level of its tile) or L (one level)
-  const int halo = gridDim.z > 1 ? taps.radius[blockIdx.z] : max_radius;
+  // gridDim.z is lanes * zper: the lane, then zper = 1 (a block makes every
+  // level of its tile) or L (one level). A lane's base is (H, W) after the
+  // previous lane's, its levels out_lane floats after the previous lane's.
+  const int lane_z = blockIdx.z / zper, zl = blockIdx.z - lane_z * zper;
+  base += (size_t)lane_z * H * W;
+  out += (size_t)lane_z * out_lane;
+  const int halo = zper > 1 ? taps.radius[zl] : max_radius;
   const int wb = TW + 2 * halo, pb = wb + 1, hb = TH + 2 * halo;
   float* sbase = smem;
   float* smid = smem + hb * pb;
@@ -196,7 +202,7 @@ blur_levels_kernel(const float* __restrict__ base, const __grid_constant__ BlurT
   case R:                                                                                   \
     blur_level<NT, TW, TH, NH, NV, R>(sbase, pb, halo, smid, taps.k[l], x0, y0, H, W, dst); \
     break;
-  for (int l = blockIdx.z; l < L; l += gridDim.z) {
+  for (int l = zl; l < L; l += zper) {
     float* dst = out + (size_t)l * H * W;
     switch (taps.radius[l]) {  // block-uniform; every tap loop unrolls
       SFM_BLUR_CASE(0)
@@ -210,35 +216,40 @@ blur_levels_kernel(const float* __restrict__ base, const __grid_constant__ BlurT
 }
 
 template <int NT, int TW, int TH, int NH, int NV, int MINB>
-cudaError_t launch(const float* base, const BlurTaps& taps, int L, int halo, int H, int W,
-                   float* out, bool split_levels, cudaStream_t s) {
+cudaError_t launch(const float* base, const BlurTaps& taps, int L, int lanes, int halo, int H,
+                   int W, float* out, long long out_lane, bool split_levels, cudaStream_t s) {
   auto kernel = blur_levels_kernel<NT, TW, TH, NH, NV, MINB>;
   const size_t smem =
       sizeof(float) * (size_t)(TH + 2 * halo) * ((TW + 2 * halo + 1) + (TW + 1));
   cudaError_t rc =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (rc != cudaSuccess) return rc;
-  const dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH, split_levels ? L : 1);
-  kernel<<<grid, NT, smem, s>>>(base, taps, L, halo, H, W, out);
+  const int zper = split_levels ? L : 1;
+  const dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH, lanes * zper);
+  kernel<<<grid, NT, smem, s>>>(base, taps, L, halo, H, W, out, zper, out_lane);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// base (H, W) f32; taps: a host BlurTaps holding L <= 8 levels, each of
-// radius 0..16 (checked by the caller); out (L, H, W).
-extern "C" int sfm_blur_levels(const float* base, const void* taps_host, int L, int H, int W,
-                               float* out, void* stream) {
+// base (lanes, H, W) f32; taps: a host BlurTaps holding L <= 8 levels, each
+// of radius 0..16 (checked by the caller); lane b's L levels go to
+// out + b * out_lane, (L, H, W) each. The tile is chosen from ONE lane's
+// shape, so every lane runs the arithmetic of a one-lane launch.
+extern "C" int sfm_blur_levels_lanes(const float* base, const void* taps_host, int L, int lanes,
+                                     int H, int W, long long out_lane, float* out,
+                                     void* stream) {
   const BlurTaps& taps = *static_cast<const BlurTaps*>(taps_host);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (lanes < 1 || lanes > 65535 / 8) return static_cast<int>(cudaErrorInvalidValue);
   int halo = 0;
   for (int l = 0; l < L; ++l) halo = taps.radius[l] > halo ? taps.radius[l] : halo;
   const auto tiles = [&](int tw, int th) { return (long)((W + tw - 1) / tw) * ((H + th - 1) / th); };
   cudaError_t rc;
   if (tiles(64, 128) >= kFillTiles)
-    rc = launch<256, 64, 128, 8, 8, 2>(base, taps, L, halo, H, W, out, false, s);
+    rc = launch<256, 64, 128, 8, 8, 2>(base, taps, L, lanes, halo, H, W, out, out_lane, false, s);
   else
-    rc = launch<256, 64, 32, 8, 8, 4>(base, taps, L, halo, H, W, out,
+    rc = launch<256, 64, 32, 8, 8, 4>(base, taps, L, lanes, halo, H, W, out, out_lane,
                                       L > 1 && tiles(64, 32) < kFillTiles, s);
   return static_cast<int>(rc);
 }

@@ -8,13 +8,13 @@
 // |D| > contrast, the 2x2 Hessian has det > 0 and tr^2 r < (r+1)^2 det, and
 // (y, x) lies >= border pixels from every edge -- else 0. Two entry points:
 //
-// * sfm_candidate_block_max (the detector's path when 8 divides H and W):
+// * sfm_candidate_block_max_lanes (the detector's path when 8 divides H and W):
 //   writes, for every 8x8 block of every layer, the largest masked response
 //   and where it sits in the block (dy * 8 + dx; among equal values the first
 //   in row-major order; 0 for a block of zeros). The TPU kernel stops at the
 //   (S, H, W) map and leaves the block max to two single-axis reductions; here
 //   the map is never written.
-// * sfm_candidate_response (any H and W; the detector's path for topk_block
+// * sfm_candidate_response_lanes (any H and W; the detector's path for topk_block
 //   <= 1 and for sizes 8 does not divide): writes the (S, H, W) map.
 //
 // What bounds them on an H100: device-memory bandwidth. A pixel of the stack
@@ -102,6 +102,9 @@ candidate_response(const float* __restrict__ dog, int S, int H, int W,
                    float contrast, float edge_r, float edge_c, int border,
                    float* __restrict__ out) {
   extern __shared__ float tile[];  // (S+2, kPH, kPW)
+  // blockIdx.z is the lane: (S+2, H, W) in, (S, H, W) out a lane
+  dog += (size_t)blockIdx.z * (S + 2) * H * W;
+  out += (size_t)blockIdx.z * S * H * W;
   const int tx = threadIdx.x, ty = threadIdx.y;
   const int x0 = blockIdx.x * kTX, y0 = blockIdx.y * kTY;
   const int n = (S + 2) * kPH * kPW;
@@ -193,6 +196,10 @@ candidate_block_max(const float* __restrict__ dog, int H, int W, float contrast,
   constexpr int kHalo = 4 / C;                  // halo lanes on each side
   constexpr int kOutCols = (32 - 2 * kHalo) * C;  // 120, 56 or 24: whole blocks
   constexpr int kLanesPerBlock = kBlock / C;
+  // blockIdx.y is the lane: (S+2, H, W) in, (S, H/8, W/8) out a lane
+  dog += (size_t)blockIdx.y * (S + 2) * H * W;
+  cand += (size_t)blockIdx.y * S * (H / kBlock) * (W / kBlock);
+  pos += (size_t)blockIdx.y * S * (H / kBlock) * (W / kBlock);
   const int lane = threadIdx.x & 31;
   const int warp = blockIdx.x * (kFusedThreads / 32) + (threadIdx.x >> 5);
   const int warps_x = (W + kOutCols - 1) / kOutCols;
@@ -317,13 +324,14 @@ candidate_block_max(const float* __restrict__ dog, int H, int W, float contrast,
 }
 
 template <int S, int C, int R, int U>
-cudaError_t launch_block_max(const float* dog, int H, int W, float contrast, float edge_r,
-                             float edge_c, int border, float* cand, int* pos,
+cudaError_t launch_block_max(const float* dog, int lanes, int H, int W, float contrast,
+                             float edge_r, float edge_c, int border, float* cand, int* pos,
                              cudaStream_t s) {
   constexpr int kOutCols = (32 - 2 * (4 / C)) * C;
   const int warps = ((W + kOutCols - 1) / kOutCols) * ((H + R - 1) / R);
   const int per_block = kFusedThreads / 32;
-  candidate_block_max<S, C, R, U><<<(warps + per_block - 1) / per_block, kFusedThreads, 0, s>>>(
+  const dim3 grid((warps + per_block - 1) / per_block, lanes);
+  candidate_block_max<S, C, R, U><<<grid, kFusedThreads, 0, s>>>(
       dog, H, W, contrast, edge_r, edge_c, border, cand, pos);
   return cudaGetLastError();
 }
@@ -338,33 +346,33 @@ constexpr int kC = 2, kR = 8, kU = 2;
 
 }  // namespace
 
-// dog (S+2, H, W) -> out (S, H, W); edge_c = (edge_r + 1)^2 in f32.
-extern "C" int sfm_candidate_response(const float* dog, int S, int H, int W,
-                                      float contrast, float edge_r,
-                                      float edge_c, int border, float* out,
-                                      void* stream) {
+// dog (lanes, S+2, H, W) -> out (lanes, S, H, W); edge_c = (edge_r + 1)^2 in f32.
+extern "C" int sfm_candidate_response_lanes(const float* dog, int lanes, int S, int H, int W,
+                                            float contrast, float edge_r, float edge_c,
+                                            int border, float* out, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (lanes < 1 || lanes > 65535) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 block(kTX, kTY);
-  const dim3 grid((W + kTX - 1) / kTX, (H + kTY - 1) / kTY);
+  const dim3 grid((W + kTX - 1) / kTX, (H + kTY - 1) / kTY, lanes);
   const size_t smem = sizeof(float) * (S + 2) * kPH * kPW;
   candidate_response<<<grid, block, smem, s>>>(dog, S, H, W, contrast, edge_r,
                                                edge_c, border, out);
   return static_cast<int>(cudaGetLastError());
 }
 
-// dog (S+2, H, W), 8 | H, 8 | W, 1 <= S <= 4, border >= 1 -> cand, pos
-// (S, H/8, W/8); edge_c = (edge_r + 1)^2 in f32.
-extern "C" int sfm_candidate_block_max(const float* dog, int S, int H, int W,
-                                       float contrast, float edge_r, float edge_c,
-                                       int border, float* cand, int* pos, void* stream) {
+// dog (lanes, S+2, H, W), 8 | H, 8 | W, 1 <= S <= 4, border >= 1 -> cand, pos
+// (lanes, S, H/8, W/8); edge_c = (edge_r + 1)^2 in f32.
+extern "C" int sfm_candidate_block_max_lanes(const float* dog, int lanes, int S, int H, int W,
+                                             float contrast, float edge_r, float edge_c,
+                                             int border, float* cand, int* pos, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (H <= 0 || W <= 0 || H % kBlock || W % kBlock || border < 1)
+  if (H <= 0 || W <= 0 || H % kBlock || W % kBlock || border < 1 || lanes < 1 || lanes > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   switch (S) {
-    case 1: return static_cast<int>(launch_block_max<1, kC, kR, kU>(dog, H, W, contrast, edge_r, edge_c, border, cand, pos, s));
-    case 2: return static_cast<int>(launch_block_max<2, kC, kR, kU>(dog, H, W, contrast, edge_r, edge_c, border, cand, pos, s));
-    case 3: return static_cast<int>(launch_block_max<3, kC, kR, kU>(dog, H, W, contrast, edge_r, edge_c, border, cand, pos, s));
-    case 4: return static_cast<int>(launch_block_max<4, kC, kR, kU>(dog, H, W, contrast, edge_r, edge_c, border, cand, pos, s));
+    case 1: return static_cast<int>(launch_block_max<1, kC, kR, kU>(dog, lanes, H, W, contrast, edge_r, edge_c, border, cand, pos, s));
+    case 2: return static_cast<int>(launch_block_max<2, kC, kR, kU>(dog, lanes, H, W, contrast, edge_r, edge_c, border, cand, pos, s));
+    case 3: return static_cast<int>(launch_block_max<3, kC, kR, kU>(dog, lanes, H, W, contrast, edge_r, edge_c, border, cand, pos, s));
+    case 4: return static_cast<int>(launch_block_max<4, kC, kR, kU>(dog, lanes, H, W, contrast, edge_r, edge_c, border, cand, pos, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

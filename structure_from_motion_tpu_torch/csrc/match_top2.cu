@@ -170,6 +170,14 @@ match_top2(const float* __restrict__ ref, const float* __restrict__ que,
   float* qn = reinterpret_cast<float*>(sm + kQnBase);  // kStages x [kTQ]
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
+  // blockIdx.y is the lane: Nr rows of ref against Nq rows of que a lane
+  ref += (size_t)blockIdx.y * Nr * kD;
+  que += (size_t)blockIdx.y * Nq * kD;
+  sqq += (size_t)blockIdx.y * Nq;
+  maskq += (size_t)blockIdx.y * Nq;
+  d1_out += (size_t)blockIdx.y * Nr;
+  d2_out += (size_t)blockIdx.y * Nr;
+  j1_out += (size_t)blockIdx.y * Nr;
   const int r0 = blockIdx.x * kTR;
   const int ntiles = (Nq + kTQ - 1) / kTQ;
 
@@ -303,17 +311,19 @@ match_top2(const float* __restrict__ ref, const float* __restrict__ que,
 
 }  // namespace
 
-// ref (Nr, 128), que (Nq, 128), sqq (Nq,) = |q|^2, mask_que (Nq,) uint8 ->
-// partial d1 (Nr,), d2 (Nr,) (without |r|^2) and j1 (Nr,) int32.
-extern "C" int sfm_match_top2(const float* ref, const float* que,
-                              const float* sqq, const unsigned char* mask_que,
-                              int Nr, int Nq, float* d1, float* d2, int* j1,
-                              void* stream) {
+// ref (lanes, Nr, 128), que (lanes, Nq, 128), sqq (lanes, Nq) = |q|^2,
+// mask_que (lanes, Nq) uint8 -> partial d1, d2 (lanes, Nr) (without |r|^2)
+// and j1 (lanes, Nr) int32; lane b's rows meet lane b's queries only.
+extern "C" int sfm_match_top2_lanes(const float* ref, const float* que,
+                                    const float* sqq, const unsigned char* mask_que,
+                                    int lanes, int Nr, int Nq, float* d1, float* d2, int* j1,
+                                    void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (lanes < 1 || lanes > 65535) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaFuncSetAttribute(
       match_top2, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((Nr + kTR - 1) / kTR);
+  const dim3 grid((Nr + kTR - 1) / kTR, lanes);
   match_top2<<<grid, kThreads, kSmemBytes, s>>>(ref, que, sqq, mask_que, Nr, Nq,
                                                 d1, d2, j1);
   return static_cast<int>(cudaGetLastError());

@@ -34,19 +34,22 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # entry point -> argtypes (all return int = cudaError_t)
 _SIGNATURES = {
-    # base, taps (a host BlurTaps), L, H, W, out, stream
-    "sfm_blur_levels": (_P, _P, _I, _I, _I, _P, _P),
-    # dog, S, H, W, contrast, edge_r, (edge_r + 1)^2, border, out, stream
-    "sfm_candidate_response": (_P, _I, _I, _I, _F, _F, _F, _I, _P, _P),
-    # dog, S, H, W, contrast, edge_r, (edge_r + 1)^2, border, cand, pos, stream
-    "sfm_candidate_block_max": (_P, _I, _I, _I, _F, _F, _F, _I, _P, _P, _P),
-    # ref, que, sqq, mask_que, Nr, Nq, d1, d2, j1, stream
-    "sfm_match_top2": (_P, _P, _P, _P, _I, _I, _P, _P, _P, _P),
-    # cam, C, q, X, uv, w, O, V, huber, dtd, wblk, bp, rows, slot, cam_out, stream
-    "sfm_ba_blocks": (_P, _P, _P, _P, _P, _P, _I, _I, _F, _P, _P, _P, _P, _P, _P, _P),
+    # Every kernel with a lane axis takes the lane count; one lane is the
+    # call without a lane axis.
+    # base, taps (a host BlurTaps), L, lanes, H, W, out_lane (floats), out, stream
+    "sfm_blur_levels_lanes": (_P, _P, _I, _I, _I, _I, _L, _P, _P),
+    # dog, lanes, S, H, W, contrast, edge_r, (edge_r + 1)^2, border, out, stream
+    "sfm_candidate_response_lanes": (_P, _I, _I, _I, _I, _F, _F, _F, _I, _P, _P),
+    # dog, lanes, S, H, W, contrast, edge_r, (edge_r + 1)^2, border, cand, pos, stream
+    "sfm_candidate_block_max_lanes": (_P, _I, _I, _I, _I, _F, _F, _F, _I, _P, _P, _P),
+    # ref, que, sqq, mask_que, lanes, Nr, Nq, d1, d2, j1, stream
+    "sfm_match_top2_lanes": (_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P),
+    # cam, C, q, X, uv, w, lanes, O, V, huber, dtd, wblk, bp, rows, slot, cam_out, stream
+    "sfm_ba_blocks_lanes": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P, _P, _P, _P, _P, _P,
+                            _P),
     # cam, w21, x, O, V, t, stream
     "sfm_expand_cam": (_P, _P, _P, _I, _I, _P, _P),
     # w21, y, perm, mask, O, V, rows, coup, stream

@@ -7,14 +7,33 @@ one with more parallax-clearing points wins), later frames localise by PnP
 against the union of all prior views' 2D-3D matches, triangulate every new
 match, run bundle adjustment and prune.
 
-The JAX package fuses a frame into one jitted program and picks buckets on
-device with ``lax.switch``; here the code runs eagerly, so each bucketed
-stage makes ONE host read of its live counts and runs at the smallest
-power-of-two bucket that holds them (the same ladders, so the set of shapes
-stays small). The ``lax.map`` over prior views in the match stage is one
-batched call: all views' descriptors go through kernel B3 in one launch and
-the F-gate RANSAC carries a leading view axis. Random draws come from
-``torch.Generator``s seeded from ``(seed, frame, stream)``.
+The stages are written once, for a lane stack of states (every field with a
+leading lane axis): :class:`IncrementalSfM` runs them on a stack of one
+lane, ``models/batched.py`` on B sequences in lockstep (the JAX package
+``vmap``s one copy). For the whole stack:
+
+* every kernel launches ONCE a stage: B3 on each lane's prior views
+  against its own new view, B4 on every lane's BA observations;
+* the JAX package fuses a frame into one jitted program and picks buckets
+  on device with ``lax.switch``; here the code runs eagerly, so each
+  bucketed stage makes ONE host read of the LARGEST live count across lanes
+  and every lane runs at the smallest power-of-two bucket that holds it
+  (the same ladders, so the set of shapes stays small; a lane below it
+  just pads, as a lane of the JAX package does);
+* the LM loops of PnP and triangulation stop lane by lane: a finished lane
+  takes no step and keeps its iterate, and the loop ends when no lane
+  moves (the vmapped ``while_loop``);
+* the ``lax.map`` over prior views in the match stage is one batched call
+  with a leading view axis; the small pure pieces of the bootstrap (pose
+  from E, cheirality, the essential-manifold refinement) go through
+  ``torch.func.vmap``.
+
+Random draws come from ``torch.Generator``s seeded from ``(seed, frame,
+stream)``, one generator a lane and draw (the one per-lane loop left: a
+generator's stream cannot be split), so a lane draws what a single run with
+its seed draws; a shared bucket larger than a lane's own changes the shape
+of its PnP and triangulation draws, so lanes agree with single runs to a
+tolerance, as in the JAX package.
 
 ``window_mode="slide"`` evicts the oldest view once the window is full and
 keeps its record on the host; :meth:`IncrementalSfM.finalize_global` solves
@@ -33,11 +52,12 @@ import math
 
 import numpy as np
 import torch
+from torch.func import vmap
 
 from structure_from_motion_tpu_torch.config import PipelineConfig
 from structure_from_motion_tpu_torch.device import generator, stable_topk
 from structure_from_motion_tpu_torch.models import global_ba, tracks
-from structure_from_motion_tpu_torch.models.tracks import SfMState
+from structure_from_motion_tpu_torch.models.tracks import SfMState, _lane, lanewise
 from structure_from_motion_tpu_torch.ops.ba import BAObservations, BAState, run_bundle_adjustment
 from structure_from_motion_tpu_torch.ops.distortion import undistort_pixels
 from structure_from_motion_tpu_torch.ops.campose import (
@@ -54,7 +74,6 @@ from structure_from_motion_tpu_torch.ops.features import detect_and_describe
 from structure_from_motion_tpu_torch.ops.matching import match_descriptors
 from structure_from_motion_tpu_torch.ops.pnp import PnPResult, estimate_pnp
 from structure_from_motion_tpu_torch.ops.ransac import sample_index_sets
-from structure_from_motion_tpu_torch.ops.reproj import pixel_residuals
 from structure_from_motion_tpu_torch.ops.triangulation import (
     linear_triangulate,
     refine_triangulate,
@@ -72,93 +91,111 @@ from structure_from_motion_tpu_torch.utils.rotations import quat_to_rotation, ro
 _STREAM_MATCH, _STREAM_STAGE, _STREAM_STAGE_B = 0, 1, 2
 
 
-def _match_stage(state: SfMState, v: int, gen: torch.Generator, config: PipelineConfig) -> SfMState:
-    """Match view v against every prior view in one batched call (kernel B3
-    over all views' reference rows), optionally gated per view by a
-    fundamental-matrix RANSAC inlier test, and record the matches."""
-    V = state.kp_desc.shape[0]
-    prior = torch.arange(V, device=state.kp_desc.device) < v
-    res = match_descriptors(
-        state.kp_desc, state.kp_desc[v], state.kp_valid & prior[:, None],
-        state.kp_valid[v], config.matcher,
-    )
+def _gens(st: SfMState, seeds, frame: int, stream: int) -> list:
+    """One generator a lane: lane b's is the one a single run with seed
+    ``seeds[b]`` draws from at this frame and stream."""
+    return [generator(st.points.device, int(s), frame, stream) for s in seeds]
+
+
+def _match_stage(st: SfMState, v: int, gens, config: PipelineConfig) -> SfMState:
+    """Every lane's view v against its prior views: ONE B3 launch for all
+    lanes and views, then the per-view F-gate RANSAC with a (lane, view)
+    batch, only for views with enough matches, and the matches recorded."""
+    B, V = st.kp_desc.shape[:2]
+    prior = torch.arange(V, device=st.kp_desc.device) < v
+    res = match_descriptors(st.kp_desc, st.kp_desc[:, v], st.kp_valid & prior[:, None],
+                            st.kp_valid[:, v], config.matcher)
     valid = res.valid
     if config.matcher.use_fundamental_gate:
         rc = config.matcher.gate_ransac
-        que_xy = state.kp_xy[v][res.target.clamp_min(0).long()]  # (V, K, 2)
-        idx_sets = sample_index_sets(gen, valid, rc.num_hypotheses, 8)
-        gate = find_fundamental(idx_sets, state.kp_xy, que_xy, valid, rc)
+        ar = torch.arange(B, device=valid.device)[:, None, None]
+        que_xy = st.kp_xy[:, v][ar, res.target.clamp_min(0).long()]  # (B, V, K, 2)
+        idx_sets = sample_index_sets(gens, valid, rc.num_hypotheses, 8)
+        gate = find_fundamental(idx_sets, st.kp_xy, que_xy, valid, rc)
         # only gate views with enough matches for a meaningful model
         enough = valid.sum(-1, keepdim=True) >= 16
         valid = torch.where(enough, valid & gate.inliers, valid)
-    return tracks.record_matches(
-        state, torch.arange(V, device=valid.device), v, res.target, valid & prior[:, None]
-    )
-
-
-def _bootstrap_stage(state: SfMState, gen_a, gen_b, config: PipelineConfig):
-    """Two-view bootstrap with two independent F draws; the draw with more
-    admitted points that also clear the parallax threshold wins (one host
-    read)."""
-    st_a, info_a = _bootstrap_once(state, gen_a, config)
-    st_b, info_b = _bootstrap_once(state, gen_b, config)
-    if bool(info_b["parallax_ok"] > info_a["parallax_ok"]):
-        st_a, info_a = st_b, info_b
-    info_a.pop("parallax_ok")
-    return st_a, info_a
-
-
-def _bootstrap_once(state: SfMState, gen, config: PipelineConfig):
-    ref_keys, que_keys, ref_xy, que_xy, valid = tracks.matched_pair_arrays(state, 0, 1)
-    rc = config.fundamental_ransac
-    F = find_fundamental(sample_index_sets(gen, valid, rc.num_hypotheses, 8),
-                         ref_xy, que_xy, valid, rc)
-    K0, K1 = state.K[0], state.K[1]
-    cands = decompose_essential(essential_from_fundamental(F.F, K0, K1))
-    P_ref = camera_projection(K0, quat_to_rotation(state.cam_q[0]), state.cam_C[0])
-    P_cands = candidate_projections(K1, cands)
-    uv = torch.stack([ref_xy, que_xy], dim=1)
-    obs_mask = torch.stack([valid, valid], dim=1)
-    X4 = torch.stack([linear_triangulate(torch.stack([P_ref, P2]), uv, obs_mask) for P2 in P_cands])
-    best, counts, cheir_ok = disambiguate_poses(P_ref, P_cands, X4, valid)
-
-    # essential-manifold refinement of the winning (R, t)
-    R1, _, C1 = refine_relative_pose(
-        cands.R[best], cands.t[best], normalized_camera_coords(K0, ref_xy),
-        normalized_camera_coords(K1, que_xy), valid & F.inliers,
-    )
-    state = tracks.set_camera(state, 1, C1, rotation_to_quat(R1))
-    P_pair = torch.stack([P_ref, camera_projection(K1, R1, C1)])
-    X2 = linear_triangulate(P_pair, uv, obs_mask)
-    Xh = refine_triangulate(P_pair, uv, torch.stack([cheir_ok, cheir_ok], dim=1), X2,
-                            config.triangulation_lm)
-
-    # admission: cheirality AND epipolar inlier AND two-view reprojection;
-    # parallax only feeds the draw-selection metric
-    res, _ = reprojection_residuals(P_pair, Xh[:, :3], uv, obs_mask)
-    small = torch.linalg.norm(res, dim=-1).amax(1) < config.triangulation_max_error_px
-    enough_parallax = _cos_parallax(Xh[:, :3], state.cam_C[0], C1) < math.cos(
-        math.radians(config.min_parallax_deg))
-    keep = cheir_ok & F.inliers & small
-    state, ids, stored = tracks.allocate_points(state, Xh[:, :3], keep)
-    state = tracks.set_tri_index(state, 0, ref_keys, ids, stored)
-    state = tracks.set_tri_index(state, 1, que_keys, ids, stored)
-    state = tracks.append_observations(state, torch.zeros_like(ids), ids, ref_xy, stored)
-    state = tracks.append_observations(state, torch.ones_like(ids), ids, que_xy, stored)
-    info = {
-        "matches": valid.sum(),
-        "f_inliers": F.num_inliers,
-        "cheirality_counts": counts,
-        "new_points": keep.sum(),
-        "parallax_ok": (keep & enough_parallax).sum(),
-    }
-    return state, info
+    return tracks.record_matches(st, v, res.target, valid & prior[:, None])
 
 
 def _cos_parallax(X, Ca, Cb):
     ra, rb = X - Ca, X - Cb
-    norms = torch.linalg.norm(ra, dim=1) * torch.linalg.norm(rb, dim=1)
-    return (ra * rb).sum(1) / norms.clamp_min(1e-12)
+    norms = torch.linalg.norm(ra, dim=-1) * torch.linalg.norm(rb, dim=-1)
+    return (ra * rb).sum(-1) / norms.clamp_min(1e-12)
+
+
+def _two_view_geometry(F, inliers, K0, K1, q0, C0, ref_xy, que_xy, valid):
+    """One lane's pose from F (vmapped): the four (R, C) candidates,
+    cheirality, and the essential-manifold refinement of the winner."""
+    cands = decompose_essential(essential_from_fundamental(F, K0, K1))
+    P_ref = camera_projection(K0, quat_to_rotation(q0), C0)
+    P_cands = candidate_projections(K1, cands)
+    uv = torch.stack([ref_xy, que_xy], dim=1)
+    obs_mask = torch.stack([valid, valid], dim=1)
+    X4 = torch.stack([linear_triangulate(torch.stack([P_ref, P_cands[i]]), uv, obs_mask)
+                      for i in range(4)])
+    best, counts, cheir_ok = disambiguate_poses(P_ref, P_cands, X4, valid)
+    R1, _, C1 = refine_relative_pose(
+        cands.R[best], cands.t[best], normalized_camera_coords(K0, ref_xy),
+        normalized_camera_coords(K1, que_xy), valid & inliers,
+    )
+    P_pair = torch.stack([P_ref, camera_projection(K1, R1, C1)])
+    return R1, C1, P_pair, linear_triangulate(P_pair, uv, obs_mask), counts, cheir_ok
+
+
+def _bootstrap_once(st: SfMState, gens, config: PipelineConfig):
+    B, _, Kk = st.tri_index.shape
+    ref_keys, que_keys, ref_xy, que_xy, valid = tracks.matched_pair_arrays(st, 0, 1)
+    rc = config.fundamental_ransac
+    F = find_fundamental(sample_index_sets(gens, valid, rc.num_hypotheses, 8),
+                         ref_xy, que_xy, valid, rc)
+    R1, C1, P_pair, X2, counts, cheir_ok = vmap(_two_view_geometry)(
+        F.F, F.inliers, st.K[:, 0], st.K[:, 1], st.cam_q[:, 0], st.cam_C[:, 0], ref_xy, que_xy,
+        valid)
+    st = tracks.set_camera(st, 1, C1, rotation_to_quat(R1))
+    P = P_pair[:, None].expand(B, Kk, 2, 3, 4).reshape(B * Kk, 2, 3, 4)
+    uv = torch.stack([ref_xy, que_xy], dim=2).reshape(B * Kk, 2, 2)
+    obs_mask = torch.stack([valid, valid], dim=2).reshape(B * Kk, 2)
+    cm = torch.stack([cheir_ok, cheir_ok], dim=2).reshape(B * Kk, 2)
+    Xh = refine_triangulate(P, uv, cm, X2.reshape(B * Kk, 4), config.triangulation_lm, lanes=B)
+
+    # admission: cheirality AND epipolar inlier AND two-view reprojection;
+    # parallax only feeds the draw-selection metric
+    res, _ = reprojection_residuals(P, Xh[:, :3], uv, obs_mask)
+    small = torch.linalg.norm(res, dim=-1).amax(1) < config.triangulation_max_error_px
+    X3 = Xh[:, :3].reshape(B, Kk, 3)
+    enough_parallax = _cos_parallax(X3, st.cam_C[:, 0][:, None], C1[:, None]) < math.cos(
+        math.radians(config.min_parallax_deg))
+    keep = cheir_ok & F.inliers & small.reshape(B, Kk)
+    st, ids, stored = tracks.allocate_points(st, X3, keep)
+    st = tracks.set_tri_index(st, 0, ref_keys, ids, stored)
+    st = tracks.set_tri_index(st, 1, que_keys, ids, stored)
+    st = tracks.append_observations(st, torch.zeros_like(ids), ids, ref_xy, stored)
+    st = tracks.append_observations(st, torch.ones_like(ids), ids, que_xy, stored)
+    info = {
+        "matches": valid.sum(1),
+        "f_inliers": F.num_inliers,
+        "cheirality_counts": counts,
+        "new_points": keep.sum(1),
+        "parallax_ok": (keep & enough_parallax).sum(1),
+    }
+    return st, info
+
+
+def _pick(take_b: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return torch.where(take_b.reshape((-1,) + (1,) * (a.dim() - 1)), b, a)
+
+
+def _bootstrap_stage(st: SfMState, gens_a, gens_b, config: PipelineConfig):
+    """Two-view bootstrap with two independent F draws a lane; each lane
+    keeps the draw with more admitted points that also clear the parallax
+    threshold (no host read)."""
+    st_a, info_a = _bootstrap_once(st, gens_a, config)
+    st_b, info_b = _bootstrap_once(st, gens_b, config)
+    take_b = info_b["parallax_ok"] > info_a["parallax_ok"]
+    st = SfMState(*(_pick(take_b, a, b) for a, b in zip(st_a, st_b)))
+    info = {k: _pick(take_b, info_a[k], info_b[k]) for k in info_a if k != "parallax_ok"}
+    return st, info
 
 
 def _bucket_ladder(n: int, floor: int, max_levels: int = 3) -> list:
@@ -176,107 +213,118 @@ def _bucket_size(count: int, ladder: list) -> int:
 
 def _pack_indices(mask: torch.Tensor, n: int) -> torch.Tensor:
     """Indices of the valid entries first, in original order, padded with the
-    masked-out leftovers to length ``n``."""
-    N = mask.shape[0]
+    masked-out leftovers to length ``n`` (each lane its own)."""
+    N = mask.shape[-1]
     score = torch.where(mask, (N - torch.arange(N, device=mask.device)).to(torch.float32), 0.0)
     return stable_topk(score, n)[1]
 
 
-def _localize_stage(state: SfMState, v: int, gen, config: PipelineConfig):
-    """PnP against the union of all prior views' 2D-3D matches, then record
-    the localised observations and triangulate new matches."""
-    V, Kk = state.tri_index.shape
-    targets = state.match_table[:, v, :]  # (V, K)
+def _localize_stage(st: SfMState, v: int, gens, config: PipelineConfig):
+    """PnP of every lane's view v against the union of its prior views'
+    2D-3D matches at ONE shared bucket (one host read), then the localised
+    observations and the triangulation of new matches."""
+    B, V, Kk = st.tri_index.shape
+    dev = st.points.device
+    ar = _lane(B, dev)
+    targets = st.match_table[:, :, v, :]  # (B, V, K)
     valid_m = targets >= 0
-    flat_pt = state.tri_index.clamp_min(0).reshape(-1).long()
-    flat_tgt = targets.clamp_min(0).reshape(-1).long()
-    flat_mask = (valid_m & (state.tri_index >= 0)).reshape(-1)
-    X3d = state.points[flat_pt]
-    uv_v_all = state.kp_xy[v][flat_tgt]
-    prior_R = quat_to_rotation(state.cam_q[v - 1])
-    prior_C = state.cam_C[v - 1]
-    N = flat_pt.shape[0]
+    flat_pt = st.tri_index.clamp_min(0).reshape(B, -1).long()
+    flat_tgt = targets.clamp_min(0).reshape(B, -1).long()
+    flat_mask = (valid_m & (st.tri_index >= 0)).reshape(B, -1)
+    X3d = st.points[ar, flat_pt]
+    uv_v_all = st.kp_xy[:, v][ar, flat_tgt]
+    prior_R = quat_to_rotation(st.cam_q[:, v - 1])
+    prior_C = st.cam_C[:, v - 1]
+    N = V * Kk
+    K_v = st.K[:, v]
     ladder = _bucket_ladder(N, floor=2048) if config.localize_bucketing else [N]
     if len(ladder) > 1:
-        n = _bucket_size(int(flat_mask.sum()), ladder)
+        n = _bucket_size(int(flat_mask.sum(1).max()), ladder)
         sel = _pack_indices(flat_mask, n)
-        sub = estimate_pnp(gen, X3d[sel], uv_v_all[sel], state.K[v], flat_mask[sel],
+        sub = estimate_pnp(gens, X3d[ar, sel], uv_v_all[ar, sel], K_v, flat_mask[ar, sel],
                            config.pnp_ransac, config.pnp_lm, prior_R=prior_R, prior_C=prior_C)
-        inliers = torch.zeros(N, dtype=torch.bool, device=sel.device)
-        inliers[sel] = sub.inliers
+        inliers = torch.zeros((B, N), dtype=torch.bool, device=dev)
+        inliers[ar, sel] = sub.inliers
         pnp = PnPResult(R=sub.R, C=sub.C, inliers=inliers, num_inliers=sub.num_inliers)
     else:
-        pnp = estimate_pnp(gen, X3d, uv_v_all, state.K[v], flat_mask, config.pnp_ransac,
+        pnp = estimate_pnp(gens, X3d, uv_v_all, K_v, flat_mask, config.pnp_ransac,
                            config.pnp_lm, prior_R=prior_R, prior_C=prior_C)
-    state = tracks.set_camera(state, v, pnp.C, rotation_to_quat(pnp.R))
+    st = tracks.set_camera(st, v, pnp.C, rotation_to_quat(pnp.R))
 
     # one observation per map point, from the most recent view's match
     obs_ok = flat_mask & pnp.inliers
-    M = state.points.shape[0]
-    order = torch.arange(N, device=obs_ok.device)
-    latest = torch.full((M,), -1, dtype=torch.long, device=obs_ok.device)
-    latest.scatter_reduce_(0, torch.where(obs_ok, flat_pt, M - 1),
-                           torch.where(obs_ok, order, -1), "amax")
-    obs_ok = obs_ok & (latest[flat_pt] == order)
-    state = tracks.append_observations(state, torch.full_like(flat_pt, v), flat_pt, uv_v_all,
-                                       obs_ok)
-    state = tracks.set_tri_index(state, v, flat_tgt, flat_pt, obs_ok)
+    M = st.points.shape[1]
+    order = torch.arange(N, device=dev).expand(B, N)
+    latest = torch.full((B * M,), -1, dtype=torch.long, device=dev)
+    latest.scatter_reduce_(0, (torch.where(obs_ok, flat_pt, M - 1) + ar * M).reshape(-1),
+                           torch.where(obs_ok, order, -1).reshape(-1), "amax")
+    obs_ok = obs_ok & (latest.view(B, M)[ar, flat_pt] == order)
+    st = tracks.append_observations(st, torch.full_like(flat_pt, v), flat_pt, uv_v_all, obs_ok)
+    st = tracks.set_tri_index(st, v, flat_tgt, flat_pt, obs_ok)
 
-    P_v = camera_projection(state.K[v], pnp.R, pnp.C)
-    n_before = state.num_points
-    state = _triangulate_new_flat(state, v, P_v, flat_tgt, valid_m, config)
+    P_v = camera_projection(K_v, pnp.R, pnp.C)
+    n_before = st.num_points
+    st = _triangulate_new_flat(st, v, P_v, flat_tgt, valid_m, config)
     info = {
-        "matches": valid_m.sum(),
-        "pnp_candidates": flat_mask.sum(),
+        "matches": valid_m.sum((1, 2)),
+        "pnp_candidates": flat_mask.sum(1),
         "pnp_inliers": pnp.num_inliers,
-        "new_points": state.num_points - n_before,
+        "new_points": st.num_points - n_before,
     }
-    return state, info
+    return st, info
 
 
-def _triangulate_new_flat(state: SfMState, v: int, P_v, flat_tgt, valid_m, config: PipelineConfig):
-    """Triangulate every not-yet-constructed match (u, v, k), one candidate
-    per v-key (the earliest u), gated by cheirality, reprojection error and
-    parallax, and register points + observations."""
-    V, Kk = state.tri_index.shape
+def _triangulate_new_flat(st: SfMState, v: int, P_v, flat_tgt, valid_m, config: PipelineConfig):
+    """Triangulate every not-yet-constructed match (u, v, k) of every lane,
+    one candidate per v-key (the earliest u), at ONE shared bucket, gated by
+    cheirality, reprojection error and parallax, and register points and
+    observations."""
+    B, V, Kk = st.tri_index.shape
     N = V * Kk
     dev = flat_tgt.device
+    ar = _lane(B, dev)
     u_idx = torch.arange(V, device=dev).repeat_interleave(Kk)
     ref_keys = torch.arange(Kk, device=dev).repeat(V)
-    u_free = (state.tri_index < 0).reshape(-1)
-    v_free = state.tri_index[v][flat_tgt] < 0
-    usable = (u_idx < v) & state.cam_valid[u_idx]
-    cand = valid_m.reshape(-1) & u_free & v_free & usable
-    first_u = torch.full((Kk,), V, dtype=torch.long, device=dev)
-    first_u.scatter_reduce_(0, flat_tgt, torch.where(cand, u_idx, V), "amin")
-    cand = cand & (first_u[flat_tgt] == u_idx)
+    u_free = (st.tri_index < 0).reshape(B, -1)
+    v_free = st.tri_index[:, v][ar, flat_tgt] < 0
+    usable = (u_idx < v) & st.cam_valid[:, u_idx]
+    cand = valid_m.reshape(B, -1) & u_free & v_free & usable
+    first_u = torch.full((B * Kk,), V, dtype=torch.long, device=dev)
+    first_u.scatter_reduce_(0, (flat_tgt + ar * Kk).reshape(-1),
+                            torch.where(cand, u_idx, V).reshape(-1), "amin")
+    cand = cand & (first_u.view(B, Kk)[ar, flat_tgt] == u_idx)
 
-    P_all = camera_projection(state.K, quat_to_rotation(state.cam_q), state.cam_C)
-    ref_xy_full = state.kp_xy.reshape(N, 2)
-    que_xy_full = state.kp_xy[v][flat_tgt]
+    P_all = camera_projection(st.K, quat_to_rotation(st.cam_q), st.cam_C)  # (B, V, 3, 4)
+    ref_xy_full = st.kp_xy.reshape(B, N, 2)
+    que_xy_full = st.kp_xy[:, v][ar, flat_tgt]
 
     ladder = _bucket_ladder(N, floor=2048) if config.localize_bucketing else [N]
-    n = _bucket_size(int(cand.sum()), ladder) if len(ladder) > 1 else N
-    sel = _pack_indices(cand, n) if len(ladder) > 1 else torch.arange(N, device=dev)
-    u_s, cand_s, tgt_s = u_idx[sel], cand[sel], flat_tgt[sel]
-    P_pair = torch.stack([P_all[u_s], P_v.expand(n, 3, 4)], dim=1)
-    ref_xy, que_xy = ref_xy_full[sel], que_xy_full[sel]
-    uv = torch.stack([ref_xy, que_xy], dim=1)
-    obs_mask = torch.stack([cand_s, cand_s], dim=1)
-    Xh = triangulate(P_pair, uv, obs_mask, config.triangulation_lm)
-    d_u = (P_pair[:, 0, 2, :] * Xh).sum(-1)
-    d_v = (P_pair[:, 1, 2, :] * Xh).sum(-1)
-    res, _ = reprojection_residuals(P_pair, Xh[:, :3], uv, obs_mask)
-    small = torch.linalg.norm(res, dim=-1).amax(1) < config.triangulation_max_error_px
-    enough_parallax = _cos_parallax(Xh[:, :3], state.cam_C[u_s], state.cam_C[v]) < math.cos(
+    if len(ladder) > 1:
+        n = _bucket_size(int(cand.sum(1).max()), ladder)
+        sel = _pack_indices(cand, n)
+    else:
+        n, sel = N, torch.arange(N, device=dev).expand(B, N)
+    u_s, cand_s, tgt_s = u_idx[sel], cand[ar, sel], flat_tgt[ar, sel]
+    P_pair = torch.stack([P_all[ar, u_s], P_v[:, None].expand(B, n, 3, 4)], dim=2)
+    ref_xy, que_xy = ref_xy_full[ar, sel], que_xy_full[ar, sel]
+    P = P_pair.reshape(B * n, 2, 3, 4)
+    uv = torch.stack([ref_xy, que_xy], dim=2).reshape(B * n, 2, 2)
+    obs_mask = torch.stack([cand_s, cand_s], dim=2).reshape(B * n, 2)
+    Xh = triangulate(P, uv, obs_mask, config.triangulation_lm, lanes=B)
+    d_u = (P[:, 0, 2, :] * Xh).sum(-1).reshape(B, n)
+    d_v = (P[:, 1, 2, :] * Xh).sum(-1).reshape(B, n)
+    res, _ = reprojection_residuals(P, Xh[:, :3], uv, obs_mask)
+    small = (torch.linalg.norm(res, dim=-1).amax(1) < config.triangulation_max_error_px)
+    X3 = Xh[:, :3].reshape(B, n, 3)
+    enough_parallax = _cos_parallax(X3, st.cam_C[ar, u_s], st.cam_C[:, v][:, None]) < math.cos(
         math.radians(config.min_parallax_deg))
-    keep = cand_s & (d_u > 0) & (d_v > 0) & small & enough_parallax
+    keep = cand_s & (d_u > 0) & (d_v > 0) & small.reshape(B, n) & enough_parallax
     # every recording gates on `stored` (keep minus capacity overflow)
-    state, ids, stored = tracks.allocate_points(state, Xh[:, :3], keep)
-    state = tracks.set_tri_index_flat(state, u_s, ref_keys[sel], ids, stored)
-    state = tracks.set_tri_index(state, v, tgt_s, ids, stored)
-    state = tracks.append_observations(state, u_s, ids, ref_xy, stored)
-    return tracks.append_observations(state, torch.full_like(ids, v), ids, que_xy, stored)
+    st, ids, stored = tracks.allocate_points(st, X3, keep)
+    st = tracks.set_tri_index_flat(st, u_s, ref_keys[sel], ids, stored)
+    st = tracks.set_tri_index(st, v, tgt_s, ids, stored)
+    st = tracks.append_observations(st, u_s, ids, ref_xy, stored)
+    return tracks.append_observations(st, torch.full_like(ids, v), ids, que_xy, stored)
 
 
 def _ba_ladder(M: int, O: int) -> list:
@@ -295,92 +343,100 @@ def _ba_bucket(ladder: list, n_pts: int, n_obs: int) -> tuple:
     return ladder[sum(n_pts <= m and n_obs <= o for m, o in ladder[1:])]
 
 
-def _ba_stage(state: SfMState, config: PipelineConfig):
-    """Bundle adjustment over all valid views/points/observations at the
-    smallest prefix bucket holding the live counts (one host read), then
-    pruning. Returns (state, costs, dropped_obs, pruned_obs, pruned_points)."""
+@lanewise
+def _ba_stage(st: SfMState, config: PipelineConfig):
+    """Bundle adjustment of every lane over all its valid views, points and
+    observations at ONE shared prefix bucket holding the largest live counts
+    (one host read; one B4 launch an LM iteration for all lanes), then
+    pruning. Returns (state, costs, dropped_obs, pruned_obs,
+    pruned_points)."""
     if config.ba_num_shards > 1:
-        raise NotImplementedError("sharded BA is not ported")
-    M, O = state.points.shape[0], state.obs_cam.shape[0]
+        raise NotImplementedError("not ported yet (ROADMAP A13): sharded BA")
+    B, M = st.points.shape[:2]
+    O = st.obs_cam.shape[1]
     m, o = M, O
     if config.ba_bucketing:
-        n_pts, n_obs = torch.stack([state.num_points, state.num_obs]).tolist()
+        n_pts, n_obs = torch.stack([st.num_points.max(), st.num_obs.max()]).tolist()
         m, o = _ba_bucket(_ba_ladder(M, O), n_pts, n_obs)
-    ba_state = BAState(C=state.cam_C, q=state.cam_q, X=state.points[:m],
-                       cam_valid=state.cam_valid, pt_valid=state.pt_valid[:m])
+    cam_o = st.obs_cam[:, :o]
+    ba_state = BAState(C=st.cam_C, q=st.cam_q, X=st.points[:, :m], cam_valid=st.cam_valid,
+                       pt_valid=st.pt_valid[:, :m])
     obs = BAObservations(
-        cam=state.obs_cam[:o],
-        point=state.obs_pt[:o],
-        uv_norm=normalized_camera_coords_per_obs(state.K[state.obs_cam[:o].long()],
-                                                 state.obs_uv[:o]),
-        valid=state.obs_valid[:o],
+        cam=cam_o,
+        point=st.obs_pt[:, :o],
+        uv_norm=normalized_camera_coords_per_obs(st.K[_lane(B, st.K.device), cam_o.long()],
+                                                 st.obs_uv[:, :o]),
+        valid=st.obs_valid[:, :o],
     )
     out, costs = run_bundle_adjustment(ba_state, obs, config.ba)
-    points = state.points.clone()
-    points[:m] = out.X
-    state = state._replace(cam_C=out.C, cam_q=out.q, points=points)
-    zero = torch.zeros((), dtype=torch.int32, device=points.device)
+    points = st.points.clone()
+    points[:, :m] = out.X
+    st = st._replace(cam_C=out.C, cam_q=out.q, points=points)
+    zero = torch.zeros(B, dtype=torch.int32, device=points.device)
     pruned_obs = pruned_pts = zero
     if config.prune_max_error_px > 0:
-        state, pruned_obs, pruned_pts = tracks.prune_observations(state, config.prune_max_error_px)
-    return state, costs, zero, pruned_obs, pruned_pts
+        st, pruned_obs, pruned_pts = tracks.prune_observations(st, config.prune_max_error_px)
+    return st, costs, zero, pruned_obs, pruned_pts
 
 
-def pipeline_reprojection_error(state: SfMState) -> torch.Tensor:
-    """Mean pixel reprojection error over all valid observations."""
-    cam, pt = state.obs_cam.long(), state.obs_pt.long()
-    res, _ = pixel_residuals(state.K[cam], state.cam_C[cam], state.cam_q[cam],
-                             state.points[pt], state.obs_uv)
-    w = state.obs_valid.to(res.dtype)
-    err = torch.linalg.norm(res * w[:, None], dim=-1)
-    return err.sum() / w.sum().clamp_min(1.0)
-
-
-def _zero_info(state: SfMState, config: PipelineConfig) -> dict:
-    z = torch.zeros((), dtype=torch.int32, device=state.points.device)
+def _zero_info(st: SfMState, config: PipelineConfig) -> dict:
+    B = st.points.shape[0]
+    z = torch.zeros(B, dtype=torch.int32, device=st.points.device)
     return {
         "matches": z,
         "f_inliers": z,
-        "cheirality_counts": torch.zeros(4, dtype=torch.int32, device=z.device),
+        "cheirality_counts": torch.zeros((B, 4), dtype=torch.int32, device=z.device),
         "pnp_candidates": z,
         "pnp_inliers": z,
         "new_points": z,
-        "ba_costs": torch.zeros(config.ba.iterations, dtype=state.points.dtype, device=z.device),
+        "ba_costs": torch.zeros((B, config.ba.iterations), dtype=st.points.dtype,
+                                device=z.device),
         "ba_dropped_obs": z,
         "pruned_obs": z,
         "pruned_points": z,
     }
 
 
-def _frame_step(state: SfMState, v: int, keys: tuple, xy, desc, valid, config: PipelineConfig):
-    """One frame at slot ``v``: store features, match against all prior
-    views, then the v == 0 / bootstrap / localise + BA stage, and the
-    reprojection metric. ``keys`` = (seed, frame) seeds the generators."""
+def _frame_step(st: SfMState, v: int, seeds, frame: int, xy, desc, valid,
+                config: PipelineConfig):
+    """One frame at slot ``v`` for every lane: store features, match
+    against all prior views, then the v == 0 / bootstrap / localise + BA
+    stage, and the reprojection metric. ``xy``, ``desc``, ``valid`` carry
+    the lane axis; lane b's generators come from ``(seeds[b], frame)``."""
     if any(config.distortion):
         # known lens distortion: undistort the measurements ONCE at ingest,
         # so that every later residual is the pinhole residual
-        xy = undistort_pixels(xy, state.K[v], config.distortion)
-    dev = state.points.device
-    state = tracks.set_view_features(state, v, xy, desc, valid)
-    state = _match_stage(state, v, generator(dev, *keys, _STREAM_MATCH), config)
-    info = _zero_info(state, config)
+        xy = vmap(lambda x, K: undistort_pixels(x, K, config.distortion))(xy, st.K[:, v])
+    dev = st.points.device
+    B = st.points.shape[0]
+    st = tracks.set_view_features(st, v, xy, desc, valid)
+    st = _match_stage(st, v, _gens(st, seeds, frame, _STREAM_MATCH), config)
+    info = _zero_info(st, config)
     if v == 0:
-        dt = state.cam_C.dtype
-        state = tracks.set_camera(state, 0, torch.zeros(3, dtype=dt, device=dev),
-                                  torch.tensor([1.0, 0, 0, 0], dtype=dt, device=dev))
+        dt = st.cam_C.dtype
+        st = tracks.set_camera(st, 0, torch.zeros((B, 3), dtype=dt, device=dev),
+                               torch.tensor([1.0, 0, 0, 0], dtype=dt, device=dev).expand(B, 4))
     elif v == 1:
-        state, si = _bootstrap_stage(state, generator(dev, *keys, _STREAM_STAGE),
-                                     generator(dev, *keys, _STREAM_STAGE_B), config)
+        st, si = _bootstrap_stage(st, _gens(st, seeds, frame, _STREAM_STAGE),
+                                  _gens(st, seeds, frame, _STREAM_STAGE_B), config)
         info.update(si)
     else:
-        state, si = _localize_stage(state, v, generator(dev, *keys, _STREAM_STAGE), config)
-        state, costs, dropped, pruned_o, pruned_p = _ba_stage(state, config)
+        st, si = _localize_stage(st, v, _gens(st, seeds, frame, _STREAM_STAGE), config)
+        st, costs, dropped, pruned_o, pruned_p = _ba_stage(st, config)
         info.update(si, ba_costs=costs, ba_dropped_obs=dropped, pruned_obs=pruned_o,
                     pruned_points=pruned_p)
-    info["reprojection_px"] = pipeline_reprojection_error(state)
-    info["dropped_points"] = state.dropped_points
-    info["dropped_obs"] = state.dropped_obs
-    return state, info
+    info["reprojection_px"] = tracks.reprojection_error(st)
+    info["dropped_points"] = st.dropped_points
+    info["dropped_obs"] = st.dropped_obs
+    return st, info
+
+
+def _single_step(state: SfMState, v: int, seed: int, frame: int, xy, desc, valid,
+                 config: PipelineConfig):
+    """:func:`_frame_step` on one state: a stack of one lane."""
+    st, info = _frame_step(tracks.lanes_of(state), v, [seed], frame, xy[None], desc[None],
+                           valid[None], config)
+    return tracks.lane_state(st, 0), {k: t[0] for k, t in info.items()}
 
 
 def _assess_frame(state: SfMState, prev_slot: int, xy, desc, valid,
@@ -416,10 +472,11 @@ def _nanmedian_mid(x: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
     return 0.5 * (srt[lo] + srt[hi])
 
 
-def _frame_step_native(state: SfMState, v: int, keys: tuple, img, config: PipelineConfig):
+def _frame_step_native(state: SfMState, v: int, seed: int, frame: int, img,
+                       config: PipelineConfig):
     """Frame step with the frontend in front: image -> features -> frame."""
     kps, desc = detect_and_describe(img, config.frontend)
-    return _frame_step(state, v, keys, kps.xy, desc, kps.mask, config)
+    return _single_step(state, v, seed, frame, kps.xy, desc, kps.mask, config)
 
 
 class IncrementalSfM:
@@ -515,7 +572,7 @@ class IncrementalSfM:
         slot = self._begin_frame(v, K)
         if slot is None:
             return {"skipped": True, "frame": v}
-        self.state, info = _frame_step_native(self.state, slot, (self.seed, v), img, self.config)
+        self.state, info = _frame_step_native(self.state, slot, self.seed, v, img, self.config)
         return self._finish_frame(v, info)
 
     def process_features(self, xy, desc, valid, K=None) -> dict:
@@ -532,8 +589,8 @@ class IncrementalSfM:
         slot = self._begin_frame(v, K)
         if slot is None:
             return {"skipped": True, "frame": v}
-        self.state, info = _frame_step(self.state, slot, (self.seed, v), xy, desc, valid,
-                                       self.config)
+        self.state, info = _single_step(self.state, slot, self.seed, v, xy, desc, valid,
+                                        self.config)
         info = self._finish_frame(v, info)
         if flow is not None:
             info["flow_px"] = flow
@@ -612,7 +669,7 @@ class IncrementalSfM:
 
     def reprojection_error(self) -> float:
         """Mean pixel reprojection error over all observations."""
-        return float(pipeline_reprojection_error(self.state))
+        return float(tracks.reprojection_error(self.state))
 
     def poses(self):
         """(locs (F, 3), rots (F, 3, 3)) numpy, cam-to-world, for every

@@ -8,10 +8,17 @@ on that, e.g. the bootstrap evaluates two draws on the same input state).
 JAX's ``mode="drop"`` scatters become writes into a buffer with one extra
 dump row that is sliced off afterwards, so masked writes vanish and an
 overflowing capacity is counted, never an index error.
+
+The helpers are written once, for a lane stack: every field with a leading
+lane axis ((B, V, K, 2) keypoints, (B,) counters), each lane its own store,
+as the batched engine holds it (the JAX package ``vmap``s one copy).
+:func:`lanewise` lets each of them take one state as it is, lifted to a
+stack of one lane, and hands back its results without the lane axis.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -45,20 +52,68 @@ class SfMState(NamedTuple):
     K: torch.Tensor  # (V, 3, 3)
 
 
-def _i32(x) -> torch.Tensor:
-    return torch.as_tensor(x).to(torch.int32)
+def lanes_of(state):
+    """One state (or record) as a stack of one lane: a view, no copy."""
+    return type(state)(*(t[None] for t in state))
+
+
+def lane_state(state, b: int):
+    """Lane ``b`` of a lane-stacked state (or record), as one engine holds it."""
+    return type(state)(*(t[b] for t in state))
+
+
+def _drop_lane(x):
+    if torch.is_tensor(x):
+        return x[0]
+    if isinstance(x, tuple):
+        items = [_drop_lane(y) for y in x]
+        return type(x)(*items) if hasattr(x, "_fields") else tuple(items)
+    return x
+
+
+def lanewise(fn):
+    """Let ``fn(state, *args)``, written for a lane-stacked state, take one
+    state too: it and every tensor argument gain a lane axis of one, and
+    every tensor ``fn`` returns loses it again."""
+
+    @functools.wraps(fn)
+    def wrapper(state, *args, **kwargs):
+        if state.num_points.dim():
+            return fn(state, *args, **kwargs)
+        lift = lambda a: a[None] if torch.is_tensor(a) else a  # noqa: E731
+        return _drop_lane(fn(lanes_of(state), *map(lift, args), **kwargs))
+
+    return wrapper
+
+
+def _i32(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.int32)
+
+
+def _lane(B: int, device) -> torch.Tensor:
+    """(B, 1) lane index: ``t[_lane(B), idx]`` gathers lane b's rows idx[b]."""
+    return torch.arange(B, device=device)[:, None]
 
 
 def _set_drop(t: torch.Tensor, dest: torch.Tensor, vals) -> torch.Tensor:
-    """``t.at[dest].set(vals, mode="drop")`` for ``dest`` in [0, len(t)]:
-    index ``len(t)`` is the dump row."""
-    buf = torch.cat([t, t[:1]])
-    buf[dest] = torch.as_tensor(vals, dtype=t.dtype, device=t.device)
-    return buf[:-1]
+    """Lane-wise ``t[b].at[dest[b]].set(vals[b], mode="drop")``: ``dest``
+    (B, n) in [0, N] with index N each lane's dump row."""
+    buf = torch.cat([t, t[:, :1]], dim=1)
+    if torch.is_tensor(vals):
+        vals = vals.to(t.dtype)
+    buf[_lane(t.shape[0], t.device), dest] = vals
+    return buf[:, :-1]
+
+
+def _set_col(t: torch.Tensor, v: int, val) -> torch.Tensor:
+    out = t.clone()
+    out[:, v] = val.to(t.dtype) if torch.is_tensor(val) else val
+    return out
 
 
 def init_state(cap: CapacityConfig, K, desc_dim: int = 128, *, device="cuda",
                dtype=DTYPE) -> SfMState:
+    """One empty store (no lane axis)."""
     V, Kk, M, O = cap.max_views, cap.max_keypoints, cap.max_points, cap.max_observations
     z = lambda *s, dt=dtype: torch.zeros(s, dtype=dt, device=device)  # noqa: E731
     i32 = lambda v: torch.tensor(v, dtype=torch.int32, device=device)  # noqa: E731
@@ -88,146 +143,144 @@ def init_state(cap: CapacityConfig, K, desc_dim: int = 128, *, device="cuda",
     )
 
 
-def _set_row(t: torch.Tensor, v: int, val) -> torch.Tensor:
-    out = t.clone()
-    out[v] = torch.as_tensor(val, dtype=t.dtype, device=t.device)
-    return out
-
-
+@lanewise
 def set_view_features(state: SfMState, v: int, xy, desc, valid) -> SfMState:
-    """Store one view's fixed-size keypoint buffers at row ``v``."""
-    return state._replace(
-        kp_xy=_set_row(state.kp_xy, v, xy),
-        kp_desc=_set_row(state.kp_desc, v, desc),
-        kp_valid=_set_row(state.kp_valid, v, valid),
-    )
+    """Store every lane's fixed-size keypoint buffers at row ``v``."""
+    return state._replace(kp_xy=_set_col(state.kp_xy, v, xy),
+                          kp_desc=_set_col(state.kp_desc, v, desc),
+                          kp_valid=_set_col(state.kp_valid, v, valid))
 
 
-def record_matches(state: SfMState, u, v: int, target, valid) -> SfMState:
-    """``match_table[u, v, k] = target[k]`` and the inverse row
-    ``match_table[v, u, target[k]] = k`` where valid. ``u`` may be an int
-    (target (K,)) or a (B,) tensor of view ids (target (B, K)), which writes
-    every pair in one pass."""
+@lanewise
+def record_matches(state: SfMState, v: int, target, valid) -> SfMState:
+    """View v against every view u at once: ``match_table[u, v, k] =
+    target[u, k]`` and the inverse rows ``match_table[v, u, target[u, k]] =
+    k`` where valid (``target``, ``valid`` (V, K) a lane)."""
     tbl = state.match_table
-    u = torch.as_tensor(u, dtype=torch.long, device=tbl.device)
-    target, valid = torch.atleast_2d(target), torch.atleast_2d(valid)
     Kk = target.shape[-1]
     fwd = torch.where(valid, target, -1).to(torch.int32)
     ks = torch.arange(Kk, dtype=torch.int32, device=tbl.device).expand_as(fwd)
-    inv = torch.full((fwd.shape[0], Kk + 1), -1, dtype=torch.int32, device=tbl.device)
-    inv.scatter_(1, torch.where(valid, target, Kk).long(), ks)
+    inv = torch.full(fwd.shape[:-1] + (Kk + 1,), -1, dtype=torch.int32, device=tbl.device)
+    inv.scatter_(-1, torch.where(valid, target, Kk).long(), ks)
     tbl = tbl.clone()
-    tbl[u.reshape(-1), v] = fwd
-    tbl[v, u.reshape(-1)] = inv[:, :Kk]
+    tbl[:, :, v] = fwd
+    tbl[:, v, :] = inv[..., :Kk]
     return state._replace(match_table=tbl)
 
 
+@lanewise
 def set_view_K(state: SfMState, v: int, K) -> SfMState:
-    return state._replace(K=_set_row(state.K, v, K))
+    return state._replace(K=_set_col(state.K, v, K))
 
 
+@lanewise
 def set_camera(state: SfMState, v: int, C, q) -> SfMState:
-    return state._replace(
-        cam_C=_set_row(state.cam_C, v, C),
-        cam_q=_set_row(state.cam_q, v, q),
-        cam_valid=_set_row(state.cam_valid, v, True),
-    )
+    return state._replace(cam_C=_set_col(state.cam_C, v, C), cam_q=_set_col(state.cam_q, v, q),
+                          cam_valid=_set_col(state.cam_valid, v, True))
 
 
+@lanewise
 def allocate_points(state: SfMState, X: torch.Tensor, mask: torch.Tensor):
-    """Append masked new points. Returns (state, ids (N,) int32, stored (N,)
-    bool); ``stored`` is ``mask`` minus capacity overflow (counted in
-    ``dropped_points``), and every later recording must gate on it."""
-    ranks = torch.cumsum(mask.to(torch.int32), 0) - 1
-    ids = state.num_points + ranks
-    M = state.points.shape[0]
+    """Append each lane's masked new points. Returns (state, ids int32,
+    stored bool), (n,) a lane; ``stored`` is ``mask`` minus capacity
+    overflow (counted in ``dropped_points``), and every later recording
+    must gate on it."""
+    ranks = torch.cumsum(mask.to(torch.int32), 1) - 1
+    ids = state.num_points[:, None] + ranks
+    M = state.points.shape[1]
     stored = mask & (ids < M)
     dest = torch.where(stored, ids, M).long()
-    n_new = mask.sum(dtype=torch.int32)
-    kept = stored.sum(dtype=torch.int32)
+    n_new = mask.sum(1, dtype=torch.int32)
+    kept = stored.sum(1, dtype=torch.int32)
     state = state._replace(
         points=_set_drop(state.points, dest, X),
         pt_valid=_set_drop(state.pt_valid, dest, stored),
-        pt_gid=_set_drop(state.pt_gid, dest, state.next_gid + ranks),
+        pt_gid=_set_drop(state.pt_gid, dest, state.next_gid[:, None] + ranks),
         next_gid=_i32(state.next_gid + n_new),
         num_points=_i32(torch.clamp(state.num_points + n_new, max=M)),
         dropped_points=_i32(state.dropped_points + n_new - kept),
     )
-    return state, ids.to(torch.int32), stored
+    return state, _i32(ids), stored
 
 
+@lanewise
 def set_tri_index(state: SfMState, v: int, keys, ids, mask) -> SfMState:
     """``tri_index[v, keys] = ids`` where mask."""
-    Kk = state.tri_index.shape[1]
-    row = _set_drop(
-        state.tri_index[v], torch.where(mask, keys, Kk).long(), torch.where(mask, ids, -1)
-    )
-    return state._replace(tri_index=_set_row(state.tri_index, v, row))
+    Kk = state.tri_index.shape[2]
+    row = _set_drop(state.tri_index[:, v], torch.where(mask, keys, Kk).long(),
+                    torch.where(mask, ids, -1))
+    return state._replace(tri_index=_set_col(state.tri_index, v, row))
 
 
+@lanewise
 def set_tri_index_flat(state: SfMState, views, keys, ids, mask) -> SfMState:
     """``tri_index[views, keys] = ids`` where mask (views spanning many rows)."""
-    V, Kk = state.tri_index.shape
+    B, V, Kk = state.tri_index.shape
     flat = torch.where(mask, views.long() * Kk + keys.long(), V * Kk)
-    tri = _set_drop(state.tri_index.reshape(-1), flat, torch.where(mask, ids, -1))
-    return state._replace(tri_index=tri.view(V, Kk))
+    tri = _set_drop(state.tri_index.reshape(B, -1), flat, torch.where(mask, ids, -1))
+    return state._replace(tri_index=tri.view(B, V, Kk))
 
 
+@lanewise
 def append_observations(state: SfMState, cam, point, uv, mask) -> SfMState:
     """Append masked observations (capacity-bounded; overflow is counted in
     ``dropped_obs``)."""
-    O = state.obs_cam.shape[0]
-    ranks = torch.cumsum(mask.to(torch.int32), 0) - 1
-    dest = torch.where(mask, state.num_obs + ranks, O).clamp(max=O)
+    O = state.obs_cam.shape[1]
+    ranks = torch.cumsum(mask.to(torch.int32), 1) - 1
+    dest = torch.where(mask, state.num_obs[:, None] + ranks, O).clamp(max=O)
     kept = mask & (dest < O)
     dest = dest.long()
-    n_dropped = mask.sum(dtype=torch.int32) - kept.sum(dtype=torch.int32)
+    n_dropped = mask.sum(1, dtype=torch.int32) - kept.sum(1, dtype=torch.int32)
     return state._replace(
         obs_cam=_set_drop(state.obs_cam, dest, cam),
         obs_pt=_set_drop(state.obs_pt, dest, point),
         obs_uv=_set_drop(state.obs_uv, dest, uv),
         obs_valid=_set_drop(state.obs_valid, dest, kept),
-        num_obs=_i32(torch.clamp(state.num_obs + kept.sum(dtype=torch.int32), max=O)),
+        num_obs=_i32(torch.clamp(state.num_obs + kept.sum(1, dtype=torch.int32), max=O)),
         dropped_obs=_i32(state.dropped_obs + n_dropped),
     )
 
 
+@lanewise
 def matched_pair_arrays(state: SfMState, u: int, v: int):
     """(ref_keys, que_keys, ref_xy, que_xy, valid) of views (u, v)."""
-    Kk = state.match_table.shape[2]
-    tgt = state.match_table[u, v]
+    B, Kk = state.match_table.shape[0], state.match_table.shape[-1]
+    tgt = state.match_table[:, u, v]
     valid = tgt >= 0
-    ref_keys = torch.arange(Kk, dtype=torch.int32, device=tgt.device)
+    ref_keys = torch.arange(Kk, dtype=torch.int32, device=tgt.device).expand(B, Kk)
     que_keys = torch.where(valid, tgt, 0)
-    return ref_keys, que_keys, state.kp_xy[u], state.kp_xy[v][que_keys.long()], valid
+    que_xy = state.kp_xy[:, v][_lane(B, tgt.device), que_keys.long()]
+    return ref_keys, que_keys, state.kp_xy[:, u], que_xy, valid
 
 
+@lanewise
 def compact_state(state: SfMState) -> SfMState:
     """Stable-compact the point and observation stores and remap every
     ``tri_index``/``obs_pt`` reference (used by :func:`prune_observations`
     and :func:`evict_oldest_view`)."""
-    M = state.points.shape[0]
-    O = state.obs_cam.shape[0]
+    B, M = state.points.shape[:2]
+    O = state.obs_cam.shape[1]
+    ar = _lane(B, state.points.device)
     pt_valid = state.pt_valid
-    new_id = torch.cumsum(pt_valid.to(torch.int32), 0) - 1
+    new_id = torch.cumsum(pt_valid.to(torch.int32), 1) - 1
     dest_pt = torch.where(pt_valid, new_id, M).long()
     remap = torch.where(pt_valid, new_id, -1)
     tri = state.tri_index
-    tri_index = torch.where(tri >= 0, remap[tri.clamp_min(0).long()], -1)
-    obs_remap = remap[state.obs_pt.long()]
+    tri_index = torch.where(tri >= 0, remap[ar[:, :, None], tri.clamp_min(0).long()], -1)
+    obs_remap = remap[ar, state.obs_pt.long()]
     keep_obs = state.obs_valid & (obs_remap >= 0)
-    dest_o = torch.where(keep_obs, torch.cumsum(keep_obs.to(torch.int32), 0) - 1, O).long()
+    dest_o = torch.where(keep_obs, torch.cumsum(keep_obs.to(torch.int32), 1) - 1, O).long()
     return state._replace(
         tri_index=tri_index.to(torch.int32),
         points=_set_drop(torch.zeros_like(state.points), dest_pt, state.points),
         pt_valid=_set_drop(torch.zeros_like(pt_valid), dest_pt, pt_valid),
         pt_gid=_set_drop(torch.full_like(state.pt_gid, -1), dest_pt, state.pt_gid),
-        num_points=pt_valid.sum(dtype=torch.int32),
+        num_points=pt_valid.sum(1, dtype=torch.int32),
         obs_cam=_set_drop(torch.zeros_like(state.obs_cam), dest_o, state.obs_cam),
         obs_pt=_set_drop(torch.zeros_like(state.obs_pt), dest_o, obs_remap),
         obs_uv=_set_drop(torch.zeros_like(state.obs_uv), dest_o, state.obs_uv),
         obs_valid=_set_drop(torch.zeros_like(state.obs_valid), dest_o, keep_obs),
-        num_obs=keep_obs.sum(dtype=torch.int32),
+        num_obs=keep_obs.sum(1, dtype=torch.int32),
     )
 
 
@@ -248,10 +301,20 @@ class EvictionRecord(NamedTuple):
 
 
 def _shift0(x: torch.Tensor, fill) -> torch.Tensor:
-    """Drop row 0, shift every row down by one, fill the last row."""
-    return torch.cat([x[1:], torch.full_like(x[:1], fill)])
+    """Drop row 0 of every lane, shift every row down by one, fill the last."""
+    return torch.cat([x[:, 1:], torch.full_like(x[:, :1], fill)], dim=1)
 
 
+def _lane_counts(pt: torch.Tensor, keep: torch.Tensor, M: int) -> torch.Tensor:
+    """(B, M) number of kept observations of each lane's points."""
+    B = pt.shape[0]
+    counts = torch.zeros(B * M, dtype=torch.int32, device=pt.device)
+    idx = torch.where(keep, pt, M - 1) + _lane(B, pt.device) * M
+    counts.index_add_(0, idx.reshape(-1), keep.to(torch.int32).reshape(-1))
+    return counts.view(B, M)
+
+
+@lanewise
 def evict_oldest_view(state: SfMState):
     """Slide the window: drop view 0 and shift every view down by one (the
     "prior views have smaller indices" invariant every stage relies on).
@@ -259,34 +322,31 @@ def evict_oldest_view(state: SfMState):
     observations are archived, then dropped; points left with no
     observation die; the stores are compacted and every reference
     remapped."""
-    V, Kk = state.tri_index.shape
-    M = state.points.shape[0]
+    B, V, Kk = state.tri_index.shape
+    M = state.points.shape[1]
+    dev = state.points.device
+    ar = _lane(B, dev)
     ev_mask = state.obs_valid & (state.obs_cam == 0)
-    ev_rank = torch.cumsum(ev_mask.to(torch.int32), 0) - 1
+    ev_rank = torch.cumsum(ev_mask.to(torch.int32), 1) - 1
     ev_dst = torch.where(ev_mask, ev_rank.clamp(max=Kk), Kk).long()  # Kk drops
     pt = state.obs_pt.long()
-    dev = state.points.device
     rec = EvictionRecord(
-        C=state.cam_C[0].clone(),
-        q=state.cam_q[0].clone(),
-        K=state.K[0].clone(),
-        gid=_set_drop(torch.full((Kk,), -1, dtype=torch.int32, device=dev), ev_dst,
-                      state.pt_gid[pt]),
-        uv=_set_drop(torch.zeros((Kk, 2), dtype=state.obs_uv.dtype, device=dev), ev_dst,
+        C=state.cam_C[:, 0].clone(),
+        q=state.cam_q[:, 0].clone(),
+        K=state.K[:, 0].clone(),
+        gid=_set_drop(torch.full((B, Kk), -1, dtype=torch.int32, device=dev), ev_dst,
+                      state.pt_gid[ar, pt]),
+        uv=_set_drop(torch.zeros((B, Kk, 2), dtype=state.obs_uv.dtype, device=dev), ev_dst,
                      state.obs_uv),
-        X=_set_drop(torch.zeros((Kk, 3), dtype=state.points.dtype, device=dev), ev_dst,
-                    state.points[pt]),
-        valid=_set_drop(torch.zeros(Kk, dtype=torch.bool, device=dev), ev_dst, ev_mask),
+        X=_set_drop(torch.zeros((B, Kk, 3), dtype=state.points.dtype, device=dev), ev_dst,
+                    state.points[ar, pt]),
+        valid=_set_drop(torch.zeros((B, Kk), dtype=torch.bool, device=dev), ev_dst, ev_mask),
     )
-    # the vacated last slot inherits the newest K (overwritten when the next
-    # frame brings its own)
-    K_rows = torch.cat([state.K[1:], state.K[-1:]])
     match_table = torch.full_like(state.match_table, -1)
-    match_table[: V - 1, : V - 1] = state.match_table[1:, 1:]
+    match_table[:, : V - 1, : V - 1] = state.match_table[:, 1:, 1:]
     keep_obs = state.obs_valid & (state.obs_cam != 0)
-    counts = torch.zeros(M, dtype=torch.int32, device=dev)
-    counts.index_add_(0, torch.where(keep_obs, pt, M - 1), keep_obs.to(torch.int32))
-    cam_q = torch.cat([state.cam_q[1:], state.cam_q.new_tensor([[1.0, 0, 0, 0]])])
+    counts = _lane_counts(pt, keep_obs, M)
+    ident = state.cam_q.new_tensor([1.0, 0, 0, 0]).expand(B, 1, 4)
     state = state._replace(
         kp_xy=_shift0(state.kp_xy, 0),
         kp_desc=_shift0(state.kp_desc, 0),
@@ -294,31 +354,45 @@ def evict_oldest_view(state: SfMState):
         match_table=match_table,
         tri_index=_shift0(state.tri_index, -1),
         cam_C=_shift0(state.cam_C, 0),
-        cam_q=cam_q,
+        cam_q=torch.cat([state.cam_q[:, 1:], ident], dim=1),
         cam_valid=_shift0(state.cam_valid, False),
         pt_valid=state.pt_valid & (counts > 0),
-        obs_cam=(state.obs_cam - 1).to(torch.int32),
+        obs_cam=_i32(state.obs_cam - 1),
         obs_valid=keep_obs,
-        K=K_rows,
+        # the vacated last slot inherits the newest K (overwritten when the
+        # next frame brings its own)
+        K=torch.cat([state.K[:, 1:], state.K[:, -1:]], dim=1),
     )
     return compact_state(state), rec
 
 
+def _obs_residuals(state: SfMState):
+    """Pixel residuals and depths of every lane's observation store."""
+    ar = _lane(state.obs_cam.shape[0], state.obs_cam.device)
+    cam, pt = state.obs_cam.long(), state.obs_pt.long()
+    return pixel_residuals(state.K[ar, cam], state.cam_C[ar, cam], state.cam_q[ar, cam],
+                           state.points[ar, pt], state.obs_uv)
+
+
+@lanewise
 def prune_observations(state: SfMState, max_err_px: float):
     """Drop observations with pixel reprojection error above ``max_err_px``
     (or non-positive depth), kill points left with < 2 observations, and
     compact. Returns (state, num_dropped_obs, num_dropped_points)."""
-    cam, pt = state.obs_cam.long(), state.obs_pt.long()
-    res, depth = pixel_residuals(
-        state.K[cam], state.cam_C[cam], state.cam_q[cam], state.points[pt], state.obs_uv
-    )
-    err = torch.linalg.norm(res, dim=-1)
-    keep = state.obs_valid & (err <= max_err_px) & (depth > 0)
-    n_dropped = state.obs_valid.sum(dtype=torch.int32) - keep.sum(dtype=torch.int32)
-    M = state.points.shape[0]
-    counts = torch.zeros(M, dtype=torch.int32, device=pt.device)
-    counts.index_add_(0, torch.where(keep, pt, M - 1), keep.to(torch.int32))
+    res, depth = _obs_residuals(state)
+    keep = state.obs_valid & (torch.linalg.norm(res, dim=-1) <= max_err_px) & (depth > 0)
+    n_dropped = state.obs_valid.sum(1, dtype=torch.int32) - keep.sum(1, dtype=torch.int32)
+    counts = _lane_counts(state.obs_pt.long(), keep, state.points.shape[1])
     pt_valid = state.pt_valid & (counts >= 2)
-    n_pts = state.pt_valid.sum(dtype=torch.int32) - pt_valid.sum(dtype=torch.int32)
+    n_pts = state.pt_valid.sum(1, dtype=torch.int32) - pt_valid.sum(1, dtype=torch.int32)
     state = compact_state(state._replace(obs_valid=keep, pt_valid=pt_valid))
     return state, n_dropped, n_pts
+
+
+@lanewise
+def reprojection_error(state: SfMState) -> torch.Tensor:
+    """Mean pixel reprojection error over the valid observations."""
+    res, _ = _obs_residuals(state)
+    w = state.obs_valid.to(res.dtype)
+    err = torch.linalg.norm(res * w[..., None], dim=-1)
+    return err.sum(1) / w.sum(1).clamp_min(1.0)

@@ -21,6 +21,13 @@ block-Jacobi PCG whose matvec runs kernels B5 and B6 on the card; point
 back-substitution; the adaptive accept test on the same Huber objective the
 assembly charged. The CSR layout and the hybrid-ELL tail serve only the
 sharded solve, which is not ported (ROADMAP A13).
+
+A leading lane axis on every field of the state and the observations (the
+batched engine's per-frame BA) stacks independent problems: ELL layout,
+dense solve, one B4 launch an iteration for all lanes, and each lane
+accepting or rejecting its own step with its own lambda, so lane b follows
+what the call on lane b's problem alone gives. A stack of one lane is that
+call.
 """
 
 from __future__ import annotations
@@ -69,12 +76,30 @@ class ObsLayout(NamedTuple):
     cam_rows: int = 0
     cam_perm: torch.Tensor | None = None  # (V * cam_rows,) int32
     cam_mask: torch.Tensor | None = None  # (V * cam_rows,) bool
+    lanes: int = 0  # B for a lane stack (B, ...) of ELL problems
+
+
+def _take(t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``t[idx]``; with a lane axis ((B, N, ...) at (B, O)), each lane's rows."""
+    if idx.dim() == 1:
+        return t[idx]
+    return t[torch.arange(t.shape[0], device=t.device)[:, None], idx]
 
 
 def _to_ell(obs: BAObservations, m: int, rows: int) -> BAObservations:
     """Pack into ELL: point p owns slots [p*rows, (p+1)*rows); empty slots
     are invalid (cam 0), and observations beyond a point's ``rows`` drop
-    (``rows = V`` never drops: at most one observation per (view, point))."""
+    (``rows = V`` never drops: at most one observation per (view, point)).
+    With a lane axis lane b's points are numbered from b * m, so one stable
+    pack lays lane after lane, each exactly as its own pack would."""
+    if obs.cam.dim() == 2:
+        B = obs.cam.shape[0]
+        off = torch.arange(B, device=obs.cam.device)[:, None] * m
+        flat = BAObservations(cam=obs.cam.reshape(-1), point=(obs.point + off).reshape(-1),
+                              uv_norm=obs.uv_norm.reshape(-1, 2), valid=obs.valid.reshape(-1))
+        packed = BAObservations(*(t.reshape((B, m * rows) + t.shape[1:])
+                                  for t in _to_ell(flat, B * m, rows)))
+        return packed._replace(point=(packed.point - off).to(torch.int32))
     point = torch.where(obs.valid, obs.point, m).long()
     order = torch.argsort(point, stable=True)
     s_pt, s_cam = point[order], obs.cam[order]
@@ -117,50 +142,56 @@ def compute_cam_ell(cam: torch.Tensor, valid: torch.Tensor, n_views: int, rows: 
 
 def _cam_sum(vals: torch.Tensor, cam: torch.Tensor, n_views: int, lay: ObsLayout) -> torch.Tensor:
     """Sum per-slot values into (n_views, ...) camera bins: camera-ELL
-    gather + reshape-sum when the layout has one, else a one-hot product."""
+    gather + reshape-sum when the layout has one, else a one-hot product
+    (lane by lane for a lane stack)."""
     if lay.cam_perm is not None:
         m = lay.cam_mask.to(vals.dtype).reshape((-1,) + (1,) * (vals.dim() - 1))
         g = vals[lay.cam_perm.long()] * m
         return g.reshape((n_views, lay.cam_rows) + vals.shape[1:]).sum(1)
+    lead, O = cam.shape[:-1], cam.shape[-1]
     oh = cam_onehot(cam, n_views, vals.dtype)
-    return (oh.T @ vals.reshape(vals.shape[0], -1)).reshape((n_views,) + vals.shape[1:])
+    out = oh.transpose(-1, -2) @ vals.reshape(lead + (O, -1))
+    return out.reshape(lead + (n_views,) + vals.shape[len(lead) + 1:])
 
 
 def _point_sum(vals: torch.Tensor, m: int, lay: ObsLayout) -> torch.Tensor:
     """Sum per-slot values into (m, ...) point bins: per-tier reshape-sums
     in point order; padding slots are ignored."""
+    a = 1 if lay.lanes else 0  # the slot axis
+    lead, rest = vals.shape[:a], vals.shape[a + 1:]
     outs, off = [], 0
     for n, r in lay.tiers:
         if r == 0:
-            outs.append(vals.new_zeros((n,) + vals.shape[1:]))
+            outs.append(vals.new_zeros(lead + (n,) + rest))
             continue
-        outs.append(vals[off:off + n * r].reshape((n, r) + vals.shape[1:]).sum(1))
+        outs.append(vals.narrow(a, off, n * r).reshape(lead + (n, r) + rest).sum(a + 1))
         off += n * r
-    return torch.cat(outs)[:m]
+    return torch.cat(outs, dim=a).narrow(a, 0, m)
 
 
 def _point_gather(vals: torch.Tensor, lay: ObsLayout) -> torch.Tensor:
     """Expand (m, ...) point values to the slot stream (per-tier broadcast;
     padding slots read point 0, whose weight there is zero)."""
+    a = 1 if lay.lanes else 0  # the point axis
     outs, p0 = [], 0
     for n, r in lay.tiers:
         if r:
-            outs.append(vals[p0:p0 + n].repeat_interleave(r, dim=0))
+            outs.append(vals.narrow(a, p0, n).repeat_interleave(r, dim=a))
         p0 += n
     if lay.pad:
-        outs.append(vals[:1].expand((lay.pad,) + vals.shape[1:]))
-    return torch.cat(outs)
+        outs.append(vals.narrow(a, 0, 1).expand(vals.shape[:a] + (lay.pad,) + vals.shape[a + 1:]))
+    return torch.cat(outs, dim=a)
 
 
 def _assemble(state: BAState, obs: BAObservations, config: BAConfig, lay: ObsLayout):
     """Residuals -> (U, D, W, b_c, b_p, cost); the per-observation stage is
     kernel B4 on CUDA tensors."""
-    V, M = state.C.shape[0], state.X.shape[0]
+    V, M = state.C.shape[-2], state.X.shape[-2]
     cam = obs.cam.long()
     U, b_c, DtD, W, bp_o, cost = ba_blocks(
         obs.cam.contiguous(),
-        state.C[cam].contiguous(),
-        state.q[cam].contiguous(),
+        _take(state.C, cam).contiguous(),
+        _take(state.q, cam).contiguous(),
         _point_gather(state.X, lay).contiguous(),
         obs.uv_norm.contiguous(),
         obs.valid.to(state.X.dtype),
@@ -173,28 +204,36 @@ def _assemble(state: BAState, obs: BAObservations, config: BAConfig, lay: ObsLay
 def _solve_dense(U, Dinv, W, b_red, obs, pin, lam, lay: ObsLayout):
     """Exact Schur solve: coupling G (M, V, 7, 3) from per-tier one-hot
     products, the reduced (7V, 7V) system S = U + lam I - G D^-1 G^T,
-    pinned cameras as identity rows, and a Cholesky solve."""
-    M, V = Dinv.shape[0], U.shape[0]
+    pinned cameras as identity rows, and a Cholesky solve (one system a
+    lane for a lane stack)."""
+    a = 1 if lay.lanes else 0
+    lead = U.shape[:a]
+    M, V = Dinv.shape[a], U.shape[a]
     dt, dev = U.dtype, U.device
     Gs, off = [], 0
     for n, r in lay.tiers:
         if r == 0:
-            Gs.append(torch.zeros((n, V, 7, 3), dtype=dt, device=dev))
+            Gs.append(torch.zeros(lead + (n, V, 7, 3), dtype=dt, device=dev))
             continue
-        ohc = cam_onehot(obs.cam[off:off + n * r], V, dt).reshape(n, r, V)
-        Gs.append(torch.einsum("ntv,ntic->nvic", ohc, W[off:off + n * r].reshape(n, r, 7, 3)))
+        ohc = cam_onehot(obs.cam.narrow(a, off, n * r), V, dt).reshape(lead + (n, r, V))
+        Wt = W.narrow(a, off, n * r).reshape(lead + (n, r, 7, 3))
+        Gs.append(torch.einsum("...ntv,...ntic->...nvic", ohc, Wt))
         off += n * r
-    G = torch.cat(Gs)[:M]
-    GD = torch.einsum("mvic,mcd->mvid", G, Dinv).reshape(M, V * 7, 3)
-    coupling = torch.einsum("mad,mbd->ab", GD, G.reshape(M, V * 7, 3))  # [v*7+i, w*7+j]
+    G = torch.cat(Gs, dim=a).narrow(a, 0, M)
+    GD = torch.einsum("...mvic,...mcd->...mvid", G, Dinv).reshape(lead + (M, V * 7, 3))
+    # [v*7+i, w*7+j]
+    coupling = torch.einsum("...mad,...mbd->...ab", GD, G.reshape(lead + (M, V * 7, 3)))
     eye7 = torch.eye(7, dtype=dt, device=dev)
-    S = torch.block_diag(*(U + lam * eye7)) - coupling
-    pin7 = pin.repeat_interleave(7)
+    blocks = torch.einsum("...vij,vw->...viwj", U + lam[..., None, None, None] * eye7,
+                          torch.eye(V, dtype=dt, device=dev))  # block diagonal
+    S = blocks.reshape(lead + (V * 7, V * 7)) - coupling
+    pin7 = pin.repeat_interleave(7, dim=-1)
     eye = torch.eye(V * 7, dtype=dt, device=dev)
-    S = torch.where(pin7[:, None], eye, S)
-    S = torch.where(pin7[None, :], torch.where(eye > 0, S, torch.zeros_like(S)), S)
-    b = torch.where(pin7, torch.zeros_like(b_red.reshape(-1)), b_red.reshape(-1))
-    return solve_psd(S, b).reshape(V, 7)
+    S = torch.where(pin7[..., :, None], eye, S)
+    S = torch.where(pin7[..., None, :], torch.where(eye > 0, S, torch.zeros_like(S)), S)
+    b_flat = b_red.reshape(lead + (-1,))
+    b = torch.where(pin7, torch.zeros_like(b_flat), b_flat)
+    return solve_psd(S, b).reshape(lead + (V, 7))
 
 
 def _solve_pcg(U, Dinv, W, b_red, obs, pin, lam, config: BAConfig, lay: ObsLayout,
@@ -236,33 +275,33 @@ def _solve_pcg(U, Dinv, W, b_red, obs, pin, lam, config: BAConfig, lay: ObsLayou
 def _reduce_and_solve(U, D, W, b_c, b_p, state: BAState, obs, config: BAConfig, lam,
                       lay: ObsLayout, cg_iters: list | None):
     """Schur reduction + reduced camera solve + point back-substitution."""
-    V = state.C.shape[0]
+    V = state.C.shape[-2]
     dt = state.X.dtype
-    Dinv = inv3x3(D + lam * torch.eye(3, dtype=dt, device=D.device)) \
-        * state.pt_valid[:, None, None].to(dt)
-    y = torch.einsum("mcd,md->mc", Dinv, b_p)
-    contrib = torch.einsum("oic,oc->oi", W, _point_gather(y, lay))
+    Dinv = inv3x3(D + lam[..., None, None, None] * torch.eye(3, dtype=dt, device=D.device)) \
+        * state.pt_valid[..., None, None].to(dt)
+    y = torch.einsum("...mcd,...md->...mc", Dinv, b_p)
+    contrib = torch.einsum("...oic,...oc->...oi", W, _point_gather(y, lay))
     b_red = b_c - _cam_sum(contrib, obs.cam, V, lay)
     pin = ~state.cam_valid
     if config.fix_first_camera_gauge:
         pin = pin.clone()
-        pin[0] = True
+        pin[..., 0] = True
     if V >= config.pcg_fallback_cameras:
         dc = _solve_pcg(U, Dinv, W, b_red, obs, pin, lam, config, lay, cg_iters)
     else:
-        b_red = torch.where(pin[:, None], torch.zeros_like(b_red), b_red)
+        b_red = torch.where(pin[..., None], torch.zeros_like(b_red), b_red)
         dc = _solve_dense(U, Dinv, W, b_red, obs, pin, lam, lay)
-    t = torch.einsum("oic,oi->oc", W, dc[obs.cam.long()])
-    dp = torch.einsum("mcd,md->mc", Dinv, b_p - _point_sum(t, D.shape[0], lay))
+    t = torch.einsum("...oic,...oi->...oc", W, _take(dc, obs.cam.long()))
+    dp = torch.einsum("...mcd,...md->...mc", Dinv, b_p - _point_sum(t, D.shape[-3], lay))
     return dc, dp
 
 
 def _apply_step(state: BAState, dc, dp) -> BAState:
-    cam_ok = state.cam_valid[:, None].to(state.C.dtype)
-    pt_ok = state.pt_valid[:, None].to(state.X.dtype)
+    cam_ok = state.cam_valid[..., None].to(state.C.dtype)
+    pt_ok = state.pt_valid[..., None].to(state.X.dtype)
     return state._replace(
-        C=state.C + dc[:, :3] * cam_ok,
-        q=quat_normalize(state.q + dc[:, 3:] * cam_ok),
+        C=state.C + dc[..., :3] * cam_ok,
+        q=quat_normalize(state.q + dc[..., 3:] * cam_ok),
         X=state.X + dp * pt_ok,
     )
 
@@ -271,17 +310,33 @@ def total_reprojection_cost(state: BAState, obs: BAObservations, huber_delta: fl
                             lay: ObsLayout | None = None) -> torch.Tensor:
     """Sum of (Huber-IRLS-weighted) squared normalised residuals over valid
     observations; with ``lay`` the stream is read in that layout, else by
-    ``obs.point``."""
+    ``obs.point``. A lane stack gives one cost a lane."""
     cam = obs.cam.long()
-    X = _point_gather(state.X, lay) if lay is not None else state.X[obs.point.long()]
-    res, _, _ = batched_residual_jacobians(state.C[cam], state.q[cam], X, obs.uv_norm)
-    w = huber_weights(res, huber_delta) * obs.valid.to(res.dtype)
-    return ((res * w[:, None]) ** 2).sum()
+    X = _point_gather(state.X, lay) if lay is not None else _take(state.X, obs.point.long())
+    res, _, _ = batched_residual_jacobians(
+        _take(state.C, cam).reshape(-1, 3), _take(state.q, cam).reshape(-1, 4),
+        X.reshape(-1, 3), obs.uv_norm.reshape(-1, 2))
+    w = huber_weights(res, huber_delta) * obs.valid.reshape(-1).to(res.dtype)
+    return ((res * w[:, None]) ** 2).reshape(cam.shape[:-1] + (-1,)).sum(-1)
 
 
 def _layout(state: BAState, obs: BAObservations, config: BAConfig):
     """Canonicalise the stream once per BA call -> (obs, ObsLayout)."""
-    V, M = state.C.shape[0], state.X.shape[0]
+    V, M = state.C.shape[-2], state.X.shape[-2]
+    if state.C.dim() == 3:
+        if config.obs_layout != "ell" or config.ell_tail or config.cam_rows \
+                or V >= config.pcg_fallback_cameras:
+            raise NotImplementedError("a lane stack of problems takes the ELL layout and the "
+                                      "dense solve")
+        B, rows = state.C.shape[0], config.ell_rows or V
+        obs = _to_ell(obs, M, rows)
+        # kernel B4 takes a lane stack only in whole rows of 4 observations:
+        # each lane's stream ends in empty slots up to the next multiple of 4
+        pad = -(M * rows) % 4
+        if pad:
+            obs = BAObservations(*(torch.cat([t, t.new_zeros((B, pad) + t.shape[2:])], dim=1)
+                                   for t in obs))
+        return obs, ObsLayout(tiers=((M, rows),), pad=pad, lanes=B)
     if config.obs_layout == "tiered":
         if not config.tiers:
             raise ValueError("obs_layout='tiered' requires config.tiers")
@@ -314,9 +369,15 @@ def run_bundle_adjustment(state: BAState, obs: BAObservations, config: BAConfig,
     costs (iterations,)). With ``config.adaptive`` rejected steps roll back
     and grow lambda, accepted ones shrink it (on device, no host sync).
     ``cg_iters``, when given, receives the PCG iteration count of each LM
-    iteration that solved by PCG."""
+    iteration that solved by PCG. A lane stack (see the module's docstring)
+    gives costs (B, iterations)."""
+    if state.C.dim() == 3 and state.C.shape[0] == 1:  # one lane: the call without the axis
+        out, costs = run_bundle_adjustment(BAState(*(t[0] for t in state)),
+                                           BAObservations(*(t[0] for t in obs)), config, cg_iters)
+        return BAState(*(t[None] for t in out)), costs[None]
     obs, lay = _layout(state, obs, config)
-    lam = torch.tensor(config.damping, dtype=state.X.dtype, device=state.X.device)
+    lam = torch.full(state.C.shape[:-2], config.damping, dtype=state.X.dtype,
+                     device=state.X.device)
     costs = []
     for _ in range(config.iterations):
         U, D, W, b_c, b_p, cost = _assemble(state, obs, config, lay)
@@ -327,9 +388,11 @@ def run_bundle_adjustment(state: BAState, obs: BAObservations, config: BAConfig,
             state = cand
             continue
         accept = total_reprojection_cost(cand, obs, config.huber_delta, lay) < cost
-        state = BAState(*(torch.where(accept, a, b) for a, b in zip(cand, state)))
+        state = BAState(*(torch.where(accept.reshape(accept.shape + (1,) * (a.dim() - accept.dim())),
+                                      a, b) for a, b in zip(cand, state)))
         lam = torch.clamp(
             torch.where(accept, lam * config.damping_down, lam * config.damping_up),
             config.min_damping, config.max_damping,
         )
-    return state, torch.stack(costs)
+    return state, torch.stack(costs, dim=-1)
+

@@ -28,76 +28,88 @@ def huber_weights(res: torch.Tensor, delta: float) -> torch.Tensor:
 
 
 def cam_onehot(cam: torch.Tensor, n_views: int, dtype) -> torch.Tensor:
-    """(O, V) one-hot of camera ids; ids outside [0, V) give a zero row."""
-    return (cam[:, None] == torch.arange(n_views, device=cam.device)).to(dtype)
+    """(..., O, V) one-hot of camera ids; ids outside [0, V) give a zero row."""
+    return (cam[..., None] == torch.arange(n_views, device=cam.device)).to(dtype)
 
 
 def ba_blocks_reference(cam, C_o, q_o, X_o, uv, w, n_views: int, huber_delta: float):
     """Plain version: (U (V,7,7), b_c (V,7), DtD (O,3,3), W (O,7,3),
-    b_p (O,3), cost ()) from per-observation inputs."""
-    res, J_cam, J_pt = batched_residual_jacobians(C_o, q_o, X_o, uv)
-    rw = huber_weights(res, huber_delta) * w
+    b_p (O,3), cost ()) from per-observation inputs; with a lane axis in
+    front of every input, each output gets it too (cost (B,))."""
+    lead = cam.shape[:-1]
+    O = cam.shape[-1]
+    res, J_cam, J_pt = batched_residual_jacobians(
+        C_o.reshape(-1, 3), q_o.reshape(-1, 4), X_o.reshape(-1, 3), uv.reshape(-1, 2))
+    rw = huber_weights(res, huber_delta) * w.reshape(-1)
     res = res * rw[:, None]
     J_cam = J_cam * rw[:, None, None]
     J_pt = J_pt * rw[:, None, None]
-    UtU = torch.einsum("oki,okj->oij", J_cam, J_cam)
-    DtD = torch.einsum("oki,okj->oij", J_pt, J_pt)
-    W = torch.einsum("oki,okj->oij", J_cam, J_pt)
-    bc_o = torch.einsum("oki,ok->oi", J_cam, res)
-    bp_o = torch.einsum("oki,ok->oi", J_pt, res)
-    oh = cam_onehot(cam, n_views, UtU.dtype)
-    U = torch.einsum("ov,oij->vij", oh, UtU)
-    b_c = oh.T @ bc_o
-    return U, b_c, DtD, W, bp_o, torch.sum(res**2)
+    UtU = torch.einsum("oki,okj->oij", J_cam, J_cam).reshape(lead + (O, 7, 7))
+    DtD = torch.einsum("oki,okj->oij", J_pt, J_pt).reshape(lead + (O, 3, 3))
+    W = torch.einsum("oki,okj->oij", J_cam, J_pt).reshape(lead + (O, 7, 3))
+    bc_o = torch.einsum("oki,ok->oi", J_cam, res).reshape(lead + (O, 7))
+    bp_o = torch.einsum("oki,ok->oi", J_pt, res).reshape(lead + (O, 3))
+    oh = cam_onehot(cam.reshape(-1), n_views, UtU.dtype).reshape(lead + (O, n_views))
+    U = torch.einsum("...ov,...oij->...vij", oh, UtU)
+    b_c = oh.transpose(-1, -2) @ bc_o
+    return U, b_c, DtD, W, bp_o, (res**2).reshape(lead + (-1,)).sum(-1)
 
 
 def ba_blocks(cam, C_o, q_o, X_o, uv, w, n_views: int, huber_delta: float):
     """Fused residual/Jacobian/block products over all observations; same
-    outputs as :func:`ba_blocks_reference`. On the card an observation whose
-    camera id lies outside [0, n_views) enters no camera sum, and the cost is
-    the sum of the cameras' shares (the plain version's cost counts every
-    residual; the pipeline gives such an id no weight)."""
+    outputs as :func:`ba_blocks_reference`. With a lane axis ((B, O) ids,
+    (B, O, 3) centres, ...) ONE launch makes every lane's blocks and camera
+    sums, each lane exactly as its own launch (4 must divide O then). On the
+    card an observation whose camera id lies outside [0, n_views) enters no
+    camera sum, and the cost is the sum of the cameras' shares (the plain
+    version's cost counts every residual; the pipeline gives such an id no
+    weight)."""
     if cam.device.type == "cpu":
         return ba_blocks_reference(cam, C_o, q_o, X_o, uv, w, n_views, huber_delta)
     if cam.device.type != "cuda":
         raise ValueError(f"ba_blocks: unsupported device {cam.device}")
-    O = cam.shape[0]
+    lead = cam.shape[:-1]
+    lanes = cam.shape[0] if cam.dim() == 2 else 0
+    O = cam.shape[-1]
     expect = {"C_o": (C_o, 3), "q_o": (q_o, 4), "X_o": (X_o, 3), "uv": (uv, 2)}
     for name, (t, k) in expect.items():
-        if t.shape != (O, k) or t.dtype != torch.float32 or not t.is_contiguous() \
+        if t.shape != lead + (O, k) or t.dtype != torch.float32 or not t.is_contiguous() \
                 or t.device != cam.device:
-            raise ValueError(f"ba_blocks: {name} must be a contiguous ({O}, {k}) "
+            raise ValueError(f"ba_blocks: {name} must be a contiguous {lead + (O, k)} "
                              "float32 tensor on the same device")
-    if cam.dtype != torch.int32 or w.shape != (O,) or w.dtype != torch.float32 \
-            or not (cam.is_contiguous() and w.is_contiguous()) or w.device != cam.device:
-        raise ValueError("ba_blocks: cam must be (O,) int32 and w (O,) float32")
-    if O == 0 or n_views < 1:
-        raise ValueError("ba_blocks: need O > 0 observations and n_views > 0")
+    if cam.dtype != torch.int32 or cam.dim() not in (1, 2) or w.shape != lead + (O,) \
+            or w.dtype != torch.float32 or not (cam.is_contiguous() and w.is_contiguous()) \
+            or w.device != cam.device:
+        raise ValueError("ba_blocks: cam must be (O,) or (B, O) int32 and w the same float32")
+    if O == 0 or n_views < 1 or (lanes and not (lanes <= 65535 and O % 4 == 0)):
+        raise ValueError("ba_blocks: need O > 0 observations and n_views > 0 (and, with "
+                         "lanes, 4 | O and at most 65535 of them)")
     dev = cam.device
+    n = max(lanes, 1)
     nb = -(-O // _BLOCK)
-    # scratch of the camera reduction: one 36-float row per (block, camera
-    # present in it), then one slot byte per (camera, block)
-    n_rows = nb * min(_BLOCK, n_views) * _ROW
-    dtd = torch.empty((O, 9), dtype=torch.float32, device=dev)
-    wblk = torch.empty((O, 21), dtype=torch.float32, device=dev)
-    bp = torch.empty((O, 3), dtype=torch.float32, device=dev)
-    scratch = torch.empty(n_rows + -(-n_views * nb // 4), dtype=torch.float32, device=dev)
-    acc = torch.empty((n_views, _PAYLOAD), dtype=torch.float32, device=dev)
-    rc = kernels.library().sfm_ba_blocks(
-        cam.data_ptr(), C_o.data_ptr(), q_o.data_ptr(), X_o.data_ptr(),
-        uv.data_ptr(), w.data_ptr(), O, n_views, float(huber_delta),
-        dtd.data_ptr(), wblk.data_ptr(), bp.data_ptr(), scratch.data_ptr(),
-        scratch.data_ptr() + 4 * n_rows, acc.data_ptr(), kernels.stream_ptr(dev),
-    )
-    kernels.check(rc, "sfm_ba_blocks")
+    # scratch of the camera reduction: one 36-float row per (lane, block,
+    # camera present in it), then one slot byte per (lane, camera, block)
+    n_rows = n * nb * min(_BLOCK, n_views) * _ROW
+    dtd = torch.empty(lead + (O, 9), dtype=torch.float32, device=dev)
+    wblk = torch.empty(lead + (O, 21), dtype=torch.float32, device=dev)
+    bp = torch.empty(lead + (O, 3), dtype=torch.float32, device=dev)
+    scratch = torch.empty(n_rows + -(-n * n_views * nb // 4), dtype=torch.float32, device=dev)
+    acc = torch.empty(lead + (n_views, _PAYLOAD), dtype=torch.float32, device=dev)
+    ptrs = (cam.data_ptr(), C_o.data_ptr(), q_o.data_ptr(), X_o.data_ptr(), uv.data_ptr(),
+            w.data_ptr())
+    outs = (float(huber_delta), dtd.data_ptr(), wblk.data_ptr(), bp.data_ptr(),
+            scratch.data_ptr(), scratch.data_ptr() + 4 * n_rows, acc.data_ptr(),
+            kernels.stream_ptr(dev))
+    rc = kernels.library().sfm_ba_blocks_lanes(*ptrs, n, O, n_views, *outs)
+    kernels.check(rc, "sfm_ba_blocks_lanes")
     ba_blocks.launches += 1
     return (
-        acc[:, :49].reshape(n_views, 7, 7),
-        acc[:, 49:56],
-        dtd.view(O, 3, 3),
-        wblk.view(O, 7, 3),
+        acc[..., :49].reshape(lead + (n_views, 7, 7)),
+        acc[..., 49:56],
+        dtd.view(lead + (O, 3, 3)),
+        wblk.view(lead + (O, 7, 3)),
         bp,
-        acc[:, 56].sum(),
+        acc[..., 56].sum(-1),
     )
 
 

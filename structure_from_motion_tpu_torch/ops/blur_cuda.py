@@ -62,7 +62,11 @@ def taps_table(kernels_1d: list) -> BlurTaps:
 
 def blur_levels_reference(base: torch.Tensor, kernels_1d: list) -> torch.Tensor:
     """(H, W) f32 -> (L, H, W): level l = zero-padded 'SAME' separable
-    correlation of ``base`` with the odd 1-D taps ``kernels_1d[l]``."""
+    correlation of ``base`` with the odd 1-D taps ``kernels_1d[l]``. A lane
+    stack (B, H, W) gives (B, L, H, W), each lane by its own call (a batched
+    convolution may pick another summation order than a single one)."""
+    if base.dim() == 3:
+        return torch.stack([blur_levels_reference(b, kernels_1d) for b in base])
     x = base[None, None]
     out = []
     for k in kernels_1d:
@@ -74,28 +78,33 @@ def blur_levels_reference(base: torch.Tensor, kernels_1d: list) -> torch.Tensor:
 
 
 def blur_levels(base: torch.Tensor, kernels_1d: list) -> torch.Tensor:
-    """(H, W) f32 -> (L, H, W) blurred levels (see the reference above)."""
+    """(H, W) f32 -> (L, H, W) blurred levels, or a lane stack (B, H, W) ->
+    (B, L, H, W) in ONE launch a group of eight levels for all lanes, each
+    lane exactly as its own (H, W) launch (see the reference above)."""
     if base.device.type == "cpu":
         return blur_levels_reference(base, kernels_1d)
     if base.device.type != "cuda":
         raise ValueError(f"blur_levels: unsupported device {base.device}")
-    if base.dtype != torch.float32 or base.dim() != 2 or not base.is_contiguous():
-        raise ValueError("blur_levels needs a contiguous (H, W) float32 tensor")
+    if base.dtype != torch.float32 or base.dim() not in (2, 3) or not base.is_contiguous():
+        raise ValueError("blur_levels needs a contiguous (H, W) or (B, H, W) float32 tensor")
     L = len(kernels_1d)
-    H, W = base.shape
-    if L == 0 or H == 0 or W == 0:
-        raise ValueError("blur_levels: need L, H, W > 0")
-    out = torch.empty((L, H, W), dtype=torch.float32, device=base.device)
+    H, W = base.shape[-2:]
+    lanes = base.shape[0] if base.dim() == 3 else 0
+    if L == 0 or H == 0 or W == 0 or (base.dim() == 3 and not 0 < lanes <= 8191):
+        raise ValueError("blur_levels: need L, H, W > 0 and 1 to 8191 lanes")
+    out = torch.empty(base.shape[:-2] + (L, H, W), dtype=torch.float32, device=base.device)
     lib, stream = kernels.library(), kernels.stream_ptr(base.device)
     for l0 in range(0, L, MAX_LEVELS):
         part = kernels_1d[l0 : l0 + MAX_LEVELS]
-        rc = lib.sfm_blur_levels(base.data_ptr(), ctypes.byref(taps_table(part)), len(part),
-                                 H, W, out[l0].data_ptr(), stream)
-        kernels.check(rc, "sfm_blur_levels")
+        rc = lib.sfm_blur_levels_lanes(base.data_ptr(), ctypes.byref(taps_table(part)),
+                                       len(part), max(lanes, 1), H, W, L * H * W,
+                                       out.select(-3, l0).data_ptr(), stream)
+        blur_levels.by_shape[(lanes, H, W, len(part)) if lanes else (H, W, len(part))] += 1
+        kernels.check(rc, "sfm_blur_levels_lanes")
         blur_levels.launches += 1
-        blur_levels.by_shape[(H, W, len(part))] += 1
     return out
 
 
 blur_levels.launches = 0
-blur_levels.by_shape = collections.Counter()  # launches by (H, W, levels)
+# launches by (H, W, levels), and by (lanes, H, W, levels) for a lane stack
+blur_levels.by_shape = collections.Counter()

@@ -57,6 +57,27 @@ def eight_point(ref_h, que_h, weights=None, eps: float = 1e-12):
     return F / floor_abs(F[..., 2:3, 2:3], eps)
 
 
+def epipolar_errors(F, ref_h, que_h):
+    """|x_q^T F x_r| for every (hypothesis, point): F (..., 3, 3) against
+    homogeneous points (N, 3) -> (..., N)."""
+    lines = torch.einsum("...ij,nj->...ni", F, ref_h)
+    return (que_h * lines).sum(-1).abs()
+
+
+def mean_epipolar_constraint(F, ref_pts, que_pts, mask):
+    """Mean |x_q^T F x_r| over the valid pixel correspondences."""
+    errs = epipolar_errors(F, to_homogeneous(ref_pts), to_homogeneous(que_pts))
+    m = mask.to(F.dtype)
+    return (errs * m).sum() / m.sum().clamp_min(1.0)
+
+
+def point_line_distances(F, ref_pts, que_pts):
+    """Pixel distance of each que point to its epipolar line F x_r."""
+    lines = to_homogeneous(ref_pts) @ F.T
+    num = (to_homogeneous(que_pts) * lines).sum(-1).abs()
+    return num / torch.sqrt(lines[:, 0] ** 2 + lines[:, 1] ** 2).clamp_min(1e-12)
+
+
 def sampson_distances(F, ref_h, que_h):
     """Sampson epipolar distance in pixels: F (..., [H,] 3, 3) against
     points (..., N, 3) -> (..., [H,] N)."""

@@ -1,12 +1,24 @@
-"""DoG detector + 128-d rotated-grid descriptor (port of
-``structure_from_motion_tpu/ops/features.py`` for ``detector="dog"``,
-``sampling="rotated"``).
+"""DoG detector + 128-d rotated-grid descriptor, and Harris corners +
+steered-BRIEF codes (port of ``structure_from_motion_tpu/ops/features.py``
+for ``sampling="rotated"``).
 
 Same pipeline as the JAX frontend: optional 2x bilinear upsample, Gaussian
 scale space (kernel B1 on the card, every octave), DoG candidate response
 (kernel B2, the 8x8 block argmax fused in) and an exact per-octave top-k, the
 cross-octave merge, the 3-D subpixel fit, 36-bin orientation histograms with
 a second peak, the duplication/re-rank, and the descriptors.
+``detector="harris"`` runs the JAX package's ORB analogue: Harris response
+(its three structure-tensor blurs are three lanes of ONE B1 launch), 5x5
+NMS, intensity-centroid angle and +-1 steered-BRIEF codes on a dyadic
+pyramid, every blur through B1.
+
+Every function takes an (H, W) image or a (B, H, W) lane stack: the lanes
+share each kernel launch (one B1 launch a level group, one B2 launch an
+octave, for all lanes), and every per-keypoint stage runs on the lanes'
+keypoints flattened together, each lane reading its own pyramid through its
+own flat offsets. Lane ``b`` of a stack gives what the (H, W) call on image
+``b`` gives for every valid keypoint (a masked padding row may read other
+taps at the end of the flat pyramid).
 
 Differences that do not change the numbers the JAX package ships on its
 accelerator: the TPU workarounds (band-matmul/conv blur, ``blur_precision``,
@@ -41,11 +53,11 @@ _BORDER = 8
 
 
 class Keypoints(NamedTuple):
-    xy: torch.Tensor  # (K, 2) (x, y) in full-resolution pixels
-    scale: torch.Tensor  # (K,) sigma in full-resolution pixels
-    angle: torch.Tensor  # (K,) orientation, radians
-    response: torch.Tensor  # (K,) |DoG|
-    mask: torch.Tensor  # (K,) bool
+    xy: torch.Tensor  # ([B,] K, 2) (x, y) in full-resolution pixels
+    scale: torch.Tensor  # ([B,] K) sigma in full-resolution pixels
+    angle: torch.Tensor  # ([B,] K) orientation, radians
+    response: torch.Tensor  # ([B,] K) |DoG| (Harris response for "harris")
+    mask: torch.Tensor  # ([B,] K) bool
 
 
 def _gaussian_kernel1d(sigma: float) -> np.ndarray:
@@ -58,32 +70,35 @@ def _gaussian_kernel1d(sigma: float) -> np.ndarray:
 def _upsample2x(img: torch.Tensor) -> torch.Tensor:
     """2x bilinear upsample with half-pixel centres; at the borders the
     out-of-image tap is dropped, as ``jax.image.resize(..., "linear")``
-    renormalises it away."""
-    H, W = img.shape
+    renormalises it away. (H, W) or (B, H, W)."""
+    H, W = img.shape[-2:]
     return F.interpolate(
-        img[None, None], size=(2 * H, 2 * W), mode="bilinear", align_corners=False
-    )[0, 0]
+        img.reshape(-1, 1, H, W), size=(2 * H, 2 * W), mode="bilinear", align_corners=False
+    ).reshape(img.shape[:-2] + (2 * H, 2 * W))
 
 
 def _blur(img: torch.Tensor, sigma: float) -> torch.Tensor:
-    return blur_levels(img.contiguous(), [_gaussian_kernel1d(sigma)])[0]
+    """Gaussian blur of an (H, W) image or a (B, H, W) stack (one B1 launch)."""
+    return blur_levels(img.contiguous(), [_gaussian_kernel1d(sigma)]).select(-3, 0)
 
 
 def _blur_levels(base: torch.Tensor, rel_sigmas: list) -> torch.Tensor:
-    """(H, W) level 0 -> (L+1, H, W): level i = gaussian(base, rel_sigmas[i-1])."""
+    """([B,] H, W) level 0 -> ([B,] L+1, H, W): level i = gaussian(base,
+    rel_sigmas[i-1])."""
     out = blur_levels(base.contiguous(), [_gaussian_kernel1d(s) for s in rel_sigmas])
-    return torch.cat([base[None], out])
+    return torch.cat([base.unsqueeze(-3), out], dim=-3)
 
 
 def _downsample2(img: torch.Tensor) -> torch.Tensor:
-    return img[::2, ::2].contiguous()
+    return img[..., ::2, ::2].contiguous()
 
 
 def _octave_candidates(gauss: torch.Tensor, cfg: FrontendConfig, per_octave_k: int):
-    """(S+3, H, W) gaussian stack -> (dog, xx, yy, s_idx, response, ok):
-    integer candidate positions of one octave."""
-    dog = (gauss[1:] - gauss[:-1]).contiguous()
-    h, w = dog.shape[1], dog.shape[2]
+    """([B,] S+3, H, W) gaussian stack -> (dog, xx, yy, s_idx, response, ok):
+    integer candidate positions of one octave, ([B,] per_octave_k) each."""
+    dog = (gauss[..., 1:, :, :] - gauss[..., :-1, :, :]).contiguous()
+    lead = dog.shape[:-3]
+    h, w = dog.shape[-2:]
     args = (cfg.contrast_threshold, cfg.edge_threshold, _BORDER)
     B = cfg.topk_block
     if B > 1 and h % B == 0 and w % B == 0:
@@ -94,16 +109,17 @@ def _octave_candidates(gauss: torch.Tensor, cfg: FrontendConfig, per_octave_k: i
             cand, pos = candidate_block_max(dog, *args)
         else:
             cand, pos = block_argmax(candidate_response(dog, *args), B)
-        k = min(per_octave_k, cand.numel())
-        top_resp, ci = stable_topk(cand.reshape(-1), k)
-        p = pos.reshape(-1)[ci].long()
+        cand = cand.reshape(lead + (-1,))
+        k = min(per_octave_k, cand.shape[-1])
+        top_resp, ci = stable_topk(cand, k)
+        p = torch.gather(pos.reshape(lead + (-1,)), -1, ci).long()
         s_idx = ci // (hb * wb)
         remb = ci % (hb * wb)
         yy = (remb // wb) * B + p // B
         xx = (remb % wb) * B + p % B
     else:
-        resp = candidate_response(dog, *args).reshape(-1)
-        k = min(per_octave_k, resp.numel())
+        resp = candidate_response(dog, *args).reshape(lead + (-1,))
+        k = min(per_octave_k, resp.shape[-1])
         top_resp, top_idx = stable_topk(resp, k)
         s_idx = top_idx // (h * w)
         rem = top_idx % (h * w)
@@ -112,7 +128,8 @@ def _octave_candidates(gauss: torch.Tensor, cfg: FrontendConfig, per_octave_k: i
     if k < per_octave_k:
         pad = per_octave_k - k
         xx, yy, s_idx, top_resp, ok = (
-            torch.cat([t, t.new_zeros(pad)]) for t in (xx, yy, s_idx, top_resp, ok)
+            torch.cat([t, t.new_zeros(lead + (pad,))], dim=-1)
+            for t in (xx, yy, s_idx, top_resp, ok)
         )
     return dog, xx, yy, s_idx, top_resp, ok
 
@@ -181,19 +198,19 @@ def _gradient(a: torch.Tensor, dim: int) -> torch.Tensor:
 
 
 def _flat_gradients(grad_octs: list, dtype: str = "f32") -> torch.Tensor:
-    """(rows, 2) per-pixel (gx, gy) of every octave's (L, H, W) stack,
+    """(rows, 2) per-pixel (gx, gy) of every octave's ([B,] L, H, W) stack,
     concatenated; differenced and stored in bfloat16 for ``dtype="bf16"``."""
     dt = torch.bfloat16 if dtype == "bf16" else torch.float32
     outs = []
     for g in grad_octs:
         g = g.to(dt)
-        outs.append(torch.stack([_gradient(g, 2), _gradient(g, 1)], dim=-1).reshape(-1, 2))
+        outs.append(torch.stack([_gradient(g, -1), _gradient(g, -2)], dim=-1).reshape(-1, 2))
     return torch.cat(outs)
 
 
 class _FlatPyramid(NamedTuple):
     g2: torch.Tensor  # (rows, 2) per-pixel (gx, gy)
-    base: torch.Tensor  # (n,) flat row offset of each keypoint's octave
+    base: torch.Tensor  # (n,) flat row offset of each keypoint's octave (and lane)
     h: torch.Tensor  # (n,) octave image height
     w: torch.Tensor  # (n,) octave image width
     hw: torch.Tensor  # (n,) h * w
@@ -201,13 +218,22 @@ class _FlatPyramid(NamedTuple):
 
 def _octave_lut(stacks: list, oct_idx: torch.Tensor):
     """(base, h, w, h*w) per entry of ``oct_idx``: the flat offset and image
-    size of its octave's (L, h, w) stack in the concatenation of ``stacks``."""
+    size of its octave's ([B,] L, h, w) stack in the concatenation of
+    ``stacks``. For lane stacks ``oct_idx`` is (B, n) and each base moves
+    to the entry's own lane; everything comes back flattened to (B * n,)."""
     bases = np.cumsum([0] + [s.numel() for s in stacks])[:-1]
     table = torch.tensor(
-        [[int(b), s.shape[1], s.shape[2], s.shape[1] * s.shape[2]] for b, s in zip(bases, stacks)],
+        [[int(b), s.shape[-2], s.shape[-1], s.shape[-2] * s.shape[-1]]
+         for b, s in zip(bases, stacks)],
         dtype=torch.long, device=oct_idx.device,
     )
-    return table[oct_idx].unbind(-1)
+    base, h, w, hw = table[oct_idx].unbind(-1)
+    if oct_idx.dim() == 2:  # a lane's stack follows the previous lane's
+        lane_numel = torch.tensor([s[0].numel() for s in stacks], dtype=torch.long,
+                                  device=oct_idx.device)[oct_idx]
+        lane = torch.arange(oct_idx.shape[0], device=oct_idx.device)[:, None]
+        base = base + lane * lane_numel
+    return base.reshape(-1), h.reshape(-1), w.reshape(-1), hw.reshape(-1)
 
 
 def _flat_pyramid(grad_octs: list, oct_idx: torch.Tensor, g2: torch.Tensor) -> _FlatPyramid:
@@ -335,13 +361,10 @@ def _descriptors_for(pyr, s_lvl, x, y, sig, angle, valid):
     return torch.where(valid[:, None], desc, torch.zeros_like(desc))
 
 
-def detect_and_describe(img: torch.Tensor, cfg: FrontendConfig):
-    """(H, W) image -> (Keypoints, (max_keypoints, 128) descriptors) for the
-    DoG detector with rotated-grid sampling."""
-    if cfg.detector != "dog" or cfg.sampling != "rotated":
-        raise ValueError("the port's frontend covers detector='dog', sampling='rotated'")
-    img = img.to(torch.float32)
-    img = img / img.max().clamp_min(1e-6)
+def _detect_dog(img: torch.Tensor, cfg: FrontendConfig):
+    """DoG + rotated-grid descriptors of an (H, W) image or a (B, H, W)
+    stack (keypoint tensors ([B,] K, ...))."""
+    lead = img.shape[:-2]
     S = cfg.scales_per_octave
     n_levels = S + 3
     k_per_level = 2.0 ** (1.0 / S)
@@ -364,23 +387,34 @@ def detect_and_describe(img: torch.Tensor, cfg: FrontendConfig):
         dog, *cand = _octave_candidates(gauss, cfg, per_octave_k)
         dog_octs.append(dog)
         cands.append(cand)
-        base = _downsample2(gauss[S])
-    xi, yi, s_idx, resp, ok = (torch.cat(c) for c in zip(*cands))
+        base = _downsample2(gauss.select(-3, S))
+    xi, yi, s_idx, resp, ok = (torch.cat(c, dim=-1) for c in zip(*cands))
     oct_idx = torch.arange(cfg.num_octaves, device=dev).repeat_interleave(per_octave_k)
+    oct_idx = oct_idx.expand(lead + oct_idx.shape)
+
+    def take(t, idx):
+        return torch.gather(t, -1, idx)
 
     # global top-k merge across octaves
     top_score, top_idx = stable_topk(torch.where(ok, resp, torch.full_like(resp, -1.0)),
                                      cfg.max_keypoints)
-    xi, yi = xi[top_idx], yi[top_idx]
-    s_idx, oct_sel = s_idx[top_idx], oct_idx[top_idx]
-    resp_sel = resp[top_idx]
+    xi, yi = take(xi, top_idx), take(yi, top_idx)
+    s_idx, oct_sel = take(s_idx, top_idx), take(oct_idx, top_idx)
+    resp_sel = take(resp, top_idx)
     mask = top_score > 0.0
+
+    # the per-keypoint stages run on every lane's keypoints flattened
+    # together, each reading its own lane's stacks through its flat offsets
+    def flat(t):
+        return t.reshape(-1)
+
+    def unflat(t):
+        return t.reshape(lead + (cfg.max_keypoints,))
 
     # 3-D subpixel fit for the merged winners over the flat DoG stacks
     dog_flat = torch.cat([d.reshape(-1) for d in dog_octs])
-    ox, oy, soff, mx, my, ms = _subpixel_offset_3d(
-        dog_flat, *_octave_lut(dog_octs, oct_sel), S, s_idx, yi, xi
-    )
+    ox, oy, soff, mx, my, ms = (unflat(t) for t in _subpixel_offset_3d(
+        dog_flat, *_octave_lut(dog_octs, oct_sel), S, flat(s_idx), flat(yi), flat(xi)))
     s_idx = s_idx + ms
     x = (xi + mx).to(torch.float32) + ox
     y = (yi + my).to(torch.float32) + oy
@@ -393,32 +427,192 @@ def detect_and_describe(img: torch.Tensor, cfg: FrontendConfig):
     s_lvl = torch.round(s_idx.to(torch.float32) + soff).long().clamp(0, S)
 
     # orientation peaks; only levels [0, S] are ever sampled
-    grad_octs = [g[: S + 1] for g in gauss_octs]
+    grad_octs = [g[..., : S + 1, :, :] for g in gauss_octs]
     g2 = _flat_gradients(grad_octs, cfg.grad_dtype)
-    angle1, angle2, has2 = _orientation_peaks(_flat_pyramid(grad_octs, oct_sel, g2), s_lvl,
-                                              x, y, sig)
+    angle1, angle2, has2 = (unflat(t) for t in _orientation_peaks(
+        _flat_pyramid(grad_octs, oct_sel, g2), flat(s_lvl), flat(x), flat(y), flat(sig)))
 
     # a strong keypoint's second orientation displaces the weakest detection;
     # the stable top-k keeps the primary ahead of its equal-response duplicate
     def dup(a):
-        return torch.cat([a, a])
+        return torch.cat([a, a], dim=-1)
 
     score2 = torch.where(
-        torch.cat([mask, mask & has2]), dup(resp_sel), torch.full_like(dup(resp_sel), -1.0)
+        torch.cat([mask, mask & has2], dim=-1), dup(resp_sel), torch.full_like(dup(resp_sel), -1.0)
     )
     top2, idx2 = stable_topk(score2, cfg.max_keypoints)
-    x, y, sig, s_lvl = dup(x)[idx2], dup(y)[idx2], dup(sig)[idx2], dup(s_lvl)[idx2]
-    oct_sel, resp_sel = dup(oct_sel)[idx2], dup(resp_sel)[idx2]
-    angle = torch.cat([angle1, angle2])[idx2]
+    x, y, sig, s_lvl = (take(dup(t), idx2) for t in (x, y, sig, s_lvl))
+    oct_sel, resp_sel = take(dup(oct_sel), idx2), take(dup(resp_sel), idx2)
+    angle = take(torch.cat([angle1, angle2], dim=-1), idx2)
     mask = top2 > 0.0
 
-    desc = _descriptors_for(_flat_pyramid(grad_octs, oct_sel, g2), s_lvl, x, y, sig, angle, mask)
+    desc = _descriptors_for(_flat_pyramid(grad_octs, oct_sel, g2), flat(s_lvl), flat(x),
+                            flat(y), flat(sig), flat(angle), flat(mask))
     scale_fr = torch.exp2(oct_sel.to(torch.float32)) * (0.5 if cfg.upsample_first_octave else 1.0)
     kps = Keypoints(
-        xy=torch.stack([x * scale_fr, y * scale_fr], dim=1),
+        xy=torch.stack([x * scale_fr, y * scale_fr], dim=-1),
         scale=sig * scale_fr,
         angle=angle,
         response=resp_sel,
         mask=mask,
     )
-    return kps, desc
+    return kps, desc.reshape(lead + (cfg.max_keypoints, 128))
+
+
+# ---------------------------------------------------------------------------
+# Harris + steered BRIEF: the binary-descriptor family (the JAX package's ORB
+# analogue). Codes are +-1 floats, so Hamming distance is one product.
+# ---------------------------------------------------------------------------
+
+_HARRIS_BORDER = 20  # the BRIEF patch's support
+
+
+def _harris_response(img: torch.Tensor, k: float = 0.04, sigma: float = 1.5) -> torch.Tensor:
+    """Harris corner response of an (H, W) image or a (B, H, W) stack; the
+    three structure-tensor products are three lanes of one B1 launch."""
+    ix = 0.5 * (torch.roll(img, -1, -1) - torch.roll(img, 1, -1))
+    iy = 0.5 * (torch.roll(img, -1, -2) - torch.roll(img, 1, -2))
+    prods = torch.stack([ix * ix, iy * iy, ix * iy], dim=-3)  # ([B,] 3, H, W)
+    sm = _blur(prods.reshape((-1,) + img.shape[-2:]), sigma).reshape(prods.shape)
+    ixx, iyy, ixy = sm.unbind(-3)
+    det = ixx * iyy - ixy * ixy
+    tr = ixx + iyy
+    return det - k * tr * tr
+
+
+def _octave_harris(img: torch.Tensor, per_octave_k: int):
+    """Harris corners of one octave image: 5x5 NMS, a 20 px border and an
+    exact top-k. Returns (x, y, response, valid) in octave pixels,
+    ([B,] per_octave_k) each."""
+    lead = img.shape[:-2]
+    h, w = img.shape[-2:]
+    resp = _harris_response(img)
+    # max_pool2d pads with -inf, as reduce_window's -inf init does
+    nms = F.max_pool2d(resp.reshape(-1, 1, h, w), 5, stride=1, padding=2).reshape(resp.shape)
+    rows = torch.arange(h, device=img.device)[:, None]
+    cols = torch.arange(w, device=img.device)[None, :]
+    b = _HARRIS_BORDER
+    bm = (rows >= b) & (rows < h - b) & (cols >= b) & (cols < w - b)
+    is_peak = (resp >= nms) & (resp > 0.0) & bm
+    flat = torch.where(is_peak, resp, torch.zeros_like(resp)).reshape(lead + (-1,))
+    k = min(per_octave_k, flat.shape[-1])
+    top_resp, top_idx = stable_topk(flat, k)
+    yy = (top_idx // w).to(torch.float32)
+    xx = (top_idx % w).to(torch.float32)
+    ok = top_resp > 0.0
+    if k < per_octave_k:
+        pad = lead + (per_octave_k - k,)
+        xx, yy, top_resp, ok = (torch.cat([t, t.new_zeros(pad)], dim=-1)
+                                for t in (xx, yy, top_resp, ok))
+    return xx, yy, top_resp, ok
+
+
+def _sample_image(img: torch.Tensor, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Bilinear sample of an (H, W) image at float coords (n, T), or of a
+    (B, H, W) stack at (B, n, T) (each lane its own image); zero outside."""
+    h, w = img.shape[-2:]
+    x0, y0 = torch.floor(x), torch.floor(y)
+    fx, fy = x - x0, y - y0
+    x0i, y0i = x0.long(), y0.long()
+    flat = img.reshape(-1)
+    lane = 0
+    if img.dim() == 3:
+        lane = (torch.arange(img.shape[0], device=img.device) * (h * w)).reshape(
+            (-1,) + (1,) * (x.dim() - 1))
+
+    def tap(yy, xx):
+        inb = (yy >= 0) & (yy < h) & (xx >= 0) & (xx < w)
+        v = flat[lane + yy.clamp(0, h - 1) * w + xx.clamp(0, w - 1)]
+        return torch.where(inb, v, torch.zeros_like(v))
+
+    return (tap(y0i, x0i) * (1 - fy) * (1 - fx) + tap(y0i, x0i + 1) * (1 - fy) * fx
+            + tap(y0i + 1, x0i) * fy * (1 - fx) + tap(y0i + 1, x0i + 1) * fy * fx)
+
+
+def _intensity_centroid_angle(img, x, y, radius: float = 7.0) -> torch.Tensor:
+    """ORB's orientation: arctan2 of the intensity centroid moments of a
+    15x15 circular patch."""
+    G = 15
+    lin = torch.arange(G, dtype=torch.float32, device=img.device) - (G - 1) / 2.0
+    gy, gx = torch.meshgrid(lin, lin, indexing="ij")
+    circ = ((gx**2 + gy**2) <= ((G - 1) / 2.0) ** 2).to(torch.float32).reshape(-1)
+    gx, gy = gx.reshape(-1), gy.reshape(-1)
+    sx = x[..., None] + gx * (2 * radius / (G - 1))
+    sy = y[..., None] + gy * (2 * radius / (G - 1))
+    vals = _sample_image(img, sx, sy) * circ
+    return torch.atan2((vals * gy).sum(-1), (vals * gx).sum(-1))
+
+
+def _brief_pattern(n_bits: int, patch: float, seed: int = 7) -> np.ndarray:
+    """The static rBRIEF test pattern: ``n_bits`` point pairs (px, py, qx,
+    qy) ~ N(0, (patch/5)^2) clipped to the patch, from numpy's
+    ``default_rng(seed)`` exactly as the JAX package draws it."""
+    rng = np.random.default_rng(seed)
+    pts = rng.normal(scale=patch / 5.0, size=(n_bits, 4)).astype(np.float32)
+    return np.clip(pts, -patch / 2.0, patch / 2.0)
+
+
+def _brief_describe(img, x, y, angle, valid, n_bits: int, patch: float = 31.0) -> torch.Tensor:
+    """Steered-BRIEF +-1 codes, bit i = sign(I(R p_i) - I(R q_i)), with the
+    steering angle quantised to pi/15 so that orientation noise leaves the
+    pattern exactly unchanged."""
+    pat = torch.as_tensor(_brief_pattern(n_bits, patch), device=img.device)
+    step = math.pi / 15.0
+    angle = torch.round(angle / step) * step
+    ca, sa = torch.cos(angle)[..., None], torch.sin(angle)[..., None]
+    xs, ys = x[..., None], y[..., None]
+    px = ca * pat[:, 0] - sa * pat[:, 1] + xs
+    py = sa * pat[:, 0] + ca * pat[:, 1] + ys
+    qx = ca * pat[:, 2] - sa * pat[:, 3] + xs
+    qy = sa * pat[:, 2] + ca * pat[:, 3] + ys
+    bits = torch.where(_sample_image(img, px, py) > _sample_image(img, qx, qy), 1.0, -1.0)
+    return torch.where(valid[..., None], bits, torch.zeros_like(bits))
+
+
+def _detect_harris_brief(img: torch.Tensor, cfg: FrontendConfig):
+    """Harris + steered BRIEF over a dyadic pyramid, then a global top-k."""
+    lead = img.shape[:-2]
+    per_octave_k = cfg.max_keypoints
+    outs = []
+    level = _blur(img, 1.0)
+    for o in range(cfg.num_octaves):
+        x, y, resp, ok = _octave_harris(level, per_octave_k)
+        angle = _intensity_centroid_angle(level, x, y)
+        # BRIEF compares single samples: it reads a smoother image than
+        # detection does
+        desc = _brief_describe(_blur(level, 2.0), x, y, angle, ok, cfg.descriptor_dim)
+        outs.append((x * 2.0**o, y * 2.0**o, resp, ok, angle, desc))
+        level = _blur(_downsample2(level), 1.0)
+    x, y, resp, ok, angle = (torch.cat(t, dim=-1) for t in list(zip(*outs))[:5])
+    desc = torch.cat([o[5] for o in outs], dim=-2)
+    top_score, top_idx = stable_topk(torch.where(ok, resp, torch.full_like(resp, -1.0)),
+                                     cfg.max_keypoints)
+
+    def take(t):
+        return torch.gather(t, -1, top_idx)
+
+    kps = Keypoints(
+        xy=torch.stack([take(x), take(y)], dim=-1),
+        scale=torch.ones(lead + (cfg.max_keypoints,), dtype=torch.float32, device=img.device),
+        angle=take(angle),
+        response=take(resp),
+        mask=top_score > 0.0,
+    )
+    return kps, torch.gather(desc, -2, top_idx[..., None].expand(top_idx.shape + desc.shape[-1:]))
+
+
+def detect_and_describe(img: torch.Tensor, cfg: FrontendConfig):
+    """(H, W) image -> (Keypoints, (max_keypoints, D) descriptors); a
+    (B, H, W) lane stack -> the same with a leading lane axis, every kernel
+    launched once for all lanes. ``cfg.detector`` picks DoG with the 128-d
+    rotated-grid descriptor or Harris with steered-BRIEF +-1 codes (match
+    those with ``metric="hamming"``)."""
+    if cfg.detector not in ("dog", "harris"):
+        raise ValueError(f"unknown detector {cfg.detector!r}")
+    if cfg.sampling != "rotated":
+        raise ValueError("not ported yet (ROADMAP A12c): sampling='shared'")
+    img = img.to(torch.float32)
+    img = img / img.amax(dim=(-2, -1), keepdim=True).clamp_min(1e-6)
+    if cfg.detector == "harris":
+        return _detect_harris_brief(img, cfg)
+    return _detect_dog(img, cfg)

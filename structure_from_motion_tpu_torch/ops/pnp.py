@@ -21,7 +21,7 @@ from structure_from_motion_tpu_torch.ops.linalg import (
     det3x3,
     nullspace,
 )
-from structure_from_motion_tpu_torch.ops.ransac import ransac, sample_index_sets
+from structure_from_motion_tpu_torch.ops.ransac import draw_uniform, ransac, sample_index_sets
 from structure_from_motion_tpu_torch.ops.reproj import batched_residual_jacobians, pixel_residuals
 from structure_from_motion_tpu_torch.utils.geometry import normalized_camera_coords
 from structure_from_motion_tpu_torch.utils.rotations import (
@@ -70,40 +70,76 @@ def solve_pnp_dlt(X, meas_norm, weights=None):
 
 def _lm_steps(q, C, X, meas_norm, mask, iterations: int, damping: float, huber_delta=0.0):
     """LM iterations on [C, q] over the masked observations, stopping once
-    the squared step is <= 1e-14. ``huber_delta`` (float or 0-dim tensor,
-    normalised units) > 0 turns on IRLS Huber reweighting."""
+    the squared step is <= 1e-14. ``huber_delta`` (float or tensor,
+    normalised units) > 0 turns on IRLS Huber reweighting.
+
+    Leading axes in front of the pose ((B, 4), (B, 3) over (B, N, 3) points)
+    are independent problems, one a lane of the batched engine: a lane
+    whose step has fallen below the threshold takes no more steps and
+    keeps its iterate, and the loop ends (one host read an iteration) when
+    every lane has stopped, so each lane gets what a call on it alone
+    gives. ``huber_delta`` may then hold one value a lane."""
+    lead = q.shape[:-1]
     m = mask.to(X.dtype)
     eye = torch.eye(7, dtype=X.dtype, device=X.device)
-    n = X.shape[0]
+    n = X.shape[-2]
     robust = not (isinstance(huber_delta, (int, float)) and huber_delta <= 0.0)
+    if robust:
+        delta_h = torch.as_tensor(huber_delta, dtype=X.dtype, device=X.device)[..., None]
+    # a stack of several lanes stops lane by lane; one problem stops as a whole
+    active = torch.ones(lead, dtype=torch.bool, device=X.device) if lead.numel() > 1 else None
     for _ in range(iterations):
-        res, J_cam, _ = batched_residual_jacobians(C.expand(n, 3), q.expand(n, 4), X, meas_norm)
+        res, J_cam, _ = batched_residual_jacobians(
+            C[..., None, :].expand(lead + (n, 3)).reshape(-1, 3),
+            q[..., None, :].expand(lead + (n, 4)).reshape(-1, 4),
+            X.reshape(-1, 3), meas_norm.reshape(-1, 2))
+        res, J_cam = res.reshape(lead + (n, 2)), J_cam.reshape(lead + (n, 2, 7))
         mm = m
         if robust:
-            delta_h = torch.as_tensor(huber_delta, dtype=X.dtype, device=X.device)
             nrm = torch.linalg.norm(res, dim=-1)
             hw = torch.sqrt(torch.where(nrm <= delta_h, torch.ones_like(nrm),
                                         delta_h / nrm.clamp_min(1e-12)))
             mm = m * torch.where(delta_h > 0, hw, torch.ones_like(hw))
-        res = res * mm[:, None]
-        J = (J_cam * mm[:, None, None]).reshape(-1, 7)
-        delta = torch.linalg.solve_ex(J.T @ J + damping * eye, J.T @ res.reshape(-1))[0]
-        C = C + delta[:3]
-        q = quat_normalize(q + delta[3:])
-        if not float((delta * delta).sum()) > 1e-14:
+        res = res * mm[..., None]
+        J = (J_cam * mm[..., None, None]).reshape(lead + (-1, 7))
+        Jt = J.transpose(-1, -2)
+        delta = torch.linalg.solve_ex(Jt @ J + damping * eye,
+                                      Jt @ res.reshape(lead + (-1, 1)))[0][..., 0]
+        if active is None:
+            C = C + delta[..., :3]
+            q = quat_normalize(q + delta[..., 3:])
+            if not float((delta * delta).sum()) > 1e-14:
+                break
+            continue
+        delta = delta * active[..., None].to(delta.dtype)  # finished lanes keep their iterate
+        C = C + delta[..., :3]
+        q = torch.where(active[..., None], quat_normalize(q + delta[..., 3:]), q)
+        active = active & ((delta * delta).sum(-1) > 1e-14)
+        if not bool(active.any()):
             break
     return q, C
 
 
-def sample_pnp(gen: torch.Generator, mask: torch.Tensor, config: RansacConfig):
+def _rows(t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``t`` (..., N, c) at ``idx`` (..., *s) -> (..., *s, c): ``t[idx]``,
+    each lane its own rows when there are leading axes."""
+    lead = t.shape[:-2]
+    flat = idx.reshape(lead + (-1, 1)).long()
+    rows = torch.gather(t, -2, flat.expand(lead + (flat.shape[-2], t.shape[-1])))
+    return rows.reshape(idx.shape + t.shape[-1:])
+
+
+def sample_pnp(gen, mask: torch.Tensor, config: RansacConfig):
     """(idx_sets (H, s), scoring subset (score_subset,) or None) drawn from
-    ``gen`` for :func:`linear_pnp_ransac`."""
-    n = mask.shape[0]
+    ``gen`` for :func:`linear_pnp_ransac`; with a list of generators, one a
+    lane, and a lane axis in front of ``mask``, the same a lane."""
+    n = mask.shape[-1]
     sub = None
     if 0 < config.score_subset < n:
-        u = torch.rand(n, generator=gen, device=mask.device)
+        u = draw_uniform(gen, (n,), mask.device)
         u = torch.where(mask, u, torch.full_like(u, float("-inf")))
         sub = stable_topk(u, config.score_subset)[1]
+    # a lane's hypotheses come after its subset in its generator's stream
     idx_sets = sample_index_sets(gen, mask, config.num_hypotheses, config.sample_num)
     return idx_sets, sub
 
@@ -113,51 +149,56 @@ def linear_pnp_ransac(idx_sets, X, uv, K, mask, config: RansacConfig, sub=None) 
     ``0 < config.score_subset < N`` hypotheses are ranked on the valid
     subset ``sub`` and the winner re-scored on the full set. Three LO rounds
     (weighted DLT refit -> 10-step LM polish -> re-score) follow; their
-    result is kept when it holds at least as many inliers."""
+    result is kept when it holds at least as many inliers. Every input may
+    carry a leading lane axis ((B, H, 6), (B, N, 3), ..., (B, 3, 3)), and
+    then so does every field of the result."""
     meas_norm = normalized_camera_coords(K, uv)
     thr2 = config.inlier_threshold**2
-    idx_sets = idx_sets.long()
+    Kb = K[..., None, None, :, :]
 
     def fit(idx):
-        R, C = solve_pnp_dlt(X[idx], meas_norm[idx])
+        R, C = solve_pnp_dlt(_rows(X, idx), _rows(meas_norm, idx))
         return rotation_to_quat(R), C
 
-    def inlier_matrix(qs, Cs, Xp, uvp):
-        res, _ = pixel_residuals(K, Cs[:, None, :], qs[:, None, :], Xp[None], uvp[None])
+    def inlier_matrix(qs, Cs, Xp, uvp):  # (..., H) poses x (..., N) points
+        res, _ = pixel_residuals(Kb, Cs[..., None, :], qs[..., None, :], Xp[..., None, :, :],
+                                 uvp[..., None, :, :])
         return (res * res).sum(-1) < thr2
 
-    n = X.shape[0]
+    n = X.shape[-2]
     if 0 < config.score_subset < n:
         if sub is None:
             raise ValueError("linear_pnp_ransac: score_subset needs the subset indices")
         qs, Cs = fit(idx_sets)
-        inl_sub = inlier_matrix(qs, Cs, X[sub], uv[sub]) & mask[sub][None]
-        best = torch.argmax(inl_sub.sum(1))
-        q_best, C_best = qs[best], Cs[best]
-        inliers = inlier_matrix(q_best[None], C_best[None], X, uv)[0] & mask
+        inl_sub = inlier_matrix(qs, Cs, _rows(X, sub), _rows(uv, sub)) \
+            & torch.gather(mask, -1, sub)[..., None, :]
+        best = torch.argmax(inl_sub.sum(-1), dim=-1)[..., None]
+        q_best, C_best = _rows(qs, best)[..., 0, :], _rows(Cs, best)[..., 0, :]
+        inliers = inlier_matrix(q_best[..., None, :], C_best[..., None, :], X, uv)[..., 0, :] & mask
     else:
         res = ransac(idx_sets, mask, fit, lambda models: inlier_matrix(*models, X, uv))
         (q_best, C_best), inliers = res.model, res.inliers
-    n_best = inliers.sum()
+    n_best = inliers.sum(-1)
 
     q, C, inl = q_best, C_best, inliers
+    Kp = K[..., None, :, :]
     for _ in range(3):  # LO rounds
         R_refit, C_refit = solve_pnp_dlt(X, meas_norm, weights=inl.to(X.dtype))
         q, C = _lm_steps(rotation_to_quat(R_refit), C_refit, X, meas_norm, inl,
                          iterations=10, damping=1e-3)
-        res_pix, _ = pixel_residuals(K, C, q, X, uv)
+        res_pix, _ = pixel_residuals(Kp, C[..., None, :], q[..., None, :], X, uv)
         inl = (torch.linalg.norm(res_pix, dim=-1) < config.inlier_threshold) & mask
-    better = inl.sum() >= n_best
+    better = (inl.sum(-1) >= n_best)[..., None]
     q_best = torch.where(better, q, q_best)
     C_best = torch.where(better, C, C_best)
     inliers = torch.where(better, inl, inliers)
     return PnPResult(R=quat_to_rotation(q_best), C=C_best, inliers=inliers,
-                     num_inliers=inliers.sum())
+                     num_inliers=inliers.sum(-1))
 
 
 def refine_pnp(X, uv, K, mask, R0, C0, config: LMConfig):
     """Fixed-damping LM refinement of one pose (normalised-coordinate
-    residuals); returns (R, C)."""
+    residuals), or of one a lane; returns (R, C)."""
     q, C = _lm_steps(rotation_to_quat(R0), C0, X, normalized_camera_coords(K, uv), mask,
                      iterations=config.iterations, damping=config.damping)
     return quat_to_rotation(q), C
@@ -167,7 +208,9 @@ def estimate_pnp(gen, X, uv, K, mask, ransac_config: RansacConfig, lm_config: LM
                  prior_R=None, prior_C=None) -> PnPResult:
     """Linear RANSAC -> (with a motion prior) a Huber-IRLS LM candidate from
     the prior, the one with more pixel inliers winning -> 25-step polish on
-    the winner's inliers -> :func:`refine_pnp`."""
+    the winner's inliers -> :func:`refine_pnp`. With a list of generators,
+    one a lane, every array takes a leading lane axis, and so does every
+    field of the result."""
     idx_sets, sub = sample_pnp(gen, mask, ransac_config)
     lin = linear_pnp_ransac(idx_sets, X, uv, K, mask, ransac_config, sub)
     inliers, num_inliers, R0, C0 = lin.inliers, lin.num_inliers, lin.R, lin.C
@@ -176,14 +219,15 @@ def estimate_pnp(gen, X, uv, K, mask, ransac_config: RansacConfig, lm_config: LM
         delta_n = ransac_config.inlier_threshold / K[..., 0, 0]
         q_p, C_p = _lm_steps(rotation_to_quat(prior_R), prior_C, X, meas_norm, mask,
                              iterations=lm_config.iterations, damping=5.0, huber_delta=delta_n)
-        res_pix, depth = pixel_residuals(K, C_p, q_p, X, uv)
+        res_pix, depth = pixel_residuals(K[..., None, :, :], C_p[..., None, :], q_p[..., None, :],
+                                         X, uv)
         inl_p = (torch.linalg.norm(res_pix, dim=-1) < ransac_config.inlier_threshold) \
             & (depth > 0) & mask
-        n_p = inl_p.sum()
+        n_p = inl_p.sum(-1)
         use_p = n_p > num_inliers
-        R0 = torch.where(use_p, quat_to_rotation(q_p), R0)
-        C0 = torch.where(use_p, C_p, C0)
-        inliers = torch.where(use_p, inl_p, inliers)
+        R0 = torch.where(use_p[..., None, None], quat_to_rotation(q_p), R0)
+        C0 = torch.where(use_p[..., None], C_p, C0)
+        inliers = torch.where(use_p[..., None], inl_p, inliers)
         num_inliers = torch.where(use_p, n_p, num_inliers)
     q0, C0 = _lm_steps(rotation_to_quat(R0), C0, X, meas_norm, inliers, iterations=25, damping=1e-3)
     R, C = refine_pnp(X, uv, K, inliers, quat_to_rotation(q0), C0, lm_config)

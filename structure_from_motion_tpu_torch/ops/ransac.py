@@ -23,14 +23,29 @@ class RansacResult(NamedTuple):
     best_index: torch.Tensor  # (...,) index of the winning hypothesis
 
 
-def sample_index_sets(
-    gen: torch.Generator, mask: torch.Tensor, num_hypotheses: int, sample_size: int
-) -> torch.Tensor:
+def draw_uniform(gen, shape: tuple, device) -> torch.Tensor:
+    """``shape`` uniforms from one ``torch.Generator``; from a list of them,
+    one a lane, ``(B,) + shape`` with lane b drawn from ``gen[b]`` exactly as
+    ``torch.rand(shape, generator=gen[b])`` draws them alone: one draw a
+    lane (the one per-lane loop of the batched engine; a generator's
+    stream cannot be split across lanes)."""
+    if isinstance(gen, torch.Generator):
+        return torch.rand(shape, generator=gen, device=device)
+    if len(gen) == 1:
+        return torch.rand(shape, generator=gen[0], device=device)[None]
+    return torch.stack([torch.rand(shape, generator=g, device=device) for g in gen])
+
+
+def sample_index_sets(gen, mask: torch.Tensor, num_hypotheses: int,
+                      sample_size: int) -> torch.Tensor:
     """``(..., num_hypotheses, sample_size)`` index sets of valid points,
     uniform without replacement within each hypothesis (top-k of i.i.d.
-    uniforms with masked entries at -inf)."""
-    shape = mask.shape[:-1] + (num_hypotheses, mask.shape[-1])
-    u = torch.rand(shape, generator=gen, device=mask.device)
+    uniforms with masked entries at -inf). ``gen`` is a generator, or a list
+    of them for a lane axis in front of ``mask``: lane b's sets are then
+    what ``sample_index_sets(gen[b], mask[b], ...)`` gives."""
+    lead = 0 if isinstance(gen, torch.Generator) else 1
+    shape = mask.shape[lead:-1] + (num_hypotheses, mask.shape[-1])
+    u = draw_uniform(gen, shape, mask.device)
     u = torch.where(mask[..., None, :], u, torch.full_like(u, float("-inf")))
     return stable_topk(u, sample_size)[1]
 

@@ -30,6 +30,14 @@ def project_normalized(C: torch.Tensor, q: torch.Tensor, X: torch.Tensor):
     return x[..., :2] / _safe_depth(depth)[..., None], depth
 
 
+def observation_residual_jacobians(C, q, X, meas):
+    """Residual and Jacobian blocks of ONE observation: (3,), (4,), (3,),
+    (2,) -> res (2,), J_cam (2, 7), J_pt (2, 3) (the batched closed form on
+    a batch of one)."""
+    res, J_cam, J_pt = batched_residual_jacobians(C[None], q[None], X[None], meas[None])
+    return res[0], J_cam[0], J_pt[0]
+
+
 def batched_residual_jacobians(C, q, X, meas):
     """(O,3),(O,4),(O,3),(O,2) -> res (O,2), J_cam (O,2,7), J_pt (O,2,3)."""
     R = quat_to_rotation(q)  # (O, 3, 3)

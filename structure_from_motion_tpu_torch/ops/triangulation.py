@@ -64,11 +64,17 @@ def _projection_jacobian(P, X, obs_mask):
     return J * obs_mask[..., None, None].to(X.dtype)
 
 
-def refine_triangulate(P, uv, obs_mask, X0_h, config: LMConfig) -> torch.Tensor:
-    """Fixed-damping LM over all points at once -> refined (N, 4), W = 1."""
+def refine_triangulate(P, uv, obs_mask, X0_h, config: LMConfig, lanes: int = 0) -> torch.Tensor:
+    """Fixed-damping LM over all points at once -> refined (N, 4), W = 1.
+
+    ``lanes`` > 1: the N points are ``lanes`` equal runs, one a lane of the
+    batched engine, each stopping on its own (its largest squared step
+    <= 1e-14) and then keeping its iterate; the loop ends when every lane
+    has stopped, so each lane gets what a call on its run alone gives."""
     X = X0_h[..., :3] / _safe(X0_h[..., 3:4])
     lam = config.damping
     eye = torch.eye(3, dtype=X.dtype, device=X.device)
+    active = torch.ones(lanes, dtype=torch.bool, device=X.device) if lanes > 1 else None
     for _ in range(config.iterations):
         res, _ = reprojection_residuals(P, X, uv, obs_mask)
         J = _projection_jacobian(P, X, obs_mask)
@@ -77,12 +83,30 @@ def refine_triangulate(P, uv, obs_mask, X0_h, config: LMConfig) -> torch.Tensor:
         JtJ = torch.einsum("nki,nkj->nij", Jf, Jf) + lam * eye
         Jte = torch.einsum("nki,nk->ni", Jf, rf)
         delta = torch.einsum("nij,nj->ni", inv3x3(JtJ), Jte)
+        if lanes <= 1:
+            X = X - delta
+            if X.shape[0] == 0 or not float((delta * delta).sum(-1).max()) > 1e-14:
+                break
+            continue
+        if X.shape[0] == 0:
+            break
+        delta = delta * active.repeat_interleave(X.shape[0] // lanes)[:, None].to(delta.dtype)
         X = X - delta
-        if X.shape[0] == 0 or not float((delta * delta).sum(-1).max()) > 1e-14:
+        active = active & ((delta * delta).sum(-1).reshape(lanes, -1).amax(1) > 1e-14)
+        if not bool(active.any()):
             break
     return torch.cat([X, torch.ones_like(X[..., :1])], dim=-1)
 
 
-def triangulate(P, uv, obs_mask, config: LMConfig) -> torch.Tensor:
-    """Linear DLT then LM refinement."""
-    return refine_triangulate(P, uv, obs_mask, linear_triangulate(P, uv, obs_mask), config)
+def triangulate(P, uv, obs_mask, config: LMConfig, lanes: int = 0) -> torch.Tensor:
+    """Linear DLT then LM refinement (``lanes``: see :func:`refine_triangulate`)."""
+    return refine_triangulate(P, uv, obs_mask, linear_triangulate(P, uv, obs_mask), config,
+                              lanes=lanes)
+
+
+def mean_reprojection_error(P, X_h, uv, obs_mask) -> torch.Tensor:
+    """Mean pixel reprojection error over the valid observations of
+    homogeneous points ``X_h`` (N, 4)."""
+    X = X_h[..., :3] / _safe(X_h[..., 3:4])
+    res, _ = reprojection_residuals(P, X, uv, obs_mask)
+    return torch.linalg.norm(res, dim=-1).sum() / obs_mask.sum().clamp_min(1)

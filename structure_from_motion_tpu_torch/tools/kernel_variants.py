@@ -56,10 +56,10 @@ from structure_from_motion_tpu_torch.tools.profile_kernels import (
 
 HERE = Path(__file__).resolve().parent / "variant_sources"
 OUT = kernels.BUILD_DIR.parent / "kernel_variants"
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-BLUR_ARGS = [_P, _P, _I, _I, _I, _P, _P]
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+BLUR_ARGS = [_P, _P, _I, _I, _I, _I, _L, _P, _P]
 REDUCE_ARGS = [_P, _P, _P, _P, _I, _I, _I, _P, _P]
-BLOCK_MAX_ARGS = [_P, _I, _I, _I, _F, _F, _F, _I, _P, _P, _P]
+BLOCK_MAX_ARGS = [_P, _I, _I, _I, _I, _F, _F, _F, _I, _P, _P, _P]
 
 # B1: template arguments of csrc/blur.cu's launch<NT, TW, TH, NH, NV, MINB>,
 # "+split" for one block a level
@@ -156,8 +156,8 @@ def blur_source(tile: str, pairs=()) -> str:
     cfg, _, split = tile.partition("+")
     a = src.index("  cudaError_t rc;\n  if (tiles(64, 128)")
     b = src.index("  return static_cast<int>(rc);")
-    forced = (f"  cudaError_t rc = launch<{cfg}>(base, taps, L, halo, H, W, out, "
-              f"{'L > 1' if split else 'false'}, s);\n")
+    forced = (f"  cudaError_t rc = launch<{cfg}>(base, taps, L, lanes, halo, H, W, out, "
+              f"out_lane, {'L > 1' if split else 'false'}, s);\n")
     return _substitute(src[:a] + forced + src[b:], pairs)
 
 
@@ -246,8 +246,8 @@ def _time_blur(libs: dict, shapes, dev, rng, card: str, check: bool) -> None:
         table = blur_cuda.taps_table(ks)
         for name, lib in libs.items():
             def call():
-                return lib.sfm_blur_levels(img.data_ptr(), ctypes.byref(table), len(ks), h, w,
-                                           out.data_ptr(), stream)
+                return lib.sfm_blur_levels_lanes(img.data_ptr(), ctypes.byref(table), len(ks), 1,
+                                                 h, w, len(ks) * h * w, out.data_ptr(), stream)
             out.zero_()
             kernels.check(call(), f"variant {name}")
             torch.cuda.synchronize()
@@ -260,7 +260,7 @@ def _time_blur(libs: dict, shapes, dev, rng, card: str, check: bool) -> None:
 
 def b1_tiles(dev, rng, card) -> None:
     rel, _ = frame_kernels()
-    libs = build("b1", {t: blur_source(t) for t in B1_TILES}, "sfm_blur_levels", BLUR_ARGS)
+    libs = build("b1", {t: blur_source(t) for t in B1_TILES}, "sfm_blur_levels_lanes", BLUR_ARGS)
     shapes = frame_shapes() + [("octave 0, radius 9 five times", (1920, 2560), [rel[2]] * 5),
                                ("octave 4, radius 9 five times", (120, 160), [rel[2]] * 5)]
     _time_blur(libs, shapes, dev, rng, card, check=True)
@@ -269,7 +269,7 @@ def b1_tiles(dev, rng, card) -> None:
 def b1_ablations(dev, rng, card) -> None:
     rel, base_k = frame_kernels()
     libs = build("ablate", {n: blur_source("256,64,128,8,8,2", p) for n, p in B1_ABLATIONS.items()},
-                 "sfm_blur_levels", BLUR_ARGS)
+                 "sfm_blur_levels_lanes", BLUR_ARGS)
     shapes = [("octave 0", (1920, 2560), rel), ("radius 15 alone", (1920, 2560), [rel[4]]),
               ("base blur", (1920, 2560), base_k)]
     _time_blur(libs, shapes, dev, rng, card, check=False)
@@ -286,8 +286,8 @@ def _time_block_max(libs: dict, stacks, dev, card: str, check) -> None:
         pos = torch.empty_like(ref[1])
         for name, lib in libs.items():
             def call():
-                return lib.sfm_candidate_block_max(
-                    dog.data_ptr(), S2 - 2, h, w, args[0], args[1], (args[1] + 1.0) ** 2, args[2],
+                return lib.sfm_candidate_block_max_lanes(
+                    dog.data_ptr(), 1, S2 - 2, h, w, args[0], args[1], (args[1] + 1.0) ** 2, args[2],
                     cand.data_ptr(), pos.data_ptr(), stream)
             cand.zero_()
             kernels.check(call(), f"variant {name}")
@@ -302,11 +302,11 @@ def _time_block_max(libs: dict, stacks, dev, card: str, check) -> None:
 
 def b2_variants(dev, card) -> None:
     stacks = frame_dog_stacks(dev)
-    libs = build("b2", {t: cand_source(t) for t in B2_TILES}, "sfm_candidate_block_max",
+    libs = build("b2", {t: cand_source(t) for t in B2_TILES}, "sfm_candidate_block_max_lanes",
                  BLOCK_MAX_ARGS)
     _time_block_max(libs, stacks, dev, card, lambda name: True)
     libs = build("b2c", {n: cand_source("2,8,2", p) for n, p in B2_CHANGES.items()},
-                 "sfm_candidate_block_max", BLOCK_MAX_ARGS)
+                 "sfm_candidate_block_max_lanes", BLOCK_MAX_ARGS)
     _time_block_max(libs, stacks, dev, card, lambda name: "wrong result" not in name)
 
 

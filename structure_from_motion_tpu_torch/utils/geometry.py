@@ -22,6 +22,10 @@ def from_homogeneous(pts_h: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
     return pts_h[..., :-1] / denom
 
 
+def compose_K(fx: float, fy: float, cx: float, cy: float) -> torch.Tensor:
+    return torch.tensor([[fx, 0.0, cx], [0.0, fy, cy], [0.0, 0.0, 1.0]])
+
+
 def camera_extrinsic(R: torch.Tensor, C: torch.Tensor) -> torch.Tensor:
     """World->camera extrinsic ``[R^T | -R^T C]`` of shape ``(..., 3, 4)``."""
     Rt = R.transpose(-1, -2)
@@ -31,6 +35,11 @@ def camera_extrinsic(R: torch.Tensor, C: torch.Tensor) -> torch.Tensor:
 def camera_projection(K: torch.Tensor, R: torch.Tensor, C: torch.Tensor) -> torch.Tensor:
     """Full projection ``P = K [R^T | -R^T C]`` of shape ``(..., 3, 4)``."""
     return K @ camera_extrinsic(R, C)
+
+
+def transform_world_to_camera(X: torch.Tensor, R: torch.Tensor, C: torch.Tensor) -> torch.Tensor:
+    """World points ``(..., N, 3)`` -> camera frame ``R^T (X - C)``."""
+    return (X - C[..., None, :]) @ R
 
 
 def project_points(P: torch.Tensor, X: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
@@ -52,3 +61,9 @@ def normalized_camera_coords_per_obs(K: torch.Tensor, uv: torch.Tensor) -> torch
     fx, fy = K[..., 0, 0], K[..., 1, 1]
     cx, cy = K[..., 0, 2], K[..., 1, 2]
     return torch.stack([(uv[..., 0] - cx) / fx, (uv[..., 1] - cy) / fy], dim=-1)
+
+
+def project_with_depth(P: torch.Tensor, X: torch.Tensor, eps: float = 1e-12):
+    """:func:`project_points` and the projective depth (positive in front)."""
+    x = to_homogeneous(X) @ P.transpose(-1, -2)
+    return from_homogeneous(x, eps), x[..., 2]

@@ -92,3 +92,23 @@ def drotation_dquat(q: torch.Tensor) -> torch.Tensor:
         [w, -x, -y, z],  # R22
     ]
     return torch.stack([torch.stack(r, dim=-1) for r in rows], dim=-2)
+
+
+def quat_multiply(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Hamilton product of (w, x, y, z) quaternions, batched."""
+    aw, ax, ay, az = a.unbind(-1)
+    bw, bx, by, bz = b.unbind(-1)
+    return torch.stack([
+        aw * bw - ax * bx - ay * by - az * bz,
+        aw * bx + ax * bw + ay * bz - az * by,
+        aw * by - ax * bz + ay * bw + az * bx,
+        aw * bz + ax * by - ay * bx + az * bw,
+    ], dim=-1)
+
+
+def rotation_is_valid(R: torch.Tensor, tol: float = 1e-3) -> torch.Tensor:
+    """det(R) ~ 1 and R R^T ~ I, within ``tol``, for (..., 3, 3) batches."""
+    det_ok = (torch.linalg.det(R) - 1.0).abs() < tol
+    eye = torch.eye(3, dtype=R.dtype, device=R.device)
+    orth_ok = (R @ R.transpose(-1, -2) - eye).abs().amax(dim=(-2, -1)) < tol
+    return det_ok & orth_ok

@@ -9,6 +9,7 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 from structure_from_motion_tpu import __main__ as Jmain
 from structure_from_motion_tpu_torch import __main__ as Tmain
@@ -21,6 +22,16 @@ from tests.test_torch_io import write_bmp
 # the three flags that differ by design: the devices are another backend's,
 # and the compile cache is accepted but has nothing to cache
 DIFFERENT = {"--device", "--compile-cache"}
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this module: its tensors are small, and the
+    suite's parallel workers share the machine's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def test_help_exits_zero(capsys):
@@ -126,8 +137,8 @@ def test_entry_points_raise_without_a_card():
         Tmain.main(["selftest"])
 
 
-@pytest.mark.parametrize("flags, item", [(["--detector", "harris"], "ROADMAP A12"),
-                                         (["--ba-shards", "2"], "ROADMAP A13")])
+@pytest.mark.parametrize("flags, item", [
+    pytest.param(["--ba-shards", "2"], "ROADMAP A13", id="flags1-ROADMAP A13")])
 def test_flags_of_later_slices_exit_with_the_roadmap_item(tmp_path, capsys, flags, item):
     rc = Tmain.main(["reconstruct", "--images", str(tmp_path), "--out", str(tmp_path / "o"),
                      "--fx", "1", "--fy", "1", "--cx", "0", "--cy", "0", "--device", "cpu",
@@ -212,6 +223,24 @@ def test_reconstruct_through_the_feature_cache_gives_the_same_poses(bmp_frames, 
     assert len(os.listdir(tmp_path / "cached" / "features")) == 4
     np.testing.assert_array_equal(runs[1], runs[0])
     np.testing.assert_array_equal(runs[2], runs[0])
+
+
+def test_reconstruct_with_harris_runs_on_the_cpu(bmp_frames, tmp_path, capsys):
+    """``--detector harris`` (once a later slice's flag, now ported) runs the
+    JAX parser's settings: 256-bit steered-BRIEF codes, Hamming matching
+    with the cross-check, no 2x octave; 4 frames give finite poses and a
+    map."""
+    root, K, _ = bmp_frames
+    out = tmp_path / "out"
+    assert _reconstruct(root / "first4", out, K, "--detector", "harris") == 0
+    assert "4 frames in" in capsys.readouterr().out
+    cfg = json.loads((out / "config.json").read_text())
+    assert cfg["frontend"]["detector"] == "harris" and cfg["frontend"]["descriptor_dim"] == 256
+    assert not cfg["frontend"]["upsample_first_octave"] and cfg["frontend"]["num_octaves"] == 4
+    assert cfg["matcher"]["metric"] == "hamming" and cfg["matcher"]["cross_check"]
+    rec = np.load(out / "reconstruction.npz")
+    assert rec["locations"].shape == (4, 3) and np.isfinite(rec["locations"]).all()
+    assert len(rec["points"]) > 0
 
 
 def test_reconstruct_without_images_exits_2(tmp_path, capsys):
