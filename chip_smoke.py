@@ -69,7 +69,30 @@ the script exits non-zero without printing the final result line:
    of 600x800 with ``topk_block`` 0 (the map kernel's lane path);
 8. Harris: ``reconstruct --detector harris`` in-process on 10 rendered
    600x800 frames written as BMP files, held to bands fixed from the JAX
-   package's CLI on the same frames on the CPU.
+   package's CLI on the same frames on the CPU;
+9. sharded BA (after phase 5): two ranks on this ONE card in a gloo group
+   over CUDA tensors (NCCL refuses two ranks on one GPU), spawned fresh:
+   (a) ``finalize_global(20, num_shards=2)`` on the 500-camera checkpoint,
+   held to phase 5's limits and to its single-device solve (final cost
+   within 2%, similarity-aligned camera centres within 1e-3 of span); (b) ``IncrementalSfM(ba_num_shards=2)``
+   on the slice's first 8 frames against the single engine on them (poses
+   atol 5e-3, both within the slice's ATE and reprojection bounds); every
+   rank's poses the same bits (by hash); then a one-rank NCCL group through
+   ``sharded_bundle_adjustment`` (S = 1, the hybrid layout) on the same
+   global problem. Each rank counts its own launches (set to 0 just before
+   each run, read just after; the entries sum both ranks') and rank 0 saves
+   its last B4, B5 and B6 inputs for the kernel phase. Two ranks share one
+   card's SMs: their times are no multi-GPU speed;
+10. shared sampling: ``reconstruct --config`` at the CLI's default flags
+   with ``"sampling": "shared"`` on the Harris phase's BMP frames, held to
+   bands fixed from the JAX package's CLI on the same frames on the CPU,
+   then ``BatchedIncrementalSfM`` with it on 2 lanes of the small batch
+   against their single runs (poses atol 5e-3).
+
+Phase 6 also decodes its BMP files through the native loader
+(``io/native_loader.PrefetchingLoader``, ``native/sfm_loader.cpp`` built by
+``make``), which must build here, against ``io/datasets``' decode (atol
+1e-3).
 
 The kernel phase also holds the lane axis of B1, B2f, the B2 map kernel,
 B3 and B4 at B = 8 and the batched phases' shapes (the full-width run, the
@@ -78,8 +101,10 @@ version, lane b against a one-lane launch on lane b's inputs, and a
 one-lane stack against the call without a lane axis, bit for bit; and B1
 and B4 at the Harris run's shapes (per octave the sigma 1.0 and 2.0
 one-level blurs and the three structure-tensor lanes of the sigma 1.5
-blur; its last BA stream). Each entry's launches are read from the run
-that launches it at that shape. The
+blur; its last BA stream), and B4, B5 and B6 at the sharded runs' shapes
+(rank 0's last inputs: a shard's hybrid ELL + tail stream of the global
+solve, a shard of the per-frame BA). Each entry's launches are read from
+the run that launches it at that shape. The
 slice, CLI and batched phases end with ``utils/debug.validate_state`` on
 their states and fail on any finding. The frames render in worker
 processes, joined at the end.
@@ -123,6 +148,13 @@ SMALL_BATCH_BANDS = dict(ate=3.0 * JAX_SMALL_BATCH["ate"], reproj=2.0 * JAX_SMAL
                          points=int(0.75 * JAX_SMALL_BATCH["points"]))
 HARRIS_BANDS = dict(ate=5.0 * JAX_HARRIS["ate"], reproj=1.25 * JAX_HARRIS["reproj"],
                     points=(int(0.8 * JAX_HARRIS["points"]), int(1.2 * JAX_HARRIS["points"])))
+# its CLI at the default (DoG) flags with "sampling": "shared", same frames
+JAX_SHARED = dict(ate=0.0006536381272132246, reproj=0.17416368424892426, points=2716)
+SHARED_BANDS = dict(ate=5.0 * JAX_SHARED["ate"], reproj=1.25 * JAX_SHARED["reproj"],
+                    points=(int(0.8 * JAX_SHARED["points"]), int(1.2 * JAX_SHARED["points"])))
+# the sharded phase: two ranks on the one card (gloo), S = 2
+SHARDS = 2
+SHARDED_FRAMES = 8
 REPROJ_BOUND_PX = 2.0
 ARTIFACT = Path(__file__).resolve().parent / "artifacts" / "longrun500_pre_globalba.ckpt.npz"
 # final cost of the JAX package's f32 solve of the artifact on the CPU
@@ -467,6 +499,89 @@ def harris_phase(dev, seq, counted, sync, card: str):
     return (launches, by_shape), cfg.frontend, b4_in["args"]
 
 
+def shared_phase(dev, seq, small_lanes, counted, sync, card: str):
+    """``sampling="shared"``: ``reconstruct --config`` at the CLI's default
+    (DoG) flags with the shared grid on BMP files, held to bands around the
+    JAX package's CLI on the same frames (not to the slice's absolute
+    bounds: the JAX config records that shared sampling loses quality on
+    rendered texture); then a batched small-batch run with it, 2 lanes
+    against their single runs."""
+    import dataclasses
+
+    import numpy as np
+
+    from structure_from_motion_tpu_torch.config import PipelineConfig
+    from structure_from_motion_tpu_torch.models.batched import BatchedIncrementalSfM
+    from structure_from_motion_tpu_torch.models.incremental import IncrementalSfM
+
+    imgs, K, C_gt, _ = seq
+    root = Path(__file__).resolve().parent / "build" / "chip_smoke_shared"
+    shutil.rmtree(root, ignore_errors=True)
+    (root / "frames").mkdir(parents=True)
+    for i, im in enumerate(imgs):
+        write_bmp_gray(str(root / "frames" / f"frame{i:04d}.bmp"), np.asarray(im))
+    cfg = cli_default_config()
+    cfg = dataclasses.replace(cfg, frontend=dataclasses.replace(cfg.frontend, sampling="shared"))
+    (root / "config.json").write_text(cfg.to_json())
+    out = root / "out"
+    _reset(counted)
+    rc, text = _run_cli(["reconstruct", "--images", str(root / "frames"), "--pattern", "*.bmp",
+                         "--out", str(out), "--fx", repr(float(K[0, 0])), "--fy",
+                         repr(float(K[1, 1])), "--cx", repr(float(K[0, 2])), "--cy",
+                         repr(float(K[1, 2])), "--config", str(root / "config.json"),
+                         "--device", str(dev).split(":")[0]])
+    sync()
+    launches, by_shape = _read(counted)
+    print(text.rstrip())
+    if rc != 0:
+        raise AssertionError(f"reconstruct with sampling 'shared' exited with {rc}")
+    rec = np.load(out / "reconstruction.npz")
+    locs, pts = rec["locations"], rec["points"]
+    ran = PipelineConfig.from_json((out / "config.json").read_text())
+    engine = IncrementalSfM(ran, K, frontend="native", device=dev)
+    engine.load_checkpoint(str(out / "state.npz"))
+    ate, reproj = _span_ate(locs, C_gt), engine.reprojection_error()
+    lo, hi = SHARED_BANDS["points"]
+    rate = [ln for ln in text.splitlines() if "frames/s" in ln]
+    print(f"shared: {rate[0].strip() if rate else ''} ({card}); {len(locs)} poses, ATE of span "
+          f"{ate:.6f} (bound {SHARED_BANDS['ate']:.6f}), reprojection {reproj:.4f} px (bound "
+          f"{SHARED_BANDS['reproj']:.4f}), {len(pts)} map points (band {lo}-{hi}); JAX on the "
+          f"CPU: {JAX_SHARED}; launches {launches}, by shape {by_shape}")
+    if ran.frontend.sampling != "shared":
+        raise AssertionError(f"the run's config does not sample a shared grid: {ran.frontend}")
+    if not (len(locs) == len(imgs) and np.isfinite(locs).all() and ate <= SHARED_BANDS["ate"]
+            and reproj <= SHARED_BANDS["reproj"] and lo <= len(pts) <= hi):
+        raise AssertionError("the shared-sampling run is outside the JAX package's bands")
+    for name in ("B1 blur_levels", "B2f candidate_block_max", "B2 candidate_response",
+                 "B3 match_top2", "B4 ba_blocks"):
+        if launches[name] < 1:
+            raise AssertionError(f"{name} never launched in the shared-sampling run: {launches}")
+    _validated(engine.state, "shared")
+    shutil.rmtree(root)
+
+    # the batched engine with the shared grid: 2 lanes of the small batch
+    scfg = small_batch_config()
+    scfg = dataclasses.replace(scfg, frontend=dataclasses.replace(scfg.frontend,
+                                                                  sampling="shared"))
+    lanes = small_lanes[:2]
+    eng = BatchedIncrementalSfM(scfg, lanes[0][1], batch=2, seed=[0, 1], device=dev)
+    for t in range(len(lanes[0][0])):
+        eng.process_images(np.stack([np.asarray(s[0][t]) for s in lanes]))
+    locs, rots = eng.poses()
+    for b in range(2):
+        single = IncrementalSfM(scfg, lanes[b][1], frontend="native", seed=b, device=dev)
+        for im in lanes[b][0]:
+            single.process_image(im)
+        s_locs, s_rots = single.poses()
+        dl, dr = float(np.abs(locs[b] - s_locs).max()), float(np.abs(rots[b] - s_rots).max())
+        print(f"shared batched small batch, lane {b} against IncrementalSfM(seed={b}): max |dC| "
+              f"{dl:.2e}, max |dR| {dr:.2e} (atol 5e-3); ATE of span "
+              f"{_span_ate(locs[b], lanes[b][2]):.5f}")
+        if not (dl <= 5e-3 and dr <= 5e-3):
+            raise AssertionError(f"shared batched lane {b} differs from its single run")
+    _validated(eng.state, "shared batched")
+
+
 def write_bmp_gray(path, gray) -> None:
     """(H, W) uint8 -> an uncompressed bottom-up 24-bit BMP file."""
     import numpy as np
@@ -640,6 +755,29 @@ def cli_phase(dev, imgs, small_imgs, K, small_K, C_gt, small_C_gt, cfg, counted,
           f"included, two runs each): with the prefetcher {medians['prefetcher']} s, with a plain "
           f"loop {medians['plain loop']} s ({card})")
 
+    # -- the native loader (native/sfm_loader.cpp, built by make) on the BMPs
+    from structure_from_motion_tpu_torch.io import native_loader
+
+    if not native_loader.native_available():
+        raise AssertionError("the native loader did not build (make, g++)")
+    t0 = time.perf_counter()
+    with native_loader.PrefetchingLoader(files, n_threads=4) as ld:
+        native = list(ld)
+    t_native = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    python = [load_image_grayscale(f) for f in files]
+    t_python = time.perf_counter() - t0
+    diff = max(float(np.abs(a - b).max()) for a, b in zip(native, python))
+    exact = float(np.mean([np.mean(a == b) for a, b in zip(native, python)]))
+    direct = native_loader.decode_grayscale(files[0])
+    print(f"cli native loader: {len(files)} BMP frames of {native[0].shape} through "
+          f"PrefetchingLoader in {t_native:.3f} s, io/datasets in {t_python:.3f} s (host); max "
+          f"|native - python| {diff:.2e} (atol 1e-3), {100 * exact:.2f}% of pixels equal; "
+          "decode_grayscale equal to the loader's frame: "
+          f"{direct is not None and np.array_equal(direct, native[0])}")
+    if not (diff <= 1e-3 and direct is not None and np.array_equal(direct, native[0])):
+        raise AssertionError("the native loader disagrees with io/datasets")
+
     # -- selftest, and the B2 map kernel's path: --config with topk_block 0
     rc, text = _run_cli(["selftest", "--device", device])
     print(f"cli {text.strip()}")
@@ -781,18 +919,273 @@ def global_phase(dev, counted, sync, card: str) -> dict:
     for name in ("B4 ba_blocks", "B5 expand_cam", "B6 reduce_cam"):
         if launches[name] < 1:
             raise AssertionError(f"{name} never launched in the global solve: {launches}")
-    return launches
+    return launches, dict(costs=costs, locs=locs, rots=rots, wall=wall, cg=cg)
+
+
+def _cpu_args(args) -> tuple:
+    return tuple(a.detach().cpu() if hasattr(a, "detach") else a for a in args)
+
+
+def _poses_digest(locs, rots) -> str:
+    import hashlib
+
+    import numpy as np
+
+    return hashlib.sha256(np.ascontiguousarray(locs).tobytes()
+                          + np.ascontiguousarray(rots).tobytes()).hexdigest()
+
+
+def _sharded_rank(rank: int, port: int, work: str, device: str) -> None:
+    """One rank of the sharded phase (started by :func:`sharded_phase`): a
+    gloo group of ``SHARDS`` ranks over CUDA tensors of the one card (NCCL
+    refuses two ranks on one GPU). (a) ``finalize_global(20,
+    num_shards=SHARDS)`` on the 500-camera checkpoint, (b)
+    ``IncrementalSfM(ba_num_shards=SHARDS)`` on the rendered frames in
+    ``work``; each with the kernels' launch counts set to 0 just before and
+    read just after, and rank 0's last B4, B5 and B6 inputs saved for the
+    kernel phase. Writes ``rank<r>.pt`` to ``work``."""
+    import dataclasses
+    import hashlib
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from structure_from_motion_tpu_torch.config import PipelineConfig
+    from structure_from_motion_tpu_torch.models import incremental
+    from structure_from_motion_tpu_torch.models.incremental import IncrementalSfM
+    from structure_from_motion_tpu_torch.ops import ba as ba_module
+    from structure_from_motion_tpu_torch.ops import ba_cuda, ba_matvec, blur_cuda
+    from structure_from_motion_tpu_torch.ops import features_cuda, matching
+
+    torch.set_num_threads(2)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", world_size=SHARDS,
+                            rank=rank)
+    work_dir = Path(work)
+    counted = {"B1 blur_levels": blur_cuda.blur_levels,
+               "B2f candidate_block_max": features_cuda.candidate_block_max,
+               "B2 candidate_response": features_cuda.candidate_response,
+               "B3 match_top2": matching.match_top2, "B4 ba_blocks": ba_cuda.ba_blocks,
+               "B5 expand_cam": ba_matvec.expand_cam, "B6 reduce_cam": ba_matvec.reduce_cam}
+    sync = torch.cuda.synchronize if device.startswith("cuda") else (lambda: None)
+    res = {}
+    try:
+        # (a) the whole-trajectory solve, sharded
+        engine = IncrementalSfM(long_sequence_config(), np.eye(3), frontend="precomputed",
+                                device=device)
+        engine.load_checkpoint(str(ARTIFACT))
+        sync()
+        _reset(counted)
+        t0 = time.perf_counter()
+        with last_call(ba_module, "ba_blocks") as b4, last_call(ba_module, "expand_cam") as b5, \
+                last_call(ba_module, "reduce_cam") as b6:
+            info = engine.finalize_global(iterations=20, num_shards=SHARDS)
+            sync()
+        wall = time.perf_counter() - t0
+        locs, rots = engine.poses()
+        res["global"] = dict(
+            launches=_read(counted)[0], wall=wall, costs=[float(c) for c in info["costs"]],
+            cg=list(info["cg_iterations"]), slots=info["slots"], tail=info["tail"],
+            rows=info["tiers"][0][1], bucket=info["bucket"], locs=locs, rots=rots,
+            digest=_poses_digest(locs, rots))
+        if rank == 0:
+            torch.save({"b4": _cpu_args(b4["args"]), "b5": _cpu_args(b5["args"]),
+                        "b6": _cpu_args(b6["args"])}, work_dir / "global_inputs.pt")
+        del engine
+
+        # (b) the per-frame BA sharded, every rank on the same frames; each
+        # rank's own state as it reaches the sharded BA, field by field (the
+        # stage first takes rank 0's)
+        pre_ba = []
+        sharded_ba = incremental._sharded_ba
+
+        def spy(st, config):
+            pre_ba.append({k: hashlib.sha256(v.cpu().numpy().tobytes()).hexdigest()
+                           for k, v in st._asdict().items()})
+            return sharded_ba(st, config)
+
+        incremental._sharded_ba = spy
+        frames = np.load(work_dir / "frames.npz")
+        cfg = PipelineConfig.from_json((work_dir / "config.json").read_text())
+        cfg = dataclasses.replace(cfg, ba_num_shards=SHARDS)
+        engine = IncrementalSfM(cfg, frames["K"], frontend="native", seed=0, device=device)
+        sync()
+        _reset(counted)
+        times = []
+        with last_call(ba_module, "ba_blocks") as b4:
+            for im in frames["imgs"]:
+                t0 = time.perf_counter()
+                info = engine.process_image(im)
+                sync()
+                times.append(time.perf_counter() - t0)
+        locs, rots = engine.poses()
+        incremental._sharded_ba = sharded_ba
+        res["frames"] = dict(launches=_read(counted)[0], times=times, locs=locs, rots=rots,
+                             digest=_poses_digest(locs, rots), pre_ba=pre_ba,
+                             reproj=engine.reprojection_error(),
+                             dropped=int(info["ba_dropped_obs"]))
+        if rank == 0:
+            torch.save({"b4": _cpu_args(b4["args"])}, work_dir / "frame_inputs.pt")
+    finally:
+        dist.destroy_process_group()
+    torch.save(res, work_dir / f"rank{rank}.pt")
+
+
+def sharded_phase(dev, imgs, K, C_gt, cfg, single_global: dict, card: str):
+    """The sharded bundle adjustment: ``SHARDS`` gloo ranks on this one card
+    (:func:`_sharded_rank`) run (a) the sharded 500-camera solve and (b) the
+    per-frame sharded engine on ``imgs``; held to the global limits and to
+    ``single_global`` (the single-device solve of this smoke), to the
+    single engine on the same frames, and every rank to the same camera
+    bits. Then a one-rank NCCL group through ``sharded_bundle_adjustment``
+    with S = 1 (the hybrid layout of the same problem). Two ranks on one
+    card share its SMs: their times are no multi-GPU speed. Returns the
+    launch counts of (a) and (b), summed over the ranks, under "sharded
+    global" and "sharded frames", and rank 0's saved kernel inputs."""
+    import socket
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    import torch.multiprocessing as tmp
+
+    from structure_from_motion_tpu_torch.models import global_ba
+    from structure_from_motion_tpu_torch.models.incremental import IncrementalSfM
+    from structure_from_motion_tpu_torch.parallel import make_mesh
+    from structure_from_motion_tpu_torch.utils import checkpoint
+
+    device = str(dev)
+    work = Path(__file__).resolve().parent / "build" / "chip_smoke_sharded"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    np.savez(work / "frames.npz", imgs=np.stack([np.asarray(im) for im in imgs]), K=K)
+    (work / "config.json").write_text(cfg.to_json())
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    t0 = time.perf_counter()
+    ctx = tmp.start_processes(_sharded_rank, args=(port, str(work), device), nprocs=SHARDS,
+                              join=False, start_method="spawn")
+    # meanwhile the single engine on the same frames, the reference of (b)
+    single = IncrementalSfM(cfg, K, frontend="native", seed=0, device=dev)
+    for im in imgs:
+        single.process_image(im)
+    s_locs, s_rots = single.poses()
+    while not ctx.join(timeout=1200):
+        pass
+    ranks = [torch.load(work / f"rank{r}.pt", weights_only=False) for r in range(SHARDS)]
+    print(f"sharded: {SHARDS} gloo ranks on one card, {time.perf_counter() - t0:.1f} s from "
+          "spawn to join (start-up included)")
+
+    def summed(run):
+        return {k: sum(r[run]["launches"][k] for r in ranks) for k in ranks[0][run]["launches"]}
+
+    # (a) the sharded whole-trajectory solve
+    g = ranks[0]["global"]
+    costs, single_costs = g["costs"], single_global["costs"]
+    same = all(r["global"]["digest"] == g["digest"] for r in ranks)
+    rel = abs(costs[-1] - single_costs[-1]) / single_costs[-1]
+    # the poses after similarity alignment (the gauge is free: the two solves
+    # may drift along it differently in f32)
+    g_span = float(np.linalg.norm(single_global["locs"].max(0) - single_global["locs"].min(0)))
+    d_ate = _umeyama_ate(g["locs"], single_global["locs"]) / g_span
+    dC = float(np.abs(g["locs"] - single_global["locs"]).max())
+    dR = float(np.abs(g["rots"] - single_global["rots"]).max())
+    launches_g = summed("global")
+    print(f"sharded global: S = {SHARDS}, ELL rows {g['rows']}, tail {g['tail']}, {g['slots']} "
+          f"slots a shard (bucket {g['bucket']}); CG iterations per LM step {g['cg']} (single "
+          f"device: {single_global['cg']}); wall {[round(r['global']['wall'], 3) for r in ranks]} s a rank "
+          f"({card}; two ranks share one card: no multi-GPU speed)")
+    print(f"sharded global costs: {[round(c, 6) for c in costs]}")
+    print(f"sharded global quality: final cost {costs[-1]:.6f} (bound 1.05 x {JAX_GLOBAL_COST}), "
+          f"final / first {costs[-1] / costs[0]:.4f} (bound 0.3); against the single-device "
+          f"solve's {single_costs[-1]:.6f}: relative {rel:.2e} (bound 2e-2), aligned camera "
+          f"centres {d_ate:.2e} of span (bound 1e-3; raw max |dC| {dC:.2e}, |dR| {dR:.2e}); "
+          f"every rank's poses the same bits: {same}; launches (both ranks) {launches_g}")
+    if not (costs[-1] <= 1.05 * JAX_GLOBAL_COST and costs[-1] <= 0.3 * costs[0]):
+        raise AssertionError("the sharded global cost is outside its bounds")
+    if not (same and rel <= 2e-2 and d_ate <= 1e-3):
+        raise AssertionError("the sharded global solve disagrees with the single-device one "
+                             "or between its ranks")
+    for name in ("B4 ba_blocks", "B5 expand_cam", "B6 reduce_cam"):
+        if any(r["global"]["launches"][name] < 1 for r in ranks):
+            raise AssertionError(f"{name} never launched in a rank of the sharded global solve")
+
+    # (b) the per-frame sharded engine
+    f = ranks[0]["frames"]
+    same = all(r["frames"]["digest"] == f["digest"] for r in ranks)
+    span = float(np.linalg.norm(C_gt.max(0) - C_gt.min(0)))
+    ate, s_ate = _umeyama_ate(f["locs"], C_gt) / span, _umeyama_ate(s_locs, C_gt) / span
+    dl, dr = float(np.abs(f["locs"] - s_locs).max()), float(np.abs(f["rots"] - s_rots).max())
+    launches_f = summed("frames")
+    # diagnostic: where the ranks' own states had drifted apart before a BA
+    # (the engine's bits on the card need not repeat between processes)
+    drift = [(i, sorted(k for k in d if d[k] != d1[k]))
+             for i, (d, d1) in enumerate(zip(f["pre_ba"], ranks[1]["frames"]["pre_ba"]))]
+    print(f"sharded frames: the ranks' own states before each sharded BA (frames 2-"
+          f"{len(imgs) - 1}), the fields that differ: {drift}")
+    print(f"sharded frames ({len(imgs)} frames, ba_num_shards = {SHARDS}): frame times rank 0 "
+          f"{np.round(f['times'], 3).tolist()} s ({card}; two ranks share one card); ATE "
+          f"{ate:.5f} of span (single engine {s_ate:.5f}; bound {ATE_BOUND}), reprojection "
+          f"{f['reproj']:.4f} px (single {single.reprojection_error():.4f}; bound "
+          f"{REPROJ_BOUND_PX}); against the single engine max |dC| {dl:.2e}, max |dR| {dr:.2e} "
+          f"(atol 5e-3); every rank's poses the same bits: {same}; observations dropped by a "
+          f"full bucket {f['dropped']}; launches (both ranks) {launches_f}")
+    if not (same and dl <= 5e-3 and dr <= 5e-3 and f["dropped"] == 0):
+        raise AssertionError("the per-frame sharded run disagrees with the single engine or "
+                             "between its ranks")
+    if not (ate < ATE_BOUND and s_ate < ATE_BOUND and f["reproj"] < REPROJ_BOUND_PX
+            and single.reprojection_error() < REPROJ_BOUND_PX):
+        raise AssertionError("a per-frame sharded or single run is outside the slice's bounds")
+    for name in ("B1 blur_levels", "B2f candidate_block_max", "B3 match_top2", "B4 ba_blocks"):
+        if any(r["frames"]["launches"][name] < 1 for r in ranks):
+            raise AssertionError(f"{name} never launched in a rank of the per-frame sharded run")
+    del single
+
+    # a one-rank NCCL group: the sharded solve (hybrid layout, S = 1) of the
+    # same problem, its sums through NCCL
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    backend = "nccl" if torch.device(dev).type == "cuda" else "gloo"  # gloo: a CPU rehearsal
+    dist.init_process_group(backend, init_method=f"tcp://localhost:{port}", world_size=1, rank=0)
+    try:
+        mesh = make_mesh(1)
+        state, frame, archive, _ = checkpoint.load_state(str(ARTIFACT), dev)
+        prob = global_ba.build_global_problem(state, archive, min(frame, 8))
+        stats: dict = {}
+        t0 = time.perf_counter()
+        out, ncosts = global_ba.solve_sharded(prob, long_sequence_config().ba, mesh, 20, stats)
+        if backend == "nccl":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        dist.destroy_process_group()
+    rel1 = abs(float(ncosts[-1]) - single_costs[-1]) / single_costs[-1]
+    print(f"sharded NCCL, one rank (group {mesh.group is not None}, backend {backend}): hybrid ELL "
+          f"rows {stats['tiers'][0][1]}, tail {stats['tail']}, {stats['slots']} slots; CG "
+          f"iterations {stats['cg_iterations']}; cost {float(ncosts[0]):.6f} -> "
+          f"{float(ncosts[-1]):.6f}, relative to the single-device solve {rel1:.2e} (bound "
+          f"2e-2); {wall:.3f} s ({card})")
+    if not (mesh.group is not None and rel1 <= 2e-2 and float(ncosts[-1]) <= 1.05 * JAX_GLOBAL_COST):
+        raise AssertionError("the one-rank NCCL solve disagrees with the single-device solve")
+    inputs = dict(torch.load(work / "global_inputs.pt", weights_only=False),
+                  frame_b4=torch.load(work / "frame_inputs.pt", weights_only=False)["b4"])
+    shutil.rmtree(work)
+    return {"sharded global": (launches_g, {}), "sharded frames": (launches_f, {})}, inputs
 
 
 def kernel_phase(dev, imgs, small_img, cfg, smi: str, lane_imgs, map_lane_imgs,
-                 small_lane_imgs, harris_img, harris_fe, small_b4, harris_b4) -> list:
+                 small_lane_imgs, harris_img, harris_fe, small_b4, harris_b4, shard_in) -> list:
     """Every kernel against its plain version on the card at the shapes its
     path gives it, and the lane axis of B1-B4 at the batched phases' shapes
     (``lane_imgs``: frame 0 of every full-width lane; ``map_lane_imgs``: of
     every lane of the map run; ``small_lane_imgs``: of every lane of the
     small batch, whose last B4 inputs are ``small_b4``), and B1 and B4 at
     the Harris run's shapes (``harris_img``: its frame 0, ``harris_fe``: its
-    frontend config; ``harris_b4``: its last B4 inputs); raises on a disagreement. Returns the kernels' entries
+    frontend config; ``harris_b4``: its last B4 inputs), and B4, B5 and B6 at the
+    sharded runs' shapes (``shard_in``: rank 0's last inputs of each, from
+    :func:`sharded_phase`); raises on a disagreement. Returns the kernels' entries
     (without ``launches``; ``path`` names the run whose launches count)."""
     import dataclasses
 
@@ -1149,6 +1542,47 @@ def kernel_phase(dev, imgs, small_img, cfg, smi: str, lane_imgs, map_lane_imgs,
     del state, prob, st, obs, bargs, got, w21, t, t_ref, y, perm, mask
     torch.cuda.empty_cache()
 
+    # B4, B5 and B6 at the sharded runs' shapes, on rank 0's own last inputs:
+    # a shard of the global solve (its hybrid ELL and spill tail) and a shard
+    # of the per-frame BA ((M/S) x V slots); launches of both ranks
+    def on_card(args):
+        return tuple(a.to(dev) if torch.is_tensor(a) else a for a in args)
+
+    sb4 = on_card(shard_in["b4"])
+    b4_case(f"B4 ba_blocks (sharded global, a shard's hybrid ELL + tail, O = "
+            f"{sb4[0].shape[0]}, V = {sb4[6]})", sb4, "sharded global")
+    fb4 = on_card(shard_in["frame_b4"])
+    b4_case(f"B4 ba_blocks (sharded frames, a shard, O = {fb4[0].shape[0]}, V = {fb4[6]})", fb4,
+            "sharded frames")
+    scam, sw21, sx = on_card(shard_in["b5"])
+    t, t_ref = ba_matvec.expand_cam(scam, sw21, sx), ba_matvec.expand_cam_reference(scam, sw21, sx)
+    err = float((t - t_ref).abs().max())
+    bound = 1e-5 * max(1.0, float(t_ref.abs().max()))
+    record(f"B5 expand_cam (sharded global, a shard, O = {scam.shape[0]})", "ba_matvec.cu",
+           "structure_from_motion_tpu/ops/ba_matvec_pallas.py:91", err,
+           f"1e-5 x max(1, |t|) = {bound:.3e}",
+           lambda: ba_matvec.expand_cam(scam, sw21, sx),
+           lambda: ba_matvec.expand_cam_reference(scam, sw21, sx), err <= bound,
+           moved=nbytes(scam, sw21, sx, t), flops=2 * 21 * scam.shape[0], path="sharded global")
+    rw21, ry, rperm, rmask, rV = on_card(shard_in["b6"])
+    c1 = ba_matvec.reduce_cam(rw21, ry, rperm, rmask, rV)
+    c2 = ba_matvec.reduce_cam(rw21, ry, rperm, rmask, rV)
+    c_ref = ba_matvec.reduce_cam_reference(rw21, ry, rperm, rmask, rV)
+    err = float((c1 - c_ref).abs().max())
+    bound = 1e-4 * max(1.0, float(c_ref.abs().max()))
+    n_filled = int(rmask.sum())
+    record(f"B6 reduce_cam (sharded global, a shard, {rV} cameras x {rperm.shape[0] // rV} slots, "
+           f"{n_filled} filled)", "ba_matvec.cu",
+           "structure_from_motion_tpu/ops/ba_matvec_pallas.py:125", err,
+           f"1e-4 x max(1, |coup|) = {bound:.3e}; two launches same bits: {torch.equal(c1, c2)}",
+           lambda: ba_matvec.reduce_cam(rw21, ry, rperm, rmask, rV),
+           lambda: ba_matvec.reduce_cam_reference(rw21, ry, rperm, rmask, rV),
+           err <= bound and torch.equal(c1, c2),
+           moved=n_filled * (84 + 12) + nbytes(rperm, rmask, c1), flops=2 * 21 * n_filled,
+           path="sharded global")
+    del sb4, fb4, scam, sw21, sx, t, t_ref, rw21, ry, rperm, rmask, c1, c2, c_ref
+    torch.cuda.empty_cache()
+
     # -- the lane axis: B lanes in one launch, at the batched phases' shapes
     B = len(lane_imgs)
 
@@ -1445,7 +1879,13 @@ def _smoke(torch, dev, smi: str, pool) -> None:
         raise AssertionError(f"the slice's candidate stage is not the fused kernel's: {launches}")
 
     # -- 5. the 500-camera global solve --------------------------------------
-    runs["global"] = (global_phase(dev, counted, torch.cuda.synchronize, smi), {})
+    global_launches, single_global = global_phase(dev, counted, torch.cuda.synchronize, smi)
+    runs["global"] = (global_launches, {})
+
+    # -- 9. the sharded BA: two ranks on this card, and a one-rank NCCL group --
+    sharded_runs, shard_inputs = sharded_phase(dev, imgs[:SHARDED_FRAMES], K,
+                                               C_gt[:SHARDED_FRAMES], cfg, single_global, smi)
+    runs.update(sharded_runs)
 
     # -- 6. the command line ---------------------------------------------------
     runs["cli map"] = cli_phase(dev, imgs, small_imgs, K, small_K, C_gt, small_C_gt, cfg,
@@ -1461,11 +1901,14 @@ def _smoke(torch, dev, smi: str, pool) -> None:
     runs["harris"], harris_fe, harris_b4 = harris_phase(dev, harris, counted,
                                                         torch.cuda.synchronize, smi)
 
+    # -- 10. the shared sample grid: the CLI on the same frames, then 2 lanes
+    shared_phase(dev, harris, small_lanes, counted, torch.cuda.synchronize, smi)
+
     # -- 3. every kernel against its plain version at its paths' shapes (after
     # the runs, whose last B4 inputs it takes) ----------------------------------
     results = kernel_phase(dev, imgs, small_imgs[0], cfg, smi, [s[0][0] for s in lanes],
                            [s[0][0] for s in map_lanes], [s[0][0] for s in small_lanes],
-                           harris[0][0], harris_fe, small_b4, harris_b4)
+                           harris[0][0], harris_fe, small_b4, harris_b4, shard_inputs)
     for r in results:
         name = r["name"].split(" (")[0].removesuffix(" lanes")
         shape, (all_launches, by_shape) = r.pop("shape"), runs[r.pop("path")]

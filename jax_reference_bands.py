@@ -4,6 +4,7 @@ and Harris phases to, taken on the CPU on the same rendered frames.
 
     JAX_PLATFORMS=cpu python3 jax_reference_bands.py small    # ~1 min
     JAX_PLATFORMS=cpu python3 jax_reference_bands.py harris   # ~3 min
+    JAX_PLATFORMS=cpu python3 jax_reference_bands.py shared
 
 ``small``: ``BatchedIncrementalSfM`` at ``bench.py``'s small-sequence config
 (256 keypoints, 3 octaves, no 2x octave, ratio 0.8, capacities 8 / 256 /
@@ -16,6 +17,11 @@ harris`` (its parser's Harris config, ``blur_impl="pallas"`` through
 ``--config``) on ``synthetic_scene_sequence(10, (600, 800), seed=3,
 loops=0.7)`` written as 24-bit BMP files under ``build/``: ATE in parts of
 the span, mean reprojection error, map points.
+
+``shared``: the same CLI at its default (DoG) flags with ``"sampling":
+"shared"`` (and ``blur_impl``/``extrema_impl="pallas"``) through
+``--config``, on the same frames: ATE in parts of the span, mean
+reprojection error, map points.
 
 Prints one JSON object. The frames come from the port's renderer, which
 equals the JAX package's bit for bit (``tests/test_torch_config.py``).
@@ -76,24 +82,27 @@ def small() -> dict:
     )
 
 
-def harris() -> dict:
+def _cli_run(name: str, detector: str, **frontend) -> dict:
+    """The JAX CLI at its default flags for ``detector``, the frontend fields
+    ``frontend`` set through ``--config``, on the 10 rendered 600x800 frames
+    written as BMP files."""
     from chip_smoke import write_bmp_gray
     from structure_from_motion_tpu.__main__ import _build_config, main
     from structure_from_motion_tpu.models import IncrementalSfM
     from structure_from_motion_tpu_torch.io.synthetic import synthetic_scene_sequence
 
     imgs, K, C_gt, _ = synthetic_scene_sequence(n_frames=10, size=(600, 800), seed=3, loops=0.7)
-    root = ROOT / "build" / "jax_reference_harris"
+    root = ROOT / "build" / f"jax_reference_{name}"
     shutil.rmtree(root, ignore_errors=True)
     (root / "frames").mkdir(parents=True)
     for i, im in enumerate(imgs):
         write_bmp_gray(str(root / "frames" / f"frame{i:04d}.bmp"), np.asarray(im))
     flags = argparse.Namespace(
-        config=None, detector="harris", no_upsample=False, max_kp=2048, ratio=0.75,
+        config=None, detector=detector, no_upsample=False, max_kp=2048, ratio=0.75,
         no_gate=False, max_views=16, window_mode="slide", ba_shards=1, dist=None,
         keyframe_min_flow=0.0, max_points=16384, max_observations=65536)
     cfg = _build_config(flags)
-    cfg = dataclasses.replace(cfg, frontend=dataclasses.replace(cfg.frontend, blur_impl="pallas"))
+    cfg = dataclasses.replace(cfg, frontend=dataclasses.replace(cfg.frontend, **frontend))
     (root / "config.json").write_text(cfg.to_json())
     out = root / "out"
     rc = main(["reconstruct", "--images", str(root / "frames"), "--pattern", "*.bmp",
@@ -111,13 +120,22 @@ def harris() -> dict:
     return res
 
 
+def harris() -> dict:
+    return _cli_run("harris", "harris", blur_impl="pallas")
+
+
+def shared() -> dict:
+    return _cli_run("shared", "dog", sampling="shared", blur_impl="pallas",
+                    extrema_impl="pallas")
+
+
 def run(which: str) -> dict:
-    """The numbers of one reference run (``small`` or ``harris``)."""
+    """The numbers of one reference run (``small``, ``harris`` or ``shared``)."""
     import jax
 
     jax.config.update("jax_platforms", "cpu")
     t0 = time.time()
-    res = {"small": small, "harris": harris}[which]()
+    res = {"small": small, "harris": harris, "shared": shared}[which]()
     res["seconds"] = time.time() - t0
     return res
 
@@ -125,5 +143,5 @@ def run(which: str) -> dict:
 if __name__ == "__main__":
     sys.path.insert(0, str(ROOT))
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    p.add_argument("which", choices=["small", "harris"])
+    p.add_argument("which", choices=["small", "harris", "shared"])
     print(json.dumps(run(p.parse_args().which)))

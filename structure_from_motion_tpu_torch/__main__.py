@@ -9,15 +9,21 @@ decode -> pinned buffer -> upload on a side stream, one frame ahead
 ``--device cpu`` is given. Differences from the JAX package's CLI:
 ``--device`` takes ``cuda`` (default) or ``cpu``; ``--compile-cache`` is
 accepted and ignored (PyTorch runs eagerly; the kernels' build cache is
-``build/torch_kernels/``); ``--ba-shards`` > 1 is not ported yet and exits
-with a message. ``--detector harris`` runs Harris corners with 256-bit
-steered-BRIEF codes, Hamming matching and the cross-check, as in the JAX
-package.
+``build/torch_kernels/``); ``--ba-shards N`` shards the per-frame bundle
+adjustment over N ranks, one a card, so it runs under ``torchrun
+--nproc-per-node N`` (every rank reconstructs the same frames, rank r on
+``cuda:r`` of its host; only rank 0 writes the outputs). ``--detector
+harris`` runs Harris corners with 256-bit steered-BRIEF codes, Hamming
+matching and the cross-check, as in the JAX package.
 
 Examples:
     python -m structure_from_motion_tpu_torch reconstruct \\
         --images frames/ --pattern "*.bmp" \\
         --fx 568.996 --fy 568.988 --cx 643.21 --cy 477.98 --out out/
+
+    torchrun --nproc-per-node 2 -m structure_from_motion_tpu_torch reconstruct \\
+        --images frames/ --fx 568.996 --fy 568.988 --cx 643.21 --cy 477.98 \\
+        --out out/ --ba-shards 2
 
     python -m structure_from_motion_tpu_torch selftest --device cpu
 """
@@ -86,18 +92,31 @@ def _build_config(args):
     )
 
 
-def _not_ported(args) -> str | None:
-    """The message for a flag whose code is a later slice of the port."""
-    if args.ba_shards > 1:
-        return "--ba-shards > 1 (sharded bundle adjustment) is not ported yet: ROADMAP A13"
-    return None
-
-
 def cmd_reconstruct(args) -> int:
-    msg = _not_ported(args)
-    if msg:
-        print(msg, file=sys.stderr)
+    if args.ba_shards <= 1:
+        return _reconstruct(args, args.device)
+    from structure_from_motion_tpu_torch.parallel import distributed, make_mesh
+
+    joined = distributed.initialize_distributed(
+        backend="nccl" if args.device == "cuda" else "gloo")
+    try:
+        make_mesh(args.ba_shards)
+    except ValueError as e:  # no group of that many ranks: not under torchrun
+        print(e, file=sys.stderr)
         return 2
+    try:
+        device = f"cuda:{distributed.local_rank()}" if args.device == "cuda" else "cpu"
+        return _reconstruct(args, device)
+    finally:
+        if joined:
+            distributed.shutdown_distributed()
+
+
+def _reconstruct(args, device: str) -> int:
+    import torch.distributed as dist
+
+    # with sharded BA every rank reconstructs; rank 0 alone writes the outputs
+    primary = not dist.is_initialized() or dist.get_rank() == 0
     if args.plot:
         try:
             import matplotlib  # noqa: F401
@@ -119,11 +138,11 @@ def cmd_reconstruct(args) -> int:
     cfg = _build_config(args)
     if cfg.window_mode != "slide":
         files = files[: args.max_views]
-    os.makedirs(args.out, exist_ok=True)
-    with open(os.path.join(args.out, "config.json"), "w") as f:
-        f.write(cfg.to_json())
-
-    engine = IncrementalSfM(cfg, K, frontend="native", seed=args.seed, device=args.device)
+    engine = IncrementalSfM(cfg, K, frontend="native", seed=args.seed, device=device)
+    if primary:
+        os.makedirs(args.out, exist_ok=True)
+        with open(os.path.join(args.out, "config.json"), "w") as f:
+            f.write(cfg.to_json())
     start = 0
     ckpt_path = os.path.join(args.out, "state.npz")
     if args.resume and os.path.exists(ckpt_path):
@@ -133,7 +152,8 @@ def cmd_reconstruct(args) -> int:
         start = engine._input_index
         print(f"resumed at frame {frame} (input file {start})")
 
-    cache_dir = os.path.join(args.out, "features") if args.cache_features else None
+    # the cache is rank 0's (two ranks writing one file would race)
+    cache_dir = os.path.join(args.out, "features") if args.cache_features and primary else None
     if cache_dir:
         os.makedirs(cache_dir, exist_ok=True)
         # the cache key covers every config knob that changes the features
@@ -174,8 +194,7 @@ def cmd_reconstruct(args) -> int:
         # decode + upload of the NEXT frame overlap the current frame's work
         from structure_from_motion_tpu_torch.io.prefetch import DevicePrefetcher
 
-        frame_iter = iter(DevicePrefetcher(files[start:], load_image_grayscale,
-                                           device=args.device))
+        frame_iter = iter(DevicePrefetcher(files[start:], load_image_grayscale, device=device))
     for i, (path, img) in enumerate(frame_iter, start=start):
         t1 = time.time()
         info = feed(path, img)
@@ -197,12 +216,14 @@ def cmd_reconstruct(args) -> int:
             print(f"  WARNING: capacity overflow -- {info['dropped_points']} points / "
                   f"{info['dropped_obs']} observations dropped so far; raise --max-points/"
                   f"--max-observations", file=sys.stderr)
-        if args.checkpoint_every and (i + 1) % args.checkpoint_every == 0:
+        if primary and args.checkpoint_every and (i + 1) % args.checkpoint_every == 0:
             engine.save_checkpoint(ckpt_path)
     total = time.time() - t0
 
     locs, rots = engine.poses()
     pts = engine.map_points()
+    if not primary:
+        return 0
     np.savez(os.path.join(args.out, "reconstruction.npz"), locations=locs, rotations=rots,
              points=pts)
     engine.save_checkpoint(ckpt_path)
@@ -349,7 +370,8 @@ def build_parser() -> argparse.ArgumentParser:
     r.add_argument("--max-points", type=int, default=16384)
     r.add_argument("--max-observations", type=int, default=65536)
     r.add_argument("--ba-shards", type=int, default=1,
-                   help="sharded BA; only 1 is ported yet (ROADMAP A13)")
+                   help="shard BA points/observations over this many ranks (distributed Schur "
+                        "LM; run under torchrun --nproc-per-node N; 1 = single device)")
     r.add_argument("--seed", type=int, default=0)
     r.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="cuda runs the hand-written kernels and needs a card; cpu runs their "

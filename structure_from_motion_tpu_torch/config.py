@@ -9,12 +9,12 @@ reads in the other (``tests/test_torch_config.py`` holds the two trees
 field by field).
 
 Fields that choose an implementation in the JAX package (``blur_impl``,
-``blur_precision``, ``topk``, ``grad_pack``, ``grad_dtype``,
-``extrema_dtype``, ``extrema_impl``, ``MatcherConfig.impl``,
-``assemble_impl``, ``matvec_impl``) are kept for that round trip only.
-Nothing in the port reads them: a CPU tensor runs a kernel's plain version,
-a CUDA tensor launches the kernel, and the frontend always runs the exact
-f32 semantics.
+``blur_precision``, ``topk``, ``grad_pack``, ``extrema_dtype``,
+``extrema_impl``, ``MatcherConfig.impl``, ``assemble_impl``,
+``matvec_impl``) are kept for that round trip only. Nothing in the port
+reads them: a CPU tensor runs a kernel's plain version, a CUDA tensor
+launches the kernel, and the frontend always runs the exact f32 blur and
+extremum semantics. ``grad_dtype`` is honoured (gradients stored in bf16).
 """
 
 from __future__ import annotations
@@ -93,11 +93,13 @@ class FrontendConfig:
     # B = 8 takes the fused kernel; another B > 1 reduces the response map
     topk_block: int = 8
     grad_pack: str = "quad"  # round trip only
-    grad_dtype: str = "bf16"  # round trip only
+    grad_dtype: str = "bf16"  # gradient storage: "bf16" or "f32"
     extrema_dtype: str = "bf16"  # round trip only
     extrema_impl: str = "auto"  # round trip only
-    # orientation/descriptor sampling: the port covers "rotated" (two 16x16
-    # sample passes: orientation window, then the rotated descriptor grid)
+    # orientation/descriptor sampling: "rotated" (two 16x16 sample passes:
+    # orientation window, then the rotated descriptor grid) or "shared" (ONE
+    # unrotated shared_grid x shared_grid grid at shared_grid_step sigma
+    # serving both)
     sampling: str = "rotated"
     shared_grid: int = 18
     shared_grid_step: float = 0.95
@@ -141,12 +143,13 @@ class BAConfig:
     matvec_impl: str = "auto"  # round trip only
     # observation layout inside the LM loop: "ell" packs the stream once per
     # BA call so point m owns ell_rows slots; "tiered" takes a stream packed
-    # by models/global_ba.pack_tiered; "csr" serves only the sharded solve
+    # by models/global_ba.pack_tiered; "csr" sorts the stream by point id
+    # (segment sums; any other value)
     obs_layout: str = "ell"
     # slots per point in the ELL table; 0 = the camera-slot count V (at most
     # one observation per (view, point) pair, so V never drops any)
     ell_rows: int = 0
-    ell_tail: int = 0  # hybrid-ELL spill capacity (sharded solve only)
+    ell_tail: int = 0  # hybrid-ELL spill capacity (the sharded global solve sets it)
     # > 0: camera-axis reductions run over a camera-major view with this
     # many slots per camera; must be >= the busiest camera's observation
     # count or the excess drops. 0 = sized by the PCG path when it needs one
@@ -219,7 +222,8 @@ class PipelineConfig:
     keyframe_min_flow_px: float = 0.0
     # lens distortion (k1, k2[, p1, p2[, k3]]), undistorted at ingest; () = pinhole
     distortion: tuple = ()
-    ba_num_shards: int = 1  # sharded BA; the port covers 1
+    # > 1: the per-frame BA sharded over that many ranks (parallel/; torchrun)
+    ba_num_shards: int = 1
     # per-frame BA runs on the smallest power-of-2 prefix bucket that holds
     # the live counts (one host read per stage picks it)
     ba_bucketing: bool = True

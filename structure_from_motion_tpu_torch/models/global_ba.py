@@ -1,12 +1,15 @@
 """Whole-trajectory bundle adjustment over a sliding-window run (port of
-``structure_from_motion_tpu/models/global_ba.py``, single device).
+``structure_from_motion_tpu/models/global_ba.py``).
 
 The sliding window freezes each camera's pose at eviction. At the end of a
 run the eviction archive (host-numpy :class:`~structure_from_motion_tpu_torch.
 models.tracks.EvictionRecord` rows) and the live window reassemble into ONE
 BA problem over every camera, keyed by the persistent global point ids, and
-the same Schur-LM engine solves it: tiered ELL layout, PCG with kernels B5
-and B6 from ``pcg_fallback_cameras`` cameras up.
+the same Schur-LM engine solves it, PCG with kernels B5 and B6 from
+``pcg_fallback_cameras`` cameras up: on one device in the tiered ELL
+layout, or sharded over the ranks of a process group
+(``parallel/ba_sharded.py``) in the hybrid ELL (uniform rows plus a
+point-sorted spill tail) a shard.
 
 Assembly is host-side numpy (once per reconstruction; data-dependent
 shapes); only the solve runs on the device.
@@ -26,6 +29,12 @@ from structure_from_motion_tpu_torch.ops.ba import (
     BAObservations,
     BAState,
     run_bundle_adjustment,
+)
+from structure_from_motion_tpu_torch.parallel import (
+    Mesh,
+    interleaved_bundle_adjustment,
+    make_mesh,
+    replicate_first_rank,
 )
 
 
@@ -224,14 +233,45 @@ def tiered_problem(problem: GlobalProblem):
     return st, obs_t, tiers, order, cam_rows
 
 
+_SPILL_COST = 12  # relative cost of one CSR-tail slot vs one dense ELL slot
+
+
+def _choose_ell_rows(counts: np.ndarray, m_pad: int) -> tuple[int, int]:
+    """The hybrid-ELL row count for a track-length histogram: minimises
+    ``m_pad * rows + _SPILL_COST * spilled(rows)``, ``spilled(rows)`` being
+    the observations past each point's first ``rows`` (the JAX package's
+    price of a tail slot against a dense one). Returns (rows, spilled)."""
+    if counts.size == 0 or counts.max() == 0:
+        return 1, 0
+    max_t = int(counts.max())
+    hist = np.bincount(counts, minlength=max_t + 2)
+    ge = np.cumsum(hist[::-1])[::-1]  # ge[k] = #points with count >= k
+    suffix = np.concatenate([np.cumsum(ge[::-1])[::-1], [0]])
+    rows = np.arange(1, max_t + 1)
+    spilled = suffix[rows + 1]  # sum_{c > r} (c - r) * hist[c]
+    cost = m_pad * rows.astype(np.int64) + _SPILL_COST * spilled
+    best = int(np.argmin(cost))
+    return int(rows[best]), int(spilled[best])
+
+
+def _align_tail(n_dense: int, tail: int, mult: int = 512) -> int:
+    """The tail padded so the stream's length is a multiple of ``mult``
+    (the JAX package's 512-row kernel tile; the padding slots are
+    invalid)."""
+    total = n_dense + tail
+    return tail + (-total) % mult
+
+
 def solve_global(problem: GlobalProblem, ba_config: BAConfig, iterations: int = 20,
                  num_shards: int = 1, stats: dict | None = None):
-    """Schur-LM over a reassembled global problem on one device, in the
-    tiered layout -> (state in the problem's point order, costs numpy).
-    ``stats``, when given, receives ``tiers``, ``slots`` and the PCG
+    """Schur-LM over a reassembled global problem -> (state in the problem's
+    point order, costs numpy): on one device in the tiered layout, or with
+    ``num_shards`` > 1 sharded over that many ranks (:func:`solve_sharded`;
+    every rank calls this with the same problem). ``stats``, when given,
+    receives the layout (``tiers``, ``slots``) and the PCG
     ``cg_iterations`` of each LM iteration."""
     if num_shards > 1:
-        raise NotImplementedError("the sharded global solve is not ported yet (ROADMAP A13)")
+        return solve_sharded(problem, ba_config, make_mesh(num_shards), iterations, stats)
     st, obs_t, tiers, order, cam_rows = tiered_problem(problem)
     cfg = dataclasses.replace(ba_config, iterations=iterations, obs_layout="tiered",
                               tiers=tiers, ell_rows=0, ell_tail=0, cam_rows=cam_rows)
@@ -241,4 +281,46 @@ def solve_global(problem: GlobalProblem, ba_config: BAConfig, iterations: int = 
     out = out._replace(X=out.X[inv], pt_valid=out.pt_valid[inv])
     if stats is not None:
         stats.update(tiers=tiers, slots=int(obs_t.cam.shape[0]), cg_iterations=cg_iters)
+    return out, costs.cpu().numpy()
+
+
+def solve_sharded(problem: GlobalProblem, ba_config: BAConfig, mesh: Mesh,
+                  iterations: int = 20, stats: dict | None = None):
+    """The global problem sharded over ``mesh``: points placed round-robin
+    (point p in shard p % S), observations partitioned into buckets of
+    ``round_up(ceil(O/S * 1.25), 8)``, each shard a hybrid ELL whose row
+    count suits the whole histogram and whose tail and camera-major view are
+    sized to the worst shard (one layout for every rank). Returns the JAX
+    package's single-device contract on every rank, for rank 0's problem:
+    (state with the whole refined map, ``X`` and ``pt_valid`` in the
+    problem's point order, costs). ``stats`` as in :func:`solve_global`,
+    with ``tiers`` the ELL block of one shard and ``tail`` its spill
+    slots."""
+    # rank 0's problem on every rank (see parallel/ba_sharded.py)
+    problem = problem._replace(
+        state=BAState(*(replicate_first_rank(t, mesh) for t in problem.state)),
+        obs=BAObservations(*(replicate_first_rank(t, mesh) for t in problem.obs)))
+    point, cam, valid = (a.cpu().numpy() for a in
+                         (problem.obs.point, problem.obs.cam, problem.obs.valid))
+    V, M = problem.state.C.shape[0], problem.state.X.shape[0]
+    O = problem.obs.cam.shape[0]
+    S = mesh.size
+    counts = np.bincount(point[valid], minlength=M)
+    rows, _ = _choose_ell_rows(counts, M)
+    obs_shard = (point % S)[valid]
+    spill_shard = np.bincount(np.arange(M) % S, weights=np.maximum(counts - rows, 0),
+                              minlength=S)
+    tail = _align_tail((M // S) * rows, int(spill_shard.max()))
+    cam_max = max(int(np.bincount(cam[valid][obs_shard == s], minlength=V).max(initial=0))
+                  for s in range(S))
+    cam_rows = _round_up(cam_max, 8) if V >= 64 else 0
+    cfg = dataclasses.replace(ba_config, iterations=iterations, obs_layout="ell",
+                              ell_rows=rows, ell_tail=tail, cam_rows=cam_rows)
+    bucket = _round_up(int(np.ceil(O / S * 1.25)), 8)
+    cg_iters: list = []
+    out, costs, _ = interleaved_bundle_adjustment(problem.state, problem.obs, cfg, mesh, bucket,
+                                                  cg_iters)
+    if stats is not None:
+        stats.update(tiers=((M // S, rows),), tail=tail, slots=(M // S) * rows + tail,
+                     bucket=bucket, cg_iterations=cg_iters)
     return out, costs.cpu().numpy()

@@ -42,7 +42,10 @@ the whole trajectory from that archive plus the live window
 layout. With ``config.keyframe_min_flow_px`` set, a frame whose median match
 displacement against the last accepted frame is too small is skipped before
 it is admitted; with ``config.distortion`` set, keypoints are undistorted
-once at ingest. Not ported yet (it raises): sharded BA.
+once at ingest. With ``config.ba_num_shards`` = S > 1 the per-frame BA is
+sharded over S ranks (``parallel/``): every rank runs the whole engine on
+the same frames with the same seeds, and only the bundle adjustment
+splits its points and observations between them.
 """
 
 from __future__ import annotations
@@ -74,6 +77,11 @@ from structure_from_motion_tpu_torch.ops.features import detect_and_describe
 from structure_from_motion_tpu_torch.ops.matching import match_descriptors
 from structure_from_motion_tpu_torch.ops.pnp import PnPResult, estimate_pnp
 from structure_from_motion_tpu_torch.ops.ransac import sample_index_sets
+from structure_from_motion_tpu_torch.parallel import (
+    interleaved_bundle_adjustment,
+    make_mesh,
+    replicate_first_rank,
+)
 from structure_from_motion_tpu_torch.ops.triangulation import (
     linear_triangulate,
     refine_triangulate,
@@ -343,15 +351,41 @@ def _ba_bucket(ladder: list, n_pts: int, n_obs: int) -> tuple:
     return ladder[sum(n_pts <= m and n_obs <= o for m, o in ladder[1:])]
 
 
+def _sharded_ba(st: SfMState, config: PipelineConfig):
+    """The per-frame BA of one lane sharded over ``config.ba_num_shards``
+    ranks, on rank 0's state: full capacity (no bucket ladder), points
+    round-robin, ``O // S`` observation slots a shard. Returns (that state
+    with its cameras and map refined, costs, observations dropped by a
+    full bucket)."""
+    if st.points.shape[0] != 1:
+        raise ValueError("a lane stack of sequences is not sharded")
+    S = config.ba_num_shards
+    mesh = make_mesh(S)
+    # every rank takes rank 0's state (the ranks' engines need not agree to
+    # the bit), so the ranks solve one problem and leave with one state
+    st = SfMState(*(replicate_first_rank(t, mesh) for t in st))
+    one = tracks.lane_state(st, 0)
+    obs = BAObservations(cam=one.obs_cam, point=one.obs_pt,
+                         uv_norm=normalized_camera_coords_per_obs(one.K[one.obs_cam.long()],
+                                                                  one.obs_uv),
+                         valid=one.obs_valid)
+    ba_state = BAState(C=one.cam_C, q=one.cam_q, X=one.points, cam_valid=one.cam_valid,
+                       pt_valid=one.pt_valid)
+    out, costs, dropped = interleaved_bundle_adjustment(ba_state, obs, config.ba, mesh,
+                                                        one.obs_cam.shape[0] // S)
+    st = st._replace(cam_C=out.C[None], cam_q=out.q[None], points=out.X[None])
+    return st, costs[None], dropped.to(torch.int32)[None]
+
+
 @lanewise
 def _ba_stage(st: SfMState, config: PipelineConfig):
     """Bundle adjustment of every lane over all its valid views, points and
     observations at ONE shared prefix bucket holding the largest live counts
-    (one host read; one B4 launch an LM iteration for all lanes), then
-    pruning. Returns (state, costs, dropped_obs, pruned_obs,
-    pruned_points)."""
+    (one host read; one B4 launch an LM iteration for all lanes), or sharded
+    over ``config.ba_num_shards`` ranks (one lane), then pruning. Returns
+    (state, costs, dropped_obs, pruned_obs, pruned_points)."""
     if config.ba_num_shards > 1:
-        raise NotImplementedError("not ported yet (ROADMAP A13): sharded BA")
+        return _prune(config, *_sharded_ba(st, config))
     B, M = st.points.shape[:2]
     O = st.obs_cam.shape[1]
     m, o = M, O
@@ -372,11 +406,15 @@ def _ba_stage(st: SfMState, config: PipelineConfig):
     points = st.points.clone()
     points[:, :m] = out.X
     st = st._replace(cam_C=out.C, cam_q=out.q, points=points)
-    zero = torch.zeros(B, dtype=torch.int32, device=points.device)
-    pruned_obs = pruned_pts = zero
+    return _prune(config, st, costs, torch.zeros(B, dtype=torch.int32, device=points.device))
+
+
+def _prune(config: PipelineConfig, st: SfMState, costs, dropped):
+    """The pruning after a BA -> :func:`_ba_stage`'s five results."""
+    pruned_obs = pruned_pts = torch.zeros_like(dropped)
     if config.prune_max_error_px > 0:
         st, pruned_obs, pruned_pts = tracks.prune_observations(st, config.prune_max_error_px)
-    return st, costs, zero, pruned_obs, pruned_pts
+    return st, costs, dropped, pruned_obs, pruned_pts
 
 
 def _zero_info(st: SfMState, config: PipelineConfig) -> dict:
@@ -493,7 +531,11 @@ class IncrementalSfM:
         if config.frontend.max_keypoints != config.capacity.max_keypoints:
             raise ValueError("frontend.max_keypoints must equal capacity.max_keypoints")
         if config.ba_num_shards > 1:
-            raise NotImplementedError("not ported yet (ROADMAP A13): sharded BA")
+            S = config.ba_num_shards
+            if config.capacity.max_points % S or config.capacity.max_observations % S:
+                raise ValueError("capacity.max_points and max_observations must be divisible "
+                                 f"by ba_num_shards={S}")
+            make_mesh(S)  # raises, naming torchrun, without a group of S ranks
         self.config = config
         self.device = torch.device(device)
         self.state = tracks.init_state(config.capacity, np.asarray(K, np.float32),

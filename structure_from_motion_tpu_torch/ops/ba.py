@@ -1,26 +1,40 @@
 """Schur-complement Levenberg-Marquardt bundle adjustment (port of
-``structure_from_motion_tpu/ops/ba.py``, single device).
+``structure_from_motion_tpu/ops/ba.py``).
 
-Observations are laid out so that no LM or CG iteration scatters:
+Observations are laid out once per call:
 
-* ``obs_layout="ell"`` (per-frame BA): packed once per call so point m owns
-  ``rows`` contiguous slots;
+* ``obs_layout="ell"`` (per-frame BA): packed so point m owns ``rows``
+  contiguous slots; with ``ell_tail`` > 0 (the sharded global solve, the
+  hybrid ELL) a point's observations beyond its ``rows`` spill into a
+  point-sorted tail of that many slots with explicit point ids;
 * ``obs_layout="tiered"`` (whole-trajectory BA): the stream arrives packed
   by ``models/global_ba.pack_tiered``, points renumbered by descending
-  track length and cut into tiers of ``(n_points, rows)``, then padding.
+  track length and cut into tiers of ``(n_points, rows)``, then padding;
+* any other ``obs_layout`` ("csr"): the stream sorted by point id, every
+  slot a tail slot.
 
-Both are described by :class:`ObsLayout` tiers (ELL is one tier), so every
-point-axis reduction is a per-tier reshape-sum and every point gather a
-broadcast. ``cam_rows`` adds a camera-major view of the same stream
-(:func:`compute_cam_ell`) for the camera-axis reductions.
+All are described by :class:`ObsLayout`: tiers (ELL is one tier, CSR one
+tier of no rows) whose point-axis reductions are reshape-sums and whose
+point gathers are broadcasts, and a tail reduced by ``index_add_`` (on
+CUDA in no fixed order) and gathered by index. ``cam_rows`` adds a
+camera-major view of the same stream (:func:`compute_cam_ell`) for the
+camera-axis reductions.
 
 One LM iteration: block assembly (kernel B4 on the card), Schur reduction
 onto the cameras, then either a dense Cholesky solve of the (7V, 7V)
 reduced system or, from ``pcg_fallback_cameras`` cameras up, matrix-free
 block-Jacobi PCG whose matvec runs kernels B5 and B6 on the card; point
 back-substitution; the adaptive accept test on the same Huber objective the
-assembly charged. The CSR layout and the hybrid-ELL tail serve only the
-sharded solve, which is not ported (ROADMAP A13).
+assembly charged.
+
+``psum``: the sharded solve (``parallel/ba_sharded.py``) runs one shard of
+the points and their observations in each rank and passes the sum over
+ranks. It is applied where the JAX package applies ``lax.psum``: the LM
+cost, the reduced right-hand side, ``U`` and the Schur coupling (dense
+solve), ``U``, the diagonal blocks and each matvec's coupling (PCG), and
+the candidate cost. ``U`` is summed BEFORE ``lam * I`` is added and the
+``U_hat @ x`` term of the matvec stays outside the sum, so the damping is
+counted once.
 
 A leading lane axis on every field of the state and the observations (the
 batched engine's per-frame BA) stacks independent problems: ELL layout,
@@ -67,12 +81,16 @@ class BAObservations(NamedTuple):
 class ObsLayout(NamedTuple):
     """How the stream is laid out: tier t owns the next ``n_t`` points with
     ``rows_t`` slots each (ELL is the single tier ``(M, rows)``), then
-    ``pad`` invalid alignment slots. ``cam_perm``/``cam_mask`` (with
-    ``cam_rows`` > 0): slot ``v * cam_rows + r`` of the camera-major view
-    holds the stream index of camera v's r-th observation."""
+    ``pad`` invalid alignment slots, then the tail: the last
+    ``len(tail_point)`` slots, point-sorted, observation i of it belonging
+    to point ``tail_point[i]`` (the hybrid ELL's spill, or the whole CSR
+    stream). ``cam_perm``/``cam_mask`` (with ``cam_rows`` > 0): slot
+    ``v * cam_rows + r`` of the camera-major view holds the stream index of
+    camera v's r-th observation."""
 
     tiers: tuple = ()  # ((n_points, rows), ...)
     pad: int = 0
+    tail_point: torch.Tensor | None = None  # (T,) point ids of the tail slots
     cam_rows: int = 0
     cam_perm: torch.Tensor | None = None  # (V * cam_rows,) int32
     cam_mask: torch.Tensor | None = None  # (V * cam_rows,) bool
@@ -86,12 +104,21 @@ def _take(t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return t[torch.arange(t.shape[0], device=t.device)[:, None], idx]
 
 
-def _to_ell(obs: BAObservations, m: int, rows: int) -> BAObservations:
+def _sort_obs_by_point(obs: BAObservations) -> BAObservations:
+    """The stream in point order (stable): the CSR layout."""
+    order = torch.argsort(obs.point, stable=True)
+    return BAObservations(*(t[order] for t in obs))
+
+
+def _to_ell(obs: BAObservations, m: int, rows: int, tail: int = 0) -> BAObservations:
     """Pack into ELL: point p owns slots [p*rows, (p+1)*rows); empty slots
-    are invalid (cam 0), and observations beyond a point's ``rows`` drop
-    (``rows = V`` never drops: at most one observation per (view, point)).
-    With a lane axis lane b's points are numbered from b * m, so one stable
-    pack lays lane after lane, each exactly as its own pack would."""
+    are invalid (cam 0). Observations beyond a point's ``rows`` spill, in
+    point order, into ``tail`` slots after the ELL block, whose point ids
+    are explicit (``m - 1`` in the empty ones, so the tail stays sorted);
+    without a tail, or past it, they drop (``rows = V`` never drops: at most
+    one observation per (view, point)). With a lane axis (no tail) lane b's
+    points are numbered from b * m, so one stable pack lays lane after lane,
+    each exactly as its own pack would."""
     if obs.cam.dim() == 2:
         B = obs.cam.shape[0]
         off = torch.arange(B, device=obs.cam.device)[:, None] * m
@@ -107,8 +134,14 @@ def _to_ell(obs: BAObservations, m: int, rows: int) -> BAObservations:
     start = torch.searchsorted(s_pt, torch.arange(m + 1, device=s_pt.device))
     rank = torch.arange(s_pt.shape[0], device=s_pt.device) - start[s_pt.clamp(max=m)]
     keep = s_valid & (rank < rows)
-    total = m * rows
+    total = m * rows + tail
     dest = torch.where(keep, s_pt * rows + rank, total)
+    if tail:
+        is_tail = s_valid & (rank >= rows)
+        tpos = torch.cumsum(is_tail.long(), 0) - 1  # point-sorted order
+        keep_tail = is_tail & (tpos < tail)
+        dest = torch.where(keep_tail, m * rows + tpos, dest)
+        keep = keep | keep_tail
     cam = torch.zeros(total + 1, dtype=torch.int32, device=s_pt.device)
     uv = torch.zeros(total + 1, 2, dtype=s_uv.dtype, device=s_pt.device)
     valid = torch.zeros(total + 1, dtype=torch.bool, device=s_pt.device)
@@ -116,6 +149,10 @@ def _to_ell(obs: BAObservations, m: int, rows: int) -> BAObservations:
     uv[dest] = s_uv
     valid[dest] = keep
     point = torch.arange(m, dtype=torch.int32, device=s_pt.device).repeat_interleave(rows)
+    if tail:
+        pt_tail = torch.full((total + 1,), m - 1, dtype=torch.int32, device=s_pt.device)
+        pt_tail[dest] = s_pt.to(torch.int32)
+        point = torch.cat([point, pt_tail[m * rows:total]])
     return BAObservations(cam=cam[:total], point=point, uv_norm=uv[:total], valid=valid[:total])
 
 
@@ -156,7 +193,8 @@ def _cam_sum(vals: torch.Tensor, cam: torch.Tensor, n_views: int, lay: ObsLayout
 
 def _point_sum(vals: torch.Tensor, m: int, lay: ObsLayout) -> torch.Tensor:
     """Sum per-slot values into (m, ...) point bins: per-tier reshape-sums
-    in point order; padding slots are ignored."""
+    in point order, plus the tail's segment sum; padding slots are
+    ignored."""
     a = 1 if lay.lanes else 0  # the slot axis
     lead, rest = vals.shape[:a], vals.shape[a + 1:]
     outs, off = [], 0
@@ -166,12 +204,17 @@ def _point_sum(vals: torch.Tensor, m: int, lay: ObsLayout) -> torch.Tensor:
             continue
         outs.append(vals.narrow(a, off, n * r).reshape(lead + (n, r) + rest).sum(a + 1))
         off += n * r
-    return torch.cat(outs, dim=a).narrow(a, 0, m)
+    out = torch.cat(outs, dim=a).narrow(a, 0, m)
+    if lay.tail_point is not None:
+        T = lay.tail_point.shape[0]
+        out = out.index_add(0, lay.tail_point.long(), vals.narrow(0, vals.shape[0] - T, T))
+    return out
 
 
 def _point_gather(vals: torch.Tensor, lay: ObsLayout) -> torch.Tensor:
     """Expand (m, ...) point values to the slot stream (per-tier broadcast;
-    padding slots read point 0, whose weight there is zero)."""
+    padding slots read point 0, whose weight there is zero; the tail by
+    index)."""
     a = 1 if lay.lanes else 0  # the point axis
     outs, p0 = [], 0
     for n, r in lay.tiers:
@@ -180,6 +223,8 @@ def _point_gather(vals: torch.Tensor, lay: ObsLayout) -> torch.Tensor:
         p0 += n
     if lay.pad:
         outs.append(vals.narrow(a, 0, 1).expand(vals.shape[:a] + (lay.pad,) + vals.shape[a + 1:]))
+    if lay.tail_point is not None:
+        outs.append(vals[lay.tail_point.long()])
     return torch.cat(outs, dim=a)
 
 
@@ -201,11 +246,12 @@ def _assemble(state: BAState, obs: BAObservations, config: BAConfig, lay: ObsLay
     return U, _point_sum(DtD, M, lay), W, b_c, _point_sum(bp_o, M, lay), cost
 
 
-def _solve_dense(U, Dinv, W, b_red, obs, pin, lam, lay: ObsLayout):
+def _solve_dense(U, Dinv, W, b_red, obs, pin, lam, lay: ObsLayout, psum=None):
     """Exact Schur solve: coupling G (M, V, 7, 3) from per-tier one-hot
-    products, the reduced (7V, 7V) system S = U + lam I - G D^-1 G^T,
-    pinned cameras as identity rows, and a Cholesky solve (one system a
-    lane for a lane stack)."""
+    products (and the tail's scatter-add), the reduced (7V, 7V) system
+    S = U + lam I - G D^-1 G^T (U and the coupling summed over ranks by
+    ``psum`` before the damping goes in), pinned cameras as identity rows,
+    and a Cholesky solve (one system a lane for a lane stack)."""
     a = 1 if lay.lanes else 0
     lead = U.shape[:a]
     M, V = Dinv.shape[a], U.shape[a]
@@ -220,9 +266,15 @@ def _solve_dense(U, Dinv, W, b_red, obs, pin, lam, lay: ObsLayout):
         Gs.append(torch.einsum("...ntv,...ntic->...nvic", ohc, Wt))
         off += n * r
     G = torch.cat(Gs, dim=a).narrow(a, 0, M)
+    if lay.tail_point is not None:
+        T = lay.tail_point.shape[0]
+        G = G.index_put((lay.tail_point.long(), obs.cam.narrow(0, obs.cam.shape[0] - T, T).long()),
+                        W.narrow(0, W.shape[0] - T, T), accumulate=True)
     GD = torch.einsum("...mvic,...mcd->...mvid", G, Dinv).reshape(lead + (M, V * 7, 3))
     # [v*7+i, w*7+j]
     coupling = torch.einsum("...mad,...mbd->...ab", GD, G.reshape(lead + (M, V * 7, 3)))
+    if psum is not None:
+        U, coupling = psum(U), psum(coupling)
     eye7 = torch.eye(7, dtype=dt, device=dev)
     blocks = torch.einsum("...vij,vw->...viwj", U + lam[..., None, None, None] * eye7,
                           torch.eye(V, dtype=dt, device=dev))  # block diagonal
@@ -237,22 +289,24 @@ def _solve_dense(U, Dinv, W, b_red, obs, pin, lam, lay: ObsLayout):
 
 
 def _solve_pcg(U, Dinv, W, b_red, obs, pin, lam, config: BAConfig, lay: ObsLayout,
-               cg_iters: list | None):
+               cg_iters: list | None, psum=None):
     """Matrix-free block-Jacobi PCG on the reduced camera system. One
     matvec: B5 expands x to the slots, a point reduction and D^-1 give y,
-    B6 reduces W y back onto the cameras over the camera-major view; S is
-    never formed. The preconditioner inverts the exact 7x7 diagonal blocks
-    of S."""
+    B6 reduces W y back onto the cameras over the camera-major view (and
+    ``psum`` sums it over ranks); S is never formed. The preconditioner
+    inverts the exact 7x7 diagonal blocks of S."""
     V, M = U.shape[0], Dinv.shape[0]
     dt = U.dtype
     eye7 = torch.eye(7, dtype=dt, device=U.device)
-    U_hat = U + lam * eye7
+    U_hat = (psum(U) if psum is not None else U) + lam * eye7
     cam = obs.cam.contiguous()
     w21 = W.reshape(-1, 21)
     # exact diagonal blocks: sum over each camera's observations of
     # W_o Dinv_pt(o) W_o^T (at most one observation per (camera, point))
     WD = torch.einsum("oic,ocd->oid", W, _point_gather(Dinv, lay))
     S_diag = _cam_sum(torch.einsum("oid,ojd->oij", WD, W), obs.cam, V, lay)
+    if psum is not None:
+        S_diag = psum(S_diag)
     P = torch.where(pin[:, None, None], eye7, U_hat - S_diag)
     Pinv, _ = torch.linalg.inv_ex(P)
     zero = torch.zeros((), dtype=dt, device=U.device)
@@ -262,6 +316,9 @@ def _solve_pcg(U, Dinv, W, b_red, obs, pin, lam, config: BAConfig, lay: ObsLayou
         t = expand_cam(cam, w21, xz.contiguous())  # G^T x per slot
         y = torch.einsum("mcd,md->mc", Dinv, _point_sum(t, M, lay))  # D^-1 G^T x
         coup = reduce_cam(w21, _point_gather(y, lay).contiguous(), lay.cam_perm, lay.cam_mask, V)
+        if psum is not None:
+            coup = psum(coup)
+        # the U_hat x term reads the already summed U_hat: outside the sum
         out = torch.einsum("vij,vj->vi", U_hat, xz) - coup
         return torch.where(pin[:, None], x, out)
 
@@ -273,8 +330,9 @@ def _solve_pcg(U, Dinv, W, b_red, obs, pin, lam, config: BAConfig, lay: ObsLayou
 
 
 def _reduce_and_solve(U, D, W, b_c, b_p, state: BAState, obs, config: BAConfig, lam,
-                      lay: ObsLayout, cg_iters: list | None):
-    """Schur reduction + reduced camera solve + point back-substitution."""
+                      lay: ObsLayout, cg_iters: list | None, psum=None):
+    """Schur reduction + reduced camera solve + point back-substitution;
+    ``psum`` sums the reduced system's parts over ranks."""
     V = state.C.shape[-2]
     dt = state.X.dtype
     Dinv = inv3x3(D + lam[..., None, None, None] * torch.eye(3, dtype=dt, device=D.device)) \
@@ -282,15 +340,17 @@ def _reduce_and_solve(U, D, W, b_c, b_p, state: BAState, obs, config: BAConfig, 
     y = torch.einsum("...mcd,...md->...mc", Dinv, b_p)
     contrib = torch.einsum("...oic,...oc->...oi", W, _point_gather(y, lay))
     b_red = b_c - _cam_sum(contrib, obs.cam, V, lay)
+    if psum is not None:
+        b_red = psum(b_red)
     pin = ~state.cam_valid
     if config.fix_first_camera_gauge:
         pin = pin.clone()
         pin[..., 0] = True
     if V >= config.pcg_fallback_cameras:
-        dc = _solve_pcg(U, Dinv, W, b_red, obs, pin, lam, config, lay, cg_iters)
+        dc = _solve_pcg(U, Dinv, W, b_red, obs, pin, lam, config, lay, cg_iters, psum)
     else:
         b_red = torch.where(pin[..., None], torch.zeros_like(b_red), b_red)
-        dc = _solve_dense(U, Dinv, W, b_red, obs, pin, lam, lay)
+        dc = _solve_dense(U, Dinv, W, b_red, obs, pin, lam, lay, psum)
     t = torch.einsum("...oic,...oi->...oc", W, _take(dc, obs.cam.long()))
     dp = torch.einsum("...mcd,...md->...mc", Dinv, b_p - _point_sum(t, D.shape[-3], lay))
     return dc, dp
@@ -307,17 +367,19 @@ def _apply_step(state: BAState, dc, dp) -> BAState:
 
 
 def total_reprojection_cost(state: BAState, obs: BAObservations, huber_delta: float = 0.0,
-                            lay: ObsLayout | None = None) -> torch.Tensor:
+                            lay: ObsLayout | None = None, psum=None) -> torch.Tensor:
     """Sum of (Huber-IRLS-weighted) squared normalised residuals over valid
     observations; with ``lay`` the stream is read in that layout, else by
-    ``obs.point``. A lane stack gives one cost a lane."""
+    ``obs.point``; ``psum`` sums the shards' costs over ranks. A lane stack
+    gives one cost a lane."""
     cam = obs.cam.long()
     X = _point_gather(state.X, lay) if lay is not None else _take(state.X, obs.point.long())
     res, _, _ = batched_residual_jacobians(
         _take(state.C, cam).reshape(-1, 3), _take(state.q, cam).reshape(-1, 4),
         X.reshape(-1, 3), obs.uv_norm.reshape(-1, 2))
     w = huber_weights(res, huber_delta) * obs.valid.reshape(-1).to(res.dtype)
-    return ((res * w[:, None]) ** 2).reshape(cam.shape[:-1] + (-1,)).sum(-1)
+    cost = ((res * w[:, None]) ** 2).reshape(cam.shape[:-1] + (-1,)).sum(-1)
+    return cost if psum is None else psum(cost)
 
 
 def _layout(state: BAState, obs: BAObservations, config: BAConfig):
@@ -342,14 +404,14 @@ def _layout(state: BAState, obs: BAObservations, config: BAConfig):
             raise ValueError("obs_layout='tiered' requires config.tiers")
         tiers = tuple(config.tiers)
         lay = ObsLayout(tiers=tiers, pad=obs.cam.shape[0] - sum(n * r for n, r in tiers))
-    elif config.obs_layout == "ell" and not config.ell_tail:
+    elif config.obs_layout == "ell":
         rows = config.ell_rows or V
-        obs = _to_ell(obs, M, rows)
-        lay = ObsLayout(tiers=((M, rows),))
-    else:
-        raise NotImplementedError(
-            "the CSR layout and the hybrid-ELL tail serve only the sharded solve, "
-            "which is not ported yet (ROADMAP A13)")
+        obs = _to_ell(obs, M, rows, config.ell_tail)
+        lay = ObsLayout(tiers=((M, rows),),
+                        tail_point=obs.point[M * rows:] if config.ell_tail else None)
+    else:  # CSR: every slot a tail slot of the point-sorted stream
+        obs = _sort_obs_by_point(obs)
+        lay = ObsLayout(tiers=((M, 0),), tail_point=obs.point)
     cam_rows = config.cam_rows
     if not cam_rows and V >= config.pcg_fallback_cameras:
         # kernel B6 sums each camera's slots over the camera-major view, so
@@ -364,30 +426,39 @@ def _layout(state: BAState, obs: BAObservations, config: BAConfig):
 
 
 def run_bundle_adjustment(state: BAState, obs: BAObservations, config: BAConfig,
-                          cg_iters: list | None = None):
+                          cg_iters: list | None = None, psum=None):
     """``config.iterations`` LM iterations; returns (state, per-iteration
     costs (iterations,)). With ``config.adaptive`` rejected steps roll back
     and grow lambda, accepted ones shrink it (on device, no host sync).
     ``cg_iters``, when given, receives the PCG iteration count of each LM
-    iteration that solved by PCG. A lane stack (see the module's docstring)
-    gives costs (B, iterations)."""
+    iteration that solved by PCG. ``psum`` (the sharded solve; see the
+    module's docstring) sums a rank's share of the reduced system over the
+    ranks: the state then holds this rank's point shard and the stream its
+    observations. A lane stack (see the module's docstring) gives costs
+    (B, iterations)."""
     if state.C.dim() == 3 and state.C.shape[0] == 1:  # one lane: the call without the axis
         out, costs = run_bundle_adjustment(BAState(*(t[0] for t in state)),
-                                           BAObservations(*(t[0] for t in obs)), config, cg_iters)
+                                           BAObservations(*(t[0] for t in obs)), config, cg_iters,
+                                           psum)
         return BAState(*(t[None] for t in out)), costs[None]
+    if psum is not None and state.C.dim() == 3:
+        raise ValueError("a lane stack of problems is not sharded")
     obs, lay = _layout(state, obs, config)
     lam = torch.full(state.C.shape[:-2], config.damping, dtype=state.X.dtype,
                      device=state.X.device)
     costs = []
     for _ in range(config.iterations):
         U, D, W, b_c, b_p, cost = _assemble(state, obs, config, lay)
-        dc, dp = _reduce_and_solve(U, D, W, b_c, b_p, state, obs, config, lam, lay, cg_iters)
+        if psum is not None:
+            cost = psum(cost)  # the accept test compares global costs
+        dc, dp = _reduce_and_solve(U, D, W, b_c, b_p, state, obs, config, lam, lay, cg_iters,
+                                   psum)
         cand = _apply_step(state, dc, dp)
         costs.append(cost)
         if not config.adaptive:
             state = cand
             continue
-        accept = total_reprojection_cost(cand, obs, config.huber_delta, lay) < cost
+        accept = total_reprojection_cost(cand, obs, config.huber_delta, lay, psum) < cost
         state = BAState(*(torch.where(accept.reshape(accept.shape + (1,) * (a.dim() - accept.dim())),
                                       a, b) for a, b in zip(cand, state)))
         lam = torch.clamp(

@@ -1,12 +1,15 @@
-"""DoG detector + 128-d rotated-grid descriptor, and Harris corners +
-steered-BRIEF codes (port of ``structure_from_motion_tpu/ops/features.py``
-for ``sampling="rotated"``).
+"""DoG detector + 128-d SIFT-like descriptor, and Harris corners +
+steered-BRIEF codes (port of ``structure_from_motion_tpu/ops/features.py``).
 
 Same pipeline as the JAX frontend: optional 2x bilinear upsample, Gaussian
 scale space (kernel B1 on the card, every octave), DoG candidate response
 (kernel B2, the 8x8 block argmax fused in) and an exact per-octave top-k, the
 cross-octave merge, the 3-D subpixel fit, 36-bin orientation histograms with
-a second peak, the duplication/re-rank, and the descriptors.
+a second peak, the duplication/re-rank, and the descriptors: with
+``sampling="rotated"`` from two 16x16 passes (the orientation window, then
+the rotated descriptor grid), with ``sampling="shared"`` from ONE unrotated
+G x G grid whose samples serve both, each sample's offset rotated into the
+descriptor frame when it is binned.
 ``detector="harris"`` runs the JAX package's ORB analogue: Harris response
 (its three structure-tensor blurs are three lanes of ONE B1 launch), 5x5
 NMS, intensity-centroid angle and +-1 steered-BRIEF codes on a dyadic
@@ -26,7 +29,11 @@ accelerator: the TPU workarounds (band-matmul/conv blur, ``blur_precision``,
 ported; the gradient buffer is a flat per-pixel ``(rows, 2)`` layout sampled
 with four gathers, the same values and zero-outside-image semantics as the
 JAX package's packed samplers. ``grad_dtype="bf16"`` is honoured: gradients
-are differenced and stored in bfloat16, as in the JAX package.
+are differenced and stored in bfloat16, as in the JAX package. The shared
+grid's sampler (the JAX package's 64-pixel chunks and weighted one-hot strip
+contraction are a TPU memory layout) samples the buffer directly with the
+JAX package's arithmetic: the bilinear weights cast to the buffer's dtype,
+the four taps summed in f32 and the sum rounded to that dtype.
 """
 
 from __future__ import annotations
@@ -361,6 +368,101 @@ def _descriptors_for(pyr, s_lvl, x, y, sig, angle, valid):
     return torch.where(valid[:, None], desc, torch.zeros_like(desc))
 
 
+def _bilinear_sample_shared(pyr: _FlatPyramid, s: torch.Tensor, sx: torch.Tensor,
+                            sy: torch.Tensor) -> torch.Tensor:
+    """Bilinear (gx, gy) of the shared grid's samples, the arithmetic of the
+    JAX package's chunked sampler: each tap's weight cast to the buffer's
+    dtype (bf16 under ``grad_dtype="bf16"``), zero outside the octave image,
+    the four weighted taps summed in f32 in the order of that sampler's
+    contraction and the sum rounded to the buffer's dtype. All samples of a
+    grid row share one ``sy`` by construction (one y offset a row).
+    -> (n, T, 2) f32."""
+    dt = pyr.g2.dtype
+    x0 = torch.floor(sx)
+    y0 = torch.floor(sy)
+    fx = sx - x0
+    fy = sy - y0
+    x0i, y0i = x0.long(), y0.long()
+    h, w = pyr.h[:, None], pyr.w[:, None]
+    start = (pyr.base + s * pyr.hw)[:, None]
+
+    def tap(yy, xx, wt):
+        inb = (yy >= 0) & (yy < h) & (xx >= 0) & (xx < w)
+        idx = start + torch.minimum(yy.clamp_min(0), h - 1) * w \
+            + torch.minimum(xx.clamp_min(0), w - 1)
+        v = pyr.g2[clamp_index(idx, pyr.g2.shape[0])].float()
+        wq = torch.where(inb, wt, torch.zeros_like(wt)).to(dt).float()
+        return v * wq[..., None]
+
+    acc = (tap(y0i, x0i, (1.0 - fx) * (1.0 - fy)) + tap(y0i, x0i + 1, fx * (1.0 - fy))
+           + tap(y0i + 1, x0i, (1.0 - fx) * fy) + tap(y0i + 1, x0i + 1, fx * fy))
+    return acc.to(dt).float()
+
+
+def _shared_offsets(G: int, step: float, device):
+    """(dxs, dys) (G*G,) sigma-unit offsets of the shared grid, row-major."""
+    lin = (np.arange(G, dtype=np.float32) - (G - 1) / 2.0) * step
+    gy, gx = np.meshgrid(lin, lin, indexing="ij")
+    return (torch.as_tensor(gx.reshape(-1), device=device),
+            torch.as_tensor(gy.reshape(-1), device=device))
+
+
+def _sample_shared_grid(pyr: _FlatPyramid, s_lvl, x, y, sig, G: int, step: float):
+    """ONE unrotated G x G grid (offsets in sigma units) serving both the
+    orientation histogram and the descriptor (``sampling="shared"``):
+    cv2-SIFT's structure, an unrotated window whose samples' offsets are
+    rotated into the descriptor frame when binned, so a second-orientation
+    duplicate reuses the same samples. -> (samples (n, G*G, 2), dxs, dys)."""
+    dxs, dys = _shared_offsets(G, step, x.device)
+    sx = x[:, None] + sig[:, None] * dxs[None, :]
+    sy = y[:, None] + sig[:, None] * dys[None, :]
+    return _bilinear_sample_shared(pyr, s_lvl, sx, sy), dxs, dys
+
+
+def _orientation_from_samples(g: torch.Tensor, dxs: torch.Tensor, dys: torch.Tensor):
+    """Orientation peaks from the shared samples: the 36-bin histogram of
+    :func:`_orientation_peaks` with its 2.25-sigma Gaussian window in the
+    grid's sigma units."""
+    gxs, gys = g[..., 0], g[..., 1]
+    mag = torch.sqrt(gxs * gxs + gys * gys)
+    ang = torch.atan2(gys, gxs)
+    wgt = torch.exp(-(dxs * dxs + dys * dys)[None, :] / (2 * 2.25**2))
+    return _hist_peaks(mag * wgt, ang)
+
+
+def _descriptors_from_samples(g, dxs, dys, angle, valid) -> torch.Tensor:
+    """128-d descriptor from the shared unrotated samples: each sample's
+    offset rotated into the descriptor frame (cell units: a cell spans 3
+    sigma), hat weights on the 4x4 cells from the rotated coordinates (a
+    sample outside their span weighs nothing, cv2-SIFT's in-window test),
+    gradient angles shifted by -angle, then the trilinear binning, the
+    6-sigma Gaussian window and L2 -> clip 0.2 -> L2 x 512 of
+    :func:`_descriptors_for`."""
+    n = g.shape[0]
+    gxd, gyd = g[..., 0], g[..., 1]
+    magd = torch.sqrt(gxd * gxd + gyd * gyd)
+    angd = torch.atan2(gyd, gxd) - angle[:, None]
+    ca, sa = torch.cos(angle)[:, None], torch.sin(angle)[:, None]
+    u = (ca * dxs[None, :] + sa * dys[None, :]) / 3.0 + 1.5
+    v = (-sa * dxs[None, :] + ca * dys[None, :]) / 3.0 + 1.5
+    cells = torch.arange(4, dtype=torch.float32, device=g.device)
+    wu = (1.0 - (u[..., None] - cells).abs()).clamp_min(0.0)  # (n, K, 4)
+    wv = (1.0 - (v[..., None] - cells).abs()).clamp_min(0.0)
+    w = magd * torch.exp(-(dxs * dxs + dys * dys)[None, :] / (2 * 6.0**2))
+    ob = torch.remainder(angd + 2 * math.pi, 2 * math.pi) / (2 * math.pi) * 8.0
+    b0 = torch.floor(ob).long() % 8
+    frac = ob - torch.floor(ob)
+    orient = F.one_hot(b0, 8).to(torch.float32) * (1 - frac)[..., None] + F.one_hot(
+        (b0 + 1) % 8, 8
+    ).to(torch.float32) * frac[..., None]  # (n, K, 8)
+    desc = torch.einsum("nkv,nku,nkb,nk->nvub", wv, wu, orient, w).reshape(n, 128)
+    desc = desc / torch.linalg.norm(desc, dim=1, keepdim=True).clamp_min(1e-9)
+    desc = desc.clamp(max=0.2)
+    desc = desc / torch.linalg.norm(desc, dim=1, keepdim=True).clamp_min(1e-9)
+    desc = desc * 512.0
+    return torch.where(valid[:, None], desc, torch.zeros_like(desc))
+
+
 def _detect_dog(img: torch.Tensor, cfg: FrontendConfig):
     """DoG + rotated-grid descriptors of an (H, W) image or a (B, H, W)
     stack (keypoint tensors ([B,] K, ...))."""
@@ -429,8 +531,20 @@ def _detect_dog(img: torch.Tensor, cfg: FrontendConfig):
     # orientation peaks; only levels [0, S] are ever sampled
     grad_octs = [g[..., : S + 1, :, :] for g in gauss_octs]
     g2 = _flat_gradients(grad_octs, cfg.grad_dtype)
-    angle1, angle2, has2 = (unflat(t) for t in _orientation_peaks(
-        _flat_pyramid(grad_octs, oct_sel, g2), flat(s_lvl), flat(x), flat(y), flat(sig)))
+    pyr = _flat_pyramid(grad_octs, oct_sel, g2)
+    shared = cfg.sampling == "shared"
+    if shared:
+        # the JAX package's sampler reads each grid row from two 64-pixel
+        # chunks; its configurations are held to the span that allows
+        sig_max = sigmas[S] * k_per_level**0.5
+        if (cfg.shared_grid - 1) * cfg.shared_grid_step * sig_max + 2 > 64:
+            raise ValueError("shared grid span exceeds the 64-px chunk invariant")
+        g_smp, dxs, dys = _sample_shared_grid(pyr, flat(s_lvl), flat(x), flat(y), flat(sig),
+                                              cfg.shared_grid, cfg.shared_grid_step)
+        peaks = _orientation_from_samples(g_smp, dxs, dys)
+    else:
+        peaks = _orientation_peaks(pyr, flat(s_lvl), flat(x), flat(y), flat(sig))
+    angle1, angle2, has2 = (unflat(t) for t in peaks)
 
     # a strong keypoint's second orientation displaces the weakest detection;
     # the stable top-k keeps the primary ahead of its equal-response duplicate
@@ -446,8 +560,18 @@ def _detect_dog(img: torch.Tensor, cfg: FrontendConfig):
     angle = take(torch.cat([angle1, angle2], dim=-1), idx2)
     mask = top2 > 0.0
 
-    desc = _descriptors_for(_flat_pyramid(grad_octs, oct_sel, g2), flat(s_lvl), flat(x),
-                            flat(y), flat(sig), flat(angle), flat(mask))
+    if shared:
+        # the winners' samples exist already: a duplicate re-bins its
+        # primary's samples under its own angle, with no further gathers
+        K2 = g_smp.shape[-2]
+        smp = g_smp.reshape(lead + (cfg.max_keypoints, K2, 2))
+        idx = idx2[..., None, None].expand(idx2.shape + (K2, 2))
+        desc = _descriptors_from_samples(
+            torch.gather(torch.cat([smp, smp], dim=-3), -3, idx).reshape(-1, K2, 2), dxs, dys,
+            flat(angle), flat(mask))
+    else:
+        desc = _descriptors_for(_flat_pyramid(grad_octs, oct_sel, g2), flat(s_lvl), flat(x),
+                                flat(y), flat(sig), flat(angle), flat(mask))
     scale_fr = torch.exp2(oct_sel.to(torch.float32)) * (0.5 if cfg.upsample_first_octave else 1.0)
     kps = Keypoints(
         xy=torch.stack([x * scale_fr, y * scale_fr], dim=-1),
@@ -605,12 +729,12 @@ def detect_and_describe(img: torch.Tensor, cfg: FrontendConfig):
     """(H, W) image -> (Keypoints, (max_keypoints, D) descriptors); a
     (B, H, W) lane stack -> the same with a leading lane axis, every kernel
     launched once for all lanes. ``cfg.detector`` picks DoG with the 128-d
-    rotated-grid descriptor or Harris with steered-BRIEF +-1 codes (match
-    those with ``metric="hamming"``)."""
+    descriptor (``cfg.sampling``: rotated grids or one shared grid) or Harris
+    with steered-BRIEF +-1 codes (match those with ``metric="hamming"``)."""
     if cfg.detector not in ("dog", "harris"):
         raise ValueError(f"unknown detector {cfg.detector!r}")
-    if cfg.sampling != "rotated":
-        raise ValueError("not ported yet (ROADMAP A12c): sampling='shared'")
+    if cfg.sampling not in ("rotated", "shared"):
+        raise ValueError(f"unknown sampling {cfg.sampling!r}")
     img = img.to(torch.float32)
     img = img / img.amax(dim=(-2, -1), keepdim=True).clamp_min(1e-6)
     if cfg.detector == "harris":

@@ -188,20 +188,35 @@ def test_tiered_pcg_ring_matches_jax_pallas_matvec():
 
 @pytest.mark.parametrize("layout", ["csr", "ell_tail", "shards"])
 def test_sharded_only_layouts_raise(layout):
-    """The CSR layout, the hybrid-ELL tail and the sharded global solve
-    serve only the sharded solve, which is not ported: they raise and name
-    ROADMAP A13."""
-    st = Tba.BAState(torch.zeros(3, 3), torch.tensor([[1.0, 0, 0, 0]] * 3), torch.zeros(4, 3),
-                     torch.ones(3, dtype=torch.bool), torch.ones(4, dtype=torch.bool))
-    obs = Tba.BAObservations(torch.zeros(8, dtype=torch.int32), torch.zeros(8, dtype=torch.int32),
-                             torch.zeros(8, 2), torch.zeros(8, dtype=torch.bool))
-    with pytest.raises(NotImplementedError, match="A13"):
-        if layout == "shards":
-            prob = Tg.GlobalProblem(st, obs, np.zeros(4, np.int64), 3, 4, 0, 0)
+    """The layouts the sharded solve uses and the sharded global solve, now
+    ported (tests/test_torch_sharded.py holds them against the JAX
+    package): the CSR stream and the hybrid-ELL tail run in one process and
+    give the single-device ELL solve's costs to rtol 1e-9 (f64); the
+    sharded global solve without a process group raises a ValueError that
+    names torchrun."""
+    rng = np.random.default_rng(0)
+    V, M, per = 3, 4, 3
+    cam = np.tile(np.arange(V, dtype=np.int32), M)
+    pt = np.repeat(np.arange(M, dtype=np.int32), per)
+    X = rng.normal(size=(M, 3)) + [0, 0, 8]
+    C = rng.normal(size=(V, 3)) * 0.3
+    uv = (X[pt, :2] - C[cam, :2]) / (X[pt, 2:] - C[cam, 2:]) + rng.normal(size=(M * per, 2)) * 1e-3
+    q = np.tile([1.0, 0, 0, 0], (V, 1))
+    st = Tba.BAState(T(C + 0.01), T(q), T(X + 0.02), torch.ones(V, dtype=torch.bool),
+                     torch.ones(M, dtype=torch.bool))
+    obs = Tba.BAObservations(T(cam), T(pt), T(uv), torch.ones(M * per, dtype=torch.bool))
+    if layout == "shards":
+        prob = Tg.GlobalProblem(st, obs, np.arange(M), V, M, M * per, per)
+        with pytest.raises(ValueError, match="torchrun"):
             Tg.solve_global(prob, port_config(BAConfig()), num_shards=4)
-        else:
-            cfg = BAConfig(obs_layout="csr") if layout == "csr" else BAConfig(ell_tail=64)
-            Tba.run_bundle_adjustment(st, obs, port_config(cfg))
+        return
+    base = BAConfig(iterations=4, damping=1.0, fix_first_camera_gauge=True)
+    extra = dict(obs_layout="csr") if layout == "csr" else dict(ell_rows=1, ell_tail=8)
+    cfg = dataclasses.replace(base, **extra)
+    _, want = Tba.run_bundle_adjustment(st, obs, port_config(base))
+    _, got = Tba.run_bundle_adjustment(st, obs, port_config(cfg))
+    assert float(want[-1]) < float(want[0])
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-9)
 
 
 @pytest.mark.parametrize("round_to", [16, 256])

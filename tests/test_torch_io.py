@@ -261,3 +261,69 @@ def test_reprojection_stats_and_ate_equal_the_jax_packages():
         Jmetrics.absolute_trajectory_error(est, locs), abs=1e-12)
     for g, w in zip(Tmetrics.umeyama_alignment(est, locs), Jmetrics.umeyama_alignment(est, locs)):
         np.testing.assert_allclose(g, w, atol=1e-12)
+
+
+# -- the native loader (ctypes over native/sfm_loader.cpp) ----------------------
+
+
+@pytest.fixture
+def native(monkeypatch):
+    """The port's native loader, built here from ``native/sfm_loader.cpp``
+    into ``build/native/`` (skips only when ``make`` fails), and the JAX
+    package's bindings pointed at that same library (its own build would
+    write into ``native/``)."""
+    from structure_from_motion_tpu.io import native_loader as Jnl
+    from structure_from_motion_tpu_torch.io import native_loader as Tnl
+
+    if not Tnl.native_available():
+        pytest.skip("the native loader did not build here (make failed)")
+    monkeypatch.setattr(Jnl, "_LIB_PATH", str(Tnl._LIB_PATH))
+    monkeypatch.setattr(Jnl, "_lib", None)
+    monkeypatch.setattr(Jnl, "_build_failed", False)
+    assert Jnl.native_available()
+    return Jnl, Tnl
+
+
+@pytest.mark.parametrize("bpp, top_down, size", [(24, False, (13, 21)), (32, False, (8, 10)),
+                                                 (24, True, (9, 16))])
+def test_native_decode_equals_the_jax_packages(tmp_path, native, bpp, top_down, size):
+    """BMP files decode natively to the JAX package's native decode bit for
+    bit, and to the Python decoder within 1e-3 (the JAX test's bound: the
+    C++ luma sums in another order)."""
+    Jnl, Tnl = native
+    rng = np.random.default_rng(bpp + size[1])
+    path = str(tmp_path / "frame.bmp")
+    write_bmp(path, rng.integers(0, 256, size=(*size, 3), dtype=np.uint8), bpp, top_down)
+    got = Tnl.decode_grayscale(path)
+    assert got is not None and got.dtype == np.float32 and got.shape == size
+    np.testing.assert_array_equal(got, Jnl.decode_grayscale(path))
+    np.testing.assert_allclose(got, Tdata.load_image_grayscale(path), atol=1e-3)
+    assert Tnl.decode_grayscale(str(tmp_path / "missing.bmp")) is None
+
+
+def test_prefetching_loader_order_and_fallback(tmp_path, native):
+    """The port's PrefetchingLoader against the JAX package's on the same
+    files: in order, out of order, and a file the library does not decode
+    (a PNG) through each package's Python decoder; all equal."""
+    from PIL import Image
+
+    Jnl, Tnl = native
+    rng = np.random.default_rng(4)
+    paths = []
+    for i in range(3):
+        paths.append(str(tmp_path / f"f{i}.bmp"))
+        write_bmp(paths[-1], rng.integers(0, 256, size=(12, 20, 3), dtype=np.uint8))
+    paths.append(str(tmp_path / "x.png"))
+    Image.fromarray(rng.integers(0, 256, size=(8, 8, 3), dtype=np.uint8)).save(paths[-1])
+    with Tnl.PrefetchingLoader(paths, n_threads=2) as ld:
+        got = list(ld)
+        again = [ld.get(i) for i in (3, 1, 0, 2)]
+    jl = Jnl.PrefetchingLoader(paths, n_threads=2)
+    want = list(jl)
+    jl.close()
+    assert len(got) == 4 and got[3].shape == (8, 8)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    for i, a in zip((3, 1, 0, 2), again):
+        np.testing.assert_array_equal(a, got[i])
+    np.testing.assert_array_equal(got[3], Tdata.load_image_grayscale(paths[3]))
