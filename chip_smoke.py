@@ -89,6 +89,19 @@ the script exits non-zero without printing the final result line:
    then ``BatchedIncrementalSfM`` with it on 2 lanes of the small batch
    against their single runs (poses atol 5e-3).
 
+11. serve (right after phase 4, on its frames): a fresh engine at the
+   slice's config with ``image_shape`` (960, 1280) exported by
+   ``serve.export_engine`` (the native frame step, eviction, reprojection,
+   the 10-iteration finalize: the default programs but the
+   precomputed-feature frame step, which the CPU tests serve) into
+   ``build/``; a live engine and the served one over the 24 frames, equal
+   bit for bit in every state field, the eviction archive and the
+   reprojection, within the slice's bounds; the same launches of B1, B2f,
+   B3 and B4 in both runs (the exported programs run the kernels as
+   ``sfm::`` operators); the served ``finalize``; the artifact served in a
+   spawned process with ``ops.pnp.estimate_pnp`` and the frame step made to
+   raise; export, save, load, draw and frame times.
+
 Phase 6 also decodes its BMP files through the native loader
 (``io/native_loader.PrefetchingLoader``, ``native/sfm_loader.cpp`` built by
 ``make``), which must build here, against ``io/datasets``' decode (atol
@@ -110,7 +123,8 @@ their states and fail on any finding. The frames render in worker
 processes, joined at the end.
 
 Every phase's launch counts are set to 0 just before it and read just
-after. The last two lines are a JSON object of the kernels' numbers and
+after. Last, ``torch.library.opcheck`` holds every ``sfm::`` operator with
+CUDA inputs at one small shape. The last two lines are a JSON object of the kernels' numbers and
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -615,6 +629,14 @@ def last_call(module, name: str):
         setattr(module, name, fn)
 
 
+@contextlib.contextmanager
+def _clock(name: str):
+    """Print the wall time of one phase of the smoke."""
+    t0 = time.perf_counter()
+    yield
+    print(f"phase {name}: {time.perf_counter() - t0:.1f} s")
+
+
 def _reset(counted) -> None:
     for fn in counted.values():
         fn.launches = 0
@@ -872,6 +894,159 @@ def slice_phase(dev, imgs, K, C_gt, cfg, counted, sync, card: str) -> dict:
         raise AssertionError("checkpoint round trip or finalize failed")
     _validated(engine.state, "slice")
     return launches, by_shape
+
+
+SERVE_ARTIFACT = Path(__file__).resolve().parent / "build" / "chip_smoke_serve.sfm.npz"
+SERVE_CHILD_FRAMES = 4
+
+
+def _served_child(path: str, imgs, device: str, out) -> None:
+    """A spawned process: the artifact served over the first frames with the
+    Python geometry stack made to raise (``ops.pnp.estimate_pnp`` and the
+    frame step). Puts the poses, or the error, on ``out``."""
+    try:
+        from structure_from_motion_tpu_torch import serve
+        from structure_from_motion_tpu_torch.models import incremental
+        from structure_from_motion_tpu_torch.ops import pnp
+
+        def refuse(*args, **kwargs):
+            raise AssertionError("the served engine entered the Python geometry stack")
+
+        pnp.estimate_pnp = incremental.estimate_pnp = refuse
+        incremental._frame_step = incremental._single_step = refuse
+        incremental._frame_step_native = refuse
+        engine = serve.load_engine(path, seed=0, device=device)
+        for im in imgs:
+            engine.process_image(im)
+        out.put(("ok", engine.poses()[0]))
+    except BaseException as e:  # reported to the parent, which fails the phase
+        import traceback
+
+        out.put(("error", f"{type(e).__name__}: {e}\n{traceback.format_exc()}"))
+
+
+def serve_phase(dev, imgs, K, C_gt, cfg, counted, sync, card: str) -> dict:
+    """The slice's frames through an exported artifact: (a) export a fresh
+    engine's programs, (b) live and served engines over every frame, bit
+    for bit (every state field, the eviction archive, the reprojection),
+    within the slice's bounds, (c) the same launches of B1, B2f, B3 and B4,
+    (d) the served 10-iteration ``finalize``, (e) a spawned process serving
+    with the geometry stack made to raise, (f) the times. Returns the
+    served run's launch counts (and counts by shape)."""
+    import numpy as np
+    import torch
+
+    from structure_from_motion_tpu_torch import serve
+    from structure_from_motion_tpu_torch.models.incremental import IncrementalSfM, LazyDraws
+
+    n = len(imgs)
+    span = float(np.linalg.norm(C_gt.max(0) - C_gt.min(0)))
+    # (a) export
+    SERVE_ARTIFACT.parent.mkdir(parents=True, exist_ok=True)
+    fresh = IncrementalSfM(cfg, K, frontend="native", seed=0, device=dev)
+    fresh.image_shape, fresh.image_dtype = tuple(imgs[0].shape), imgs[0].dtype
+    stats: dict = {}
+    t0 = time.perf_counter()
+    # the native engine's default programs but the precomputed-feature frame
+    # step, which this phase does not serve (the CPU tests serve it); its
+    # export took ~110 s of the ~280 s here
+    sizes = serve.export_engine(fresh, str(SERVE_ARTIFACT), stats=stats,
+                                programs=["frame_step_native", "evict", "reproj", "finalize"])
+    export_s = time.perf_counter() - t0
+    del fresh
+    for name in sorted(sizes):
+        print(f"serve export {name}: trace {stats[name][0]:.2f} s, save {stats[name][1]:.2f} s, "
+              f"{sizes[name]} bytes ({card})")
+    print(f"serve export: {export_s:.2f} s in all, artifact {SERVE_ARTIFACT.stat().st_size} bytes "
+          f"({card})")
+    t0 = time.perf_counter()
+    served = serve.load_engine(str(SERVE_ARTIFACT), seed=0, device=dev)
+    load_s = time.perf_counter() - t0
+    print(f"serve load: {load_s:.2f} s ({card})")
+
+    # (b), (c): the live run, then the served run, each with its own counts
+    def run(engine, label):
+        _reset(counted)
+        times, first = [], None
+        for i, im in enumerate(imgs):
+            t0 = time.perf_counter()
+            engine.process_image(im)
+            sync()
+            times.append(time.perf_counter() - t0)
+            if i + 1 == SERVE_CHILD_FRAMES:
+                first = engine.poses()[0]
+        launches, by_shape = _read(counted)
+        print(f"serve {label}: frame 0 {times[0]:.3f} s, frames 2-{n - 1} median "
+              f"{float(np.median(times[2:])):.3f} s, total {sum(times):.3f} s ({card})")
+        return times, launches, by_shape, first
+
+    live = IncrementalSfM(cfg, K, frontend="native", seed=0, device=dev)
+    live_t, live_launches, _, live_first = run(live, "live")
+    served_t, served_launches, served_by_shape, _ = run(served, "served")
+    fields = type(live.state)._fields
+    differ = [f for f, a, b in zip(fields, live.state, served.state) if not torch.equal(a, b)]
+    arch = all(np.array_equal(a, b) for ra, rb in zip(live._archive, served._archive)
+               for a, b in zip(ra, rb)) \
+        and len(live._archive) == len(served._archive) == max(n - cfg.window_size, 0)
+    reproj_live, reproj_served = live.reprojection_error(), served.reprojection_error()
+    locs, rots = served.poses()
+    ate = _umeyama_ate(locs, C_gt) / span
+    print(f"serve bits: state fields that differ {differ}, archive equal {arch} "
+          f"({len(served._archive)} records), reprojection live {reproj_live!r} served "
+          f"{reproj_served!r}; ATE {ate:.5f} of span (bound {ATE_BOUND}), map points "
+          f"{len(served.map_points())}")
+    kernels_of = ("B1 blur_levels", "B2f candidate_block_max", "B3 match_top2", "B4 ba_blocks")
+    print(f"serve launches: live {[live_launches[k] for k in kernels_of]}, served "
+          f"{[served_launches[k] for k in kernels_of]} ({', '.join(kernels_of)})")
+    if differ or not arch or reproj_live != reproj_served:
+        raise AssertionError(f"the served run's bits differ from the live run's: {differ}")
+    if not (ate < ATE_BOUND and reproj_served < REPROJ_BOUND_PX and np.isfinite(locs).all()
+            and locs.shape == (n, 3)):
+        raise AssertionError("the served run is outside the slice's bounds")
+    if any(served_launches[k] != live_launches[k] or live_launches[k] < 1 for k in kernels_of):
+        raise AssertionError(f"served launches {served_launches} differ from live {live_launches}")
+
+    # (d) the exported finalize
+    costs = served.finalize()
+    after = served.reprojection_error()
+    print(f"serve finalize: costs {costs.shape} {costs[0]:.6g} -> {costs[-1]:.6g}, "
+          f"reprojection {reproj_served:.4f} -> {after:.4f} px")
+    if not (costs.shape == (10,) and np.isfinite(costs).all() and after <= reproj_live + 1e-5):
+        raise AssertionError("the served finalize failed its bounds")
+
+    # (e) a fresh process that cannot enter the geometry stack
+    ctx = multiprocessing.get_context("spawn")
+    out = ctx.Queue()
+    t0 = time.perf_counter()
+    child = ctx.Process(target=_served_child,
+                        args=(str(SERVE_ARTIFACT), imgs[:SERVE_CHILD_FRAMES], str(dev), out))
+    child.start()
+    try:
+        status, result = out.get(timeout=600)
+    finally:
+        child.join(timeout=60)
+        if child.is_alive():
+            child.kill()
+            child.join()
+    print(f"serve no-retrace: spawned process {status} in {time.perf_counter() - t0:.1f} s "
+          f"(start-up and load included)")
+    if status != "ok" or not np.array_equal(result, live_first):
+        raise AssertionError(f"the served child failed or differs: {result}")
+
+    # (f) what a frame's draws cost the served engine (all rungs)
+    draw_ms = []
+    for v in range(2, 7):
+        sync()
+        t0 = time.perf_counter()
+        LazyDraws([0], v, served.state.points.device).materialize(cfg)
+        sync()
+        draw_ms.append(1e3 * (time.perf_counter() - t0))
+    print(f"serve draws a frame: median {float(np.median(draw_ms)):.3f} ms of {draw_ms} ({card})")
+    print(f"serve frame time: first live {live_t[0]:.3f} s served {served_t[0]:.3f} s; steady "
+          f"median live {float(np.median(live_t[2:])):.3f} s served "
+          f"{float(np.median(served_t[2:])):.3f} s ({card})")
+    SERVE_ARTIFACT.unlink()
+    return served_launches, served_by_shape
 
 
 def global_phase(dev, counted, sync, card: str) -> dict:
@@ -1787,6 +1962,36 @@ def kernel_phase(dev, imgs, small_img, cfg, smi: str, lane_imgs, map_lane_imgs,
     return results
 
 
+def opcheck_phase(dev) -> None:
+    """``torch.library.opcheck`` of every ``sfm::`` operator with CUDA
+    inputs at one small shape: schema, fake implementation against the
+    kernel's outputs, and the operator's registrations."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    f32 = lambda *s: torch.randn(s, generator=g, device=dev)  # noqa: E731
+    cam = torch.randint(0, 3, (8,), generator=g, device=dev, dtype=torch.int32)
+    q = f32(8, 4)
+    cases = {
+        "blur_levels": (f32(64, 80), [0.25, 0.5, 0.25, 0.1, 0.2, 0.4, 0.2, 0.1], [3, 5]),
+        "candidate_response": (f32(5, 32, 40), 0.01, 10.0, 2),
+        "candidate_block_max": (f32(5, 32, 40), 0.01, 10.0, 2),
+        "match_top2": (f32(100, 128), f32(64, 128),
+                       torch.rand(64, generator=g, device=dev) < 0.8),
+        "ba_blocks": (cam, f32(8, 3), q / q.norm(dim=-1, keepdim=True),
+                      f32(8, 3) + torch.tensor([0.0, 0.0, 6.0], device=dev), f32(8, 2),
+                      torch.ones(8, device=dev), 3, 0.0),
+        "expand_cam": (cam, f32(8, 21), f32(3, 7)),
+        "reduce_cam": (f32(8, 21), f32(8, 3),
+                       torch.randint(0, 8, (12,), generator=g, device=dev, dtype=torch.int32),
+                       torch.rand(12, generator=g, device=dev) < 0.7, 3),
+    }
+    for name, args in cases.items():
+        torch.library.opcheck(getattr(torch.ops.sfm, name).default, args)
+        torch.cuda.synchronize()
+    print(f"opcheck: {len(cases)} sfm operators pass on {dev} ({', '.join(cases)})")
+
+
 def main() -> None:
     import torch
 
@@ -1869,7 +2074,8 @@ def _smoke(torch, dev, smi: str, pool) -> None:
     counted = dict(slice_kernels, **{"B2 candidate_response": features_cuda.candidate_response,
                                      "B5 expand_cam": ba_matvec.expand_cam,
                                      "B6 reduce_cam": ba_matvec.reduce_cam})
-    runs = {"slice": slice_phase(dev, imgs, K, C_gt, cfg, counted, torch.cuda.synchronize, smi)}
+    with _clock("slice"):
+        runs = {"slice": slice_phase(dev, imgs, K, C_gt, cfg, counted, torch.cuda.synchronize, smi)}
     launches = runs["slice"][0]
     missing = [name for name in slice_kernels if launches[name] < 1]
     if missing:
@@ -1878,37 +2084,49 @@ def _smoke(torch, dev, smi: str, pool) -> None:
             or launches["B2 candidate_response"]:
         raise AssertionError(f"the slice's candidate stage is not the fused kernel's: {launches}")
 
+    # -- 11. the slice's frames through an exported artifact -------------------
+    with _clock("serve"):
+        runs["serve"] = serve_phase(dev, imgs, K, C_gt, cfg, counted, torch.cuda.synchronize, smi)
+
     # -- 5. the 500-camera global solve --------------------------------------
-    global_launches, single_global = global_phase(dev, counted, torch.cuda.synchronize, smi)
+    with _clock("global"):
+        global_launches, single_global = global_phase(dev, counted, torch.cuda.synchronize, smi)
     runs["global"] = (global_launches, {})
 
     # -- 9. the sharded BA: two ranks on this card, and a one-rank NCCL group --
-    sharded_runs, shard_inputs = sharded_phase(dev, imgs[:SHARDED_FRAMES], K,
-                                               C_gt[:SHARDED_FRAMES], cfg, single_global, smi)
+    with _clock("sharded"):
+        sharded_runs, shard_inputs = sharded_phase(dev, imgs[:SHARDED_FRAMES], K,
+                                                   C_gt[:SHARDED_FRAMES], cfg, single_global, smi)
     runs.update(sharded_runs)
 
     # -- 6. the command line ---------------------------------------------------
-    runs["cli map"] = cli_phase(dev, imgs, small_imgs, K, small_K, C_gt, small_C_gt, cfg,
-                                counted, torch.cuda.synchronize, smi)
+    with _clock("cli"):
+        runs["cli map"] = cli_phase(dev, imgs, small_imgs, K, small_K, C_gt, small_C_gt, cfg,
+                                    counted, torch.cuda.synchronize, smi)
 
     # -- 7. the batched engine ---------------------------------------------------
-    batched_runs, small_b4 = batched_phase(dev, lanes, small_lanes, map_lanes, cfg, counted,
-                                           torch.cuda.synchronize, smi)
+    with _clock("batched"):
+        batched_runs, small_b4 = batched_phase(dev, lanes, small_lanes, map_lanes, cfg, counted,
+                                               torch.cuda.synchronize, smi)
     runs.update(batched_runs)
 
     # -- 8. the Harris frontend through the command line -------------------------
     harris = renders["harris"].result()
-    runs["harris"], harris_fe, harris_b4 = harris_phase(dev, harris, counted,
-                                                        torch.cuda.synchronize, smi)
+    with _clock("harris"):
+        runs["harris"], harris_fe, harris_b4 = harris_phase(dev, harris, counted,
+                                                            torch.cuda.synchronize, smi)
 
     # -- 10. the shared sample grid: the CLI on the same frames, then 2 lanes
-    shared_phase(dev, harris, small_lanes, counted, torch.cuda.synchronize, smi)
+    with _clock("shared"):
+        shared_phase(dev, harris, small_lanes, counted, torch.cuda.synchronize, smi)
 
     # -- 3. every kernel against its plain version at its paths' shapes (after
     # the runs, whose last B4 inputs it takes) ----------------------------------
-    results = kernel_phase(dev, imgs, small_imgs[0], cfg, smi, [s[0][0] for s in lanes],
-                           [s[0][0] for s in map_lanes], [s[0][0] for s in small_lanes],
-                           harris[0][0], harris_fe, small_b4, harris_b4, shard_inputs)
+    with _clock("kernels"):
+        results = kernel_phase(dev, imgs, small_imgs[0], cfg, smi, [s[0][0] for s in lanes],
+                               [s[0][0] for s in map_lanes], [s[0][0] for s in small_lanes],
+                               harris[0][0], harris_fe, small_b4, harris_b4, shard_inputs)
+    opcheck_phase(dev)
     for r in results:
         name = r["name"].split(" (")[0].removesuffix(" lanes")
         shape, (all_launches, by_shape) = r.pop("shape"), runs[r.pop("path")]

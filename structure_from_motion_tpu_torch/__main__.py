@@ -7,9 +7,10 @@ decode -> pinned buffer -> upload on a side stream, one frame ahead
 (``io/prefetch.py``) -> ``IncrementalSfM.process_image`` -> checkpoints ->
 ``reconstruction.npz`` and the exports. It runs on the card unless
 ``--device cpu`` is given. Differences from the JAX package's CLI:
-``--device`` takes ``cuda`` (default) or ``cpu``; ``--compile-cache`` is
-accepted and ignored (PyTorch runs eagerly; the kernels' build cache is
-``build/torch_kernels/``); ``--ba-shards N`` shards the per-frame bundle
+``--device`` takes ``cuda`` (default) or ``cpu``; ``--compile-cache DIR``
+keeps the kernels' build in DIR (``serve.enable_compilation_cache``: the
+port compiles nothing else; the default is ``build/torch_kernels/``);
+``--ba-shards N`` shards the per-frame bundle
 adjustment over N ranks, one a card, so it runs under ``torchrun
 --nproc-per-node N`` (every rank reconstructs the same frames, rank r on
 ``cuda:r`` of its host; only rank 0 writes the outputs). ``--detector
@@ -124,8 +125,9 @@ def _reconstruct(args, device: str) -> int:
             print("--plot needs matplotlib, which is not installed", file=sys.stderr)
             return 2
     if args.compile_cache:
-        print("--compile-cache is ignored: PyTorch runs eagerly (the kernels' build cache is "
-              "build/torch_kernels/)", file=sys.stderr)
+        from structure_from_motion_tpu_torch.serve import enable_compilation_cache
+
+        enable_compilation_cache(args.compile_cache)
 
     from structure_from_motion_tpu_torch.io.datasets import load_image_grayscale
     from structure_from_motion_tpu_torch.models.incremental import IncrementalSfM
@@ -406,8 +408,8 @@ def build_parser() -> argparse.ArgumentParser:
     )
     r.add_argument(
         "--compile-cache", metavar="DIR", default=None,
-        help="accepted and ignored: PyTorch runs eagerly (the kernels' build cache is "
-             "build/torch_kernels/)",
+        help="build the CUDA kernels into DIR and reuse that build in later runs (the port "
+             "compiles nothing else; default build/torch_kernels/)",
     )
     r.set_defaults(fn=cmd_reconstruct)
 

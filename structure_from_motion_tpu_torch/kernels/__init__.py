@@ -10,9 +10,20 @@ source includes PyTorch's or CUTLASS's headers, so a build takes seconds. It is 
 the CUDA stream pass as ``c_void_p``, every entry point returns
 ``cudaGetLastError()`` and :func:`check` raises when that is not 0.
 
-The build runs at the first launch of any kernel (never at import: the CPU
-tests import every module on a machine without ``nvcc``). There is no
-fallback: a missing ``nvcc`` or a failed build raises.
+Each entry point is wrapped as one ``torch.library`` operator in the
+``sfm`` namespace (``sfm::blur_levels``, ``candidate_response``,
+``candidate_block_max``, ``match_top2``, ``ba_blocks``, ``expand_cam``,
+``reduce_cam``), registered by its wrapper module under ``ops/``
+(:func:`register_ops` imports them all): the plain version is its CPU
+implementation, the ``ctypes`` launch its CUDA implementation, and a fake
+implementation gives its output shapes, so ``torch.export`` traces a
+program through it. On any other device an operator raises.
+
+The build runs at the first launch of any kernel (never at import, nor when
+an operator is registered: the CPU tests import every module on a machine
+without ``nvcc``). There is no fallback: a missing ``nvcc`` or a failed
+build raises. :data:`BUILD_DIR` may be pointed elsewhere for the process
+(``serve.enable_compilation_cache``).
 """
 
 from __future__ import annotations
@@ -33,6 +44,8 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+
+OPS = ("blur_cuda", "features_cuda", "matching", "ba_cuda", "ba_matvec")
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # entry point -> argtypes (all return int = cudaError_t)
@@ -55,6 +68,15 @@ _SIGNATURES = {
     # w21, y, perm, mask, O, V, rows, coup, stream
     "sfm_reduce_cam": (_P, _P, _P, _P, _I, _I, _I, _P, _P),
 }
+
+
+def register_ops() -> None:
+    """Register every ``sfm::*`` operator (import its wrapper module); a
+    program exported with them loads only after this. Builds nothing."""
+    import importlib
+
+    for name in OPS:
+        importlib.import_module(f"structure_from_motion_tpu_torch.ops.{name}")
 
 
 def _sources() -> list[Path]:

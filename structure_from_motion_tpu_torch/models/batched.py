@@ -26,7 +26,7 @@ import torch
 
 from structure_from_motion_tpu_torch.config import PipelineConfig
 from structure_from_motion_tpu_torch.models import tracks
-from structure_from_motion_tpu_torch.models.incremental import _frame_step
+from structure_from_motion_tpu_torch.models.incremental import LazyDraws, _frame_step
 from structure_from_motion_tpu_torch.models.tracks import EvictionRecord, SfMState
 from structure_from_motion_tpu_torch.ops.features import detect_and_describe
 from structure_from_motion_tpu_torch.utils.rotations import quat_to_rotation
@@ -102,8 +102,8 @@ class BatchedIncrementalSfM:
         slot = self._begin_frame(v)
         if slot is None:
             return {"skipped": True, "frame": v}
-        self.state, info = _frame_step(self.state, slot, self.seeds, v, xy, desc, valid,
-                                       self.config)
+        draws = LazyDraws(self.seeds, v, self.state.points.device)
+        self.state, info = _frame_step(self.state, slot, draws, xy, desc, valid, self.config)
         self._frame = v + 1
         info = {k: val.cpu().numpy() for k, val in info.items()}
         info["frame"] = v

@@ -14,26 +14,34 @@ lane, ``models/batched.py`` on B sequences in lockstep (the JAX package
 
 * every kernel launches ONCE a stage: B3 on each lane's prior views
   against its own new view, B4 on every lane's BA observations;
-* the JAX package fuses a frame into one jitted program and picks buckets
-  on device with ``lax.switch``; here the code runs eagerly, so each
-  bucketed stage makes ONE host read of the LARGEST live count across lanes
-  and every lane runs at the smallest power-of-two bucket that holds it
-  (the same ladders, so the set of shapes stays small; a lane below it
-  just pads, as a lane of the JAX package does);
-* the LM loops of PnP and triangulation stop lane by lane: a finished lane
-  takes no step and keeps its iterate, and the loop ends when no lane
-  moves (the vmapped ``while_loop``);
+* the JAX package fuses a frame into one jitted program and picks the
+  stage and the buckets on device with ``lax.switch``; here each choice is
+  a ``utils/control.switch``: eagerly ONE host read of the LARGEST live
+  count across lanes (the stage, a Python int, costs none), and every lane
+  runs at the smallest power-of-two bucket that holds it (the same
+  ladders, so the set of shapes stays small; a lane below it just pads, as
+  a lane of the JAX package does); in an exported program (``serve.py``)
+  a ``cond`` node;
+* the LM loops of PnP and triangulation stop lane by lane
+  (``utils/control.loop``): a finished lane takes no step and keeps its
+  iterate, and the loop ends when no lane moves (the vmapped
+  ``while_loop``); the fixed-count loops (BA iterations, LO rounds, the
+  essential-manifold refinement) are ``utils/control.fori``;
 * the ``lax.map`` over prior views in the match stage is one batched call
   with a leading view axis; the small pure pieces of the bootstrap (pose
-  from E, cheirality, the essential-manifold refinement) go through
-  ``torch.func.vmap``.
+  from E, cheirality, the essential-manifold refinement step) go through
+  ``utils/control.lane_map`` (``torch.func.vmap`` for several lanes; one
+  lane runs them on itself, which an exported program can hold).
 
-Random draws come from ``torch.Generator``s seeded from ``(seed, frame,
-stream)``, one generator a lane and draw (the one per-lane loop left: a
-generator's stream cannot be split), so a lane draws what a single run with
-its seed draws; a shared bucket larger than a lane's own changes the shape
-of its PnP and triangulation draws, so lanes agree with single runs to a
-tolerance, as in the JAX package.
+The draws are :class:`LazyDraws` in the live engine: made when a stage
+asks, from fresh ``torch.Generator``s seeded from ``(seed, frame,
+stream)``, one a lane and draw (the one per-lane loop left: a generator's
+stream cannot be split), so a lane draws what a single run with its seed
+draws, and a PnP rung draws the same whichever rung is taken. A served
+engine passes every draw a frame may use (:class:`FrameDraws`) into the
+exported program instead. A shared bucket larger than a lane's own changes
+the shape of its PnP and triangulation draws, so lanes agree with single
+runs to a tolerance, as in the JAX package.
 
 ``window_mode="slide"`` evicts the oldest view once the window is full and
 keeps its record on the host; :meth:`IncrementalSfM.finalize_global` solves
@@ -51,14 +59,15 @@ splits its points and observations between them.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
-from torch.func import vmap
 
 from structure_from_motion_tpu_torch.config import PipelineConfig
-from structure_from_motion_tpu_torch.device import generator, stable_topk
+from structure_from_motion_tpu_torch.device import generator, repeat_each, stable_topk
 from structure_from_motion_tpu_torch.models import global_ba, tracks
 from structure_from_motion_tpu_torch.models.tracks import SfMState, _lane, lanewise
 from structure_from_motion_tpu_torch.ops.ba import BAObservations, BAState, run_bundle_adjustment
@@ -75,8 +84,8 @@ from structure_from_motion_tpu_torch.ops.epipolar import (
 )
 from structure_from_motion_tpu_torch.ops.features import detect_and_describe
 from structure_from_motion_tpu_torch.ops.matching import match_descriptors
-from structure_from_motion_tpu_torch.ops.pnp import PnPResult, estimate_pnp
-from structure_from_motion_tpu_torch.ops.ransac import sample_index_sets
+from structure_from_motion_tpu_torch.ops.pnp import PnPDraws, PnPResult, estimate_pnp
+from structure_from_motion_tpu_torch.ops.ransac import draw_uniform, sample_index_sets
 from structure_from_motion_tpu_torch.parallel import (
     interleaved_bundle_adjustment,
     make_mesh,
@@ -88,6 +97,7 @@ from structure_from_motion_tpu_torch.ops.triangulation import (
     reprojection_residuals,
     triangulate,
 )
+from structure_from_motion_tpu_torch.utils.control import lane_map, switch, take
 from structure_from_motion_tpu_torch.utils.geometry import (
     camera_projection,
     normalized_camera_coords,
@@ -99,26 +109,84 @@ from structure_from_motion_tpu_torch.utils.rotations import quat_to_rotation, ro
 _STREAM_MATCH, _STREAM_STAGE, _STREAM_STAGE_B = 0, 1, 2
 
 
-def _gens(st: SfMState, seeds, frame: int, stream: int) -> list:
-    """One generator a lane: lane b's is the one a single run with seed
-    ``seeds[b]`` draws from at this frame and stream."""
-    return [generator(st.points.device, int(s), frame, stream) for s in seeds]
+class FrameDraws(NamedTuple):
+    """Every uniform a frame program may use, drawn beforehand (an exported
+    program takes its draws as inputs; it cannot hold a generator), each
+    with its lane axis: the F-gate's (B, V, H, K) (None without the gate),
+    the bootstrap's two F draws (B, H, K), and PnP's :class:`PnPDraws` at
+    every rung of its bucket ladder. The same accessors as
+    :class:`LazyDraws`."""
+
+    gate: torch.Tensor | None
+    boot: tuple
+    pnp: tuple
+
+    def gate_source(self):
+        return self.gate
+
+    def boot_source(self, k: int):
+        return self.boot[k]
+
+    def pnp_source(self, rung: int):
+        return self.pnp[rung]
 
 
-def _match_stage(st: SfMState, v: int, gens, config: PipelineConfig) -> SfMState:
+class LazyDraws:
+    """The live engine's draws, made when a stage asks: each from fresh
+    generators, one a lane, seeded from ``(seed, frame, stream)``, so a PnP
+    rung draws the same whichever other rungs were drawn, and a live frame
+    draws only the rung it takes. :meth:`materialize` draws them all."""
+
+    def __init__(self, seeds, frame: int, device):
+        self.seeds, self.frame, self.device = [int(s) for s in seeds], int(frame), device
+
+    def _gens(self, stream: int) -> list:
+        return [generator(self.device, s, self.frame, stream) for s in self.seeds]
+
+    def gate_source(self):
+        return self._gens(_STREAM_MATCH)
+
+    def boot_source(self, k: int):
+        return self._gens((_STREAM_STAGE, _STREAM_STAGE_B)[k])
+
+    def pnp_source(self, rung: int):
+        return self._gens(_STREAM_STAGE)
+
+    def materialize(self, config: PipelineConfig) -> FrameDraws:
+        """Every draw a frame program of ``config`` may use, as a frame
+        whose stage takes it draws it (~59 M floats a lane at the CLI's
+        default config, mostly PnP's hypotheses at its three rungs)."""
+        cap = config.capacity
+        V, Kk, dev = cap.max_views, cap.max_keypoints, self.device
+        gate = None
+        if config.matcher.use_fundamental_gate:
+            gate = draw_uniform(self.gate_source(),
+                                (V, config.matcher.gate_ransac.num_hypotheses, Kk), dev)
+        hf = config.fundamental_ransac.num_hypotheses
+        boot = tuple(draw_uniform(self.boot_source(k), (hf, Kk), dev) for k in (0, 1))
+        rc = config.pnp_ransac
+        pnp = []
+        for rung, n in enumerate(_pnp_ladder(config)):
+            gens = self.pnp_source(rung)
+            sub = draw_uniform(gens, (n,), dev) if 0 < rc.score_subset < n else None
+            pnp.append(PnPDraws(sub=sub, hyp=draw_uniform(gens, (rc.num_hypotheses, n), dev)))
+        return FrameDraws(gate=gate, boot=boot, pnp=tuple(pnp))
+
+
+def _match_stage(st: SfMState, v, draws, config: PipelineConfig) -> SfMState:
     """Every lane's view v against its prior views: ONE B3 launch for all
     lanes and views, then the per-view F-gate RANSAC with a (lane, view)
     batch, only for views with enough matches, and the matches recorded."""
     B, V = st.kp_desc.shape[:2]
     prior = torch.arange(V, device=st.kp_desc.device) < v
-    res = match_descriptors(st.kp_desc, st.kp_desc[:, v], st.kp_valid & prior[:, None],
-                            st.kp_valid[:, v], config.matcher)
+    res = match_descriptors(st.kp_desc, take(st.kp_desc, v, 1), st.kp_valid & prior[:, None],
+                            take(st.kp_valid, v, 1), config.matcher)
     valid = res.valid
     if config.matcher.use_fundamental_gate:
         rc = config.matcher.gate_ransac
         ar = torch.arange(B, device=valid.device)[:, None, None]
-        que_xy = st.kp_xy[:, v][ar, res.target.clamp_min(0).long()]  # (B, V, K, 2)
-        idx_sets = sample_index_sets(gens, valid, rc.num_hypotheses, 8)
+        que_xy = take(st.kp_xy, v, 1)[ar, res.target.clamp_min(0).long()]  # (B, V, K, 2)
+        idx_sets = sample_index_sets(draws.gate_source(), valid, rc.num_hypotheses, 8)
         gate = find_fundamental(idx_sets, st.kp_xy, que_xy, valid, rc)
         # only gate views with enough matches for a meaningful model
         enough = valid.sum(-1, keepdim=True) >= 16
@@ -132,9 +200,9 @@ def _cos_parallax(X, Ca, Cb):
     return (ra * rb).sum(-1) / norms.clamp_min(1e-12)
 
 
-def _two_view_geometry(F, inliers, K0, K1, q0, C0, ref_xy, que_xy, valid):
-    """One lane's pose from F (vmapped): the four (R, C) candidates,
-    cheirality, and the essential-manifold refinement of the winner."""
+def _two_view_candidates(F, K0, K1, q0, C0, ref_xy, que_xy, valid):
+    """One lane's pose candidates from F (vmapped): the four (R, C) of E,
+    cheirality, and the winner to refine."""
     cands = decompose_essential(essential_from_fundamental(F, K0, K1))
     P_ref = camera_projection(K0, quat_to_rotation(q0), C0)
     P_cands = candidate_projections(K1, cands)
@@ -143,12 +211,29 @@ def _two_view_geometry(F, inliers, K0, K1, q0, C0, ref_xy, que_xy, valid):
     X4 = torch.stack([linear_triangulate(torch.stack([P_ref, P_cands[i]]), uv, obs_mask)
                       for i in range(4)])
     best, counts, cheir_ok = disambiguate_poses(P_ref, P_cands, X4, valid)
-    R1, _, C1 = refine_relative_pose(
-        cands.R[best], cands.t[best], normalized_camera_coords(K0, ref_xy),
-        normalized_camera_coords(K1, que_xy), valid & inliers,
-    )
+    return take(cands.R, best), take(cands.t, best), P_ref, counts, cheir_ok
+
+
+def _pair_points(P_ref, K1, R1, C1, ref_xy, que_xy, valid):
+    """One lane's refined pair of projections and its points (vmapped)."""
     P_pair = torch.stack([P_ref, camera_projection(K1, R1, C1)])
-    return R1, C1, P_pair, linear_triangulate(P_pair, uv, obs_mask), counts, cheir_ok
+    uv = torch.stack([ref_xy, que_xy], dim=1)
+    obs_mask = torch.stack([valid, valid], dim=1)
+    return P_pair, linear_triangulate(P_pair, uv, obs_mask)
+
+
+def _two_view_geometry(F, inliers, K0, K1, q0, C0, ref_xy, que_xy, valid):
+    """Every lane's pose from F: the four (R, C) candidates, cheirality,
+    and the essential-manifold refinement of the winner (its iterations
+    one loop for all lanes, each step vmapped)."""
+    R0, t0, P_ref, counts, cheir_ok = lane_map(_two_view_candidates, F, K0, K1, q0, C0, ref_xy,
+                                                que_xy, valid)
+    R1, _, C1 = refine_relative_pose(
+        R0, t0, lane_map(normalized_camera_coords, K0, ref_xy),
+        lane_map(normalized_camera_coords, K1, que_xy), valid & inliers, lanes=True,
+    )
+    P_pair, X2 = lane_map(_pair_points, P_ref, K1, R1, C1, ref_xy, que_xy, valid)
+    return R1, C1, P_pair, X2, counts, cheir_ok
 
 
 def _bootstrap_once(st: SfMState, gens, config: PipelineConfig):
@@ -157,7 +242,7 @@ def _bootstrap_once(st: SfMState, gens, config: PipelineConfig):
     rc = config.fundamental_ransac
     F = find_fundamental(sample_index_sets(gens, valid, rc.num_hypotheses, 8),
                          ref_xy, que_xy, valid, rc)
-    R1, C1, P_pair, X2, counts, cheir_ok = vmap(_two_view_geometry)(
+    R1, C1, P_pair, X2, counts, cheir_ok = _two_view_geometry(
         F.F, F.inliers, st.K[:, 0], st.K[:, 1], st.cam_q[:, 0], st.cam_C[:, 0], ref_xy, que_xy,
         valid)
     st = tracks.set_camera(st, 1, C1, rotation_to_quat(R1))
@@ -214,9 +299,22 @@ def _bucket_ladder(n: int, floor: int, max_levels: int = 3) -> list:
     return ladder
 
 
+def _bucket_index(count, ladder: list):
+    """Index of the smallest rung of the ladder that holds ``count`` (an int,
+    or a 0-dim tensor that the :func:`~..utils.control.switch` over the
+    rungs reads)."""
+    return sum(count <= n for n in ladder[1:])
+
+
 def _bucket_size(count: int, ladder: list) -> int:
     """Smallest rung of the ladder that holds ``count``."""
-    return ladder[sum(count <= n for n in ladder[1:])]
+    return ladder[_bucket_index(count, ladder)]
+
+
+def _pnp_ladder(config: PipelineConfig) -> list:
+    """The PnP (and triangulation) bucket ladder over the V * K candidates."""
+    N = config.capacity.max_views * config.capacity.max_keypoints
+    return _bucket_ladder(N, floor=2048) if config.localize_bucketing else [N]
 
 
 def _pack_indices(mask: torch.Tensor, n: int) -> torch.Tensor:
@@ -227,36 +325,52 @@ def _pack_indices(mask: torch.Tensor, n: int) -> torch.Tensor:
     return stable_topk(score, n)[1]
 
 
-def _localize_stage(st: SfMState, v: int, gens, config: PipelineConfig):
+def _filled(like: torch.Tensor, v) -> torch.Tensor:
+    """``like``-shaped integers all equal to the slot ``v`` (int or 0-dim)."""
+    return torch.zeros_like(like) + v
+
+
+def _pnp_rung(draws, X3d, uv, K_v, mask, prior_R, prior_C, *, rung: int, n: int,
+              config: PipelineConfig) -> PnPResult:
+    """PnP of every lane on its first ``n`` packed candidates (rung
+    ``rung`` of the ladder), inliers scattered back to all N."""
+    B, N = mask.shape
+    ar = _lane(B, mask.device)
+    sel = _pack_indices(mask, n)
+    sub = estimate_pnp(draws.pnp_source(rung), X3d[ar, sel], uv[ar, sel], K_v, mask[ar, sel],
+                       config.pnp_ransac, config.pnp_lm, prior_R=prior_R, prior_C=prior_C)
+    inliers = torch.zeros((B, N), dtype=torch.bool, device=mask.device)
+    inliers[ar, sel] = sub.inliers
+    return PnPResult(R=sub.R, C=sub.C, inliers=inliers, num_inliers=sub.num_inliers)
+
+
+def _localize_stage(st: SfMState, v, draws, config: PipelineConfig):
     """PnP of every lane's view v against the union of its prior views'
     2D-3D matches at ONE shared bucket (one host read), then the localised
     observations and the triangulation of new matches."""
     B, V, Kk = st.tri_index.shape
     dev = st.points.device
     ar = _lane(B, dev)
-    targets = st.match_table[:, :, v, :]  # (B, V, K)
+    targets = take(st.match_table, v, 2)  # (B, V, K)
     valid_m = targets >= 0
     flat_pt = st.tri_index.clamp_min(0).reshape(B, -1).long()
     flat_tgt = targets.clamp_min(0).reshape(B, -1).long()
     flat_mask = (valid_m & (st.tri_index >= 0)).reshape(B, -1)
     X3d = st.points[ar, flat_pt]
-    uv_v_all = st.kp_xy[:, v][ar, flat_tgt]
-    prior_R = quat_to_rotation(st.cam_q[:, v - 1])
-    prior_C = st.cam_C[:, v - 1]
+    uv_v_all = take(st.kp_xy, v, 1)[ar, flat_tgt]
+    prior_R = quat_to_rotation(take(st.cam_q, v - 1, 1))
+    prior_C = take(st.cam_C, v - 1, 1)
     N = V * Kk
-    K_v = st.K[:, v]
-    ladder = _bucket_ladder(N, floor=2048) if config.localize_bucketing else [N]
+    K_v = take(st.K, v, 1)
+    ladder = _pnp_ladder(config)
+    operands = (draws, X3d, uv_v_all, K_v, flat_mask, prior_R, prior_C)
     if len(ladder) > 1:
-        n = _bucket_size(int(flat_mask.sum(1).max()), ladder)
-        sel = _pack_indices(flat_mask, n)
-        sub = estimate_pnp(gens, X3d[ar, sel], uv_v_all[ar, sel], K_v, flat_mask[ar, sel],
-                           config.pnp_ransac, config.pnp_lm, prior_R=prior_R, prior_C=prior_C)
-        inliers = torch.zeros((B, N), dtype=torch.bool, device=dev)
-        inliers[ar, sel] = sub.inliers
-        pnp = PnPResult(R=sub.R, C=sub.C, inliers=inliers, num_inliers=sub.num_inliers)
+        pnp = switch(_bucket_index(flat_mask.sum(1).max(), ladder),
+                     [functools.partial(_pnp_rung, rung=r, n=n, config=config)
+                      for r, n in enumerate(ladder)], *operands)
     else:
-        pnp = estimate_pnp(gens, X3d, uv_v_all, K_v, flat_mask, config.pnp_ransac,
-                           config.pnp_lm, prior_R=prior_R, prior_C=prior_C)
+        pnp = estimate_pnp(draws.pnp_source(0), X3d, uv_v_all, K_v, flat_mask,
+                           config.pnp_ransac, config.pnp_lm, prior_R=prior_R, prior_C=prior_C)
     st = tracks.set_camera(st, v, pnp.C, rotation_to_quat(pnp.R))
 
     # one observation per map point, from the most recent view's match
@@ -267,7 +381,7 @@ def _localize_stage(st: SfMState, v: int, gens, config: PipelineConfig):
     latest.scatter_reduce_(0, (torch.where(obs_ok, flat_pt, M - 1) + ar * M).reshape(-1),
                            torch.where(obs_ok, order, -1).reshape(-1), "amax")
     obs_ok = obs_ok & (latest.view(B, M)[ar, flat_pt] == order)
-    st = tracks.append_observations(st, torch.full_like(flat_pt, v), flat_pt, uv_v_all, obs_ok)
+    st = tracks.append_observations(st, _filled(flat_pt, v), flat_pt, uv_v_all, obs_ok)
     st = tracks.set_tri_index(st, v, flat_tgt, flat_pt, obs_ok)
 
     P_v = camera_projection(K_v, pnp.R, pnp.C)
@@ -282,7 +396,7 @@ def _localize_stage(st: SfMState, v: int, gens, config: PipelineConfig):
     return st, info
 
 
-def _triangulate_new_flat(st: SfMState, v: int, P_v, flat_tgt, valid_m, config: PipelineConfig):
+def _triangulate_new_flat(st: SfMState, v, P_v, flat_tgt, valid_m, config: PipelineConfig):
     """Triangulate every not-yet-constructed match (u, v, k) of every lane,
     one candidate per v-key (the earliest u), at ONE shared bucket, gated by
     cheirality, reprojection error and parallax, and register points and
@@ -291,10 +405,9 @@ def _triangulate_new_flat(st: SfMState, v: int, P_v, flat_tgt, valid_m, config: 
     N = V * Kk
     dev = flat_tgt.device
     ar = _lane(B, dev)
-    u_idx = torch.arange(V, device=dev).repeat_interleave(Kk)
-    ref_keys = torch.arange(Kk, device=dev).repeat(V)
+    u_idx = repeat_each(torch.arange(V, device=dev), Kk)
     u_free = (st.tri_index < 0).reshape(B, -1)
-    v_free = st.tri_index[:, v][ar, flat_tgt] < 0
+    v_free = take(st.tri_index, v, 1)[ar, flat_tgt] < 0
     usable = (u_idx < v) & st.cam_valid[:, u_idx]
     cand = valid_m.reshape(B, -1) & u_free & v_free & usable
     first_u = torch.full((B * Kk,), V, dtype=torch.long, device=dev)
@@ -302,16 +415,29 @@ def _triangulate_new_flat(st: SfMState, v: int, P_v, flat_tgt, valid_m, config: 
                             torch.where(cand, u_idx, V).reshape(-1), "amin")
     cand = cand & (first_u.view(B, Kk)[ar, flat_tgt] == u_idx)
 
+    ladder = _pnp_ladder(config)
+    operands = (st, v, P_v, flat_tgt, cand)
+    if len(ladder) > 1:
+        return switch(_bucket_index(cand.sum(1).max(), ladder),
+                      [functools.partial(_admit_new, n=n, packed=True, config=config)
+                       for n in ladder], *operands)
+    return _admit_new(*operands, n=N, packed=False, config=config)
+
+
+def _admit_new(st: SfMState, v, P_v, flat_tgt, cand, *, n: int, packed: bool,
+               config: PipelineConfig) -> SfMState:
+    """:func:`_triangulate_new_flat` at bucket ``n``: the first ``n`` packed
+    candidates of each lane (all of them, in place, when not ``packed``)."""
+    B, V, Kk = st.tri_index.shape
+    N = V * Kk
+    dev = flat_tgt.device
+    ar = _lane(B, dev)
+    u_idx = repeat_each(torch.arange(V, device=dev), Kk)
+    ref_keys = torch.arange(Kk, device=dev).repeat(V)
     P_all = camera_projection(st.K, quat_to_rotation(st.cam_q), st.cam_C)  # (B, V, 3, 4)
     ref_xy_full = st.kp_xy.reshape(B, N, 2)
-    que_xy_full = st.kp_xy[:, v][ar, flat_tgt]
-
-    ladder = _bucket_ladder(N, floor=2048) if config.localize_bucketing else [N]
-    if len(ladder) > 1:
-        n = _bucket_size(int(cand.sum(1).max()), ladder)
-        sel = _pack_indices(cand, n)
-    else:
-        n, sel = N, torch.arange(N, device=dev).expand(B, N)
+    que_xy_full = take(st.kp_xy, v, 1)[ar, flat_tgt]
+    sel = _pack_indices(cand, n) if packed else torch.arange(N, device=dev).expand(B, N)
     u_s, cand_s, tgt_s = u_idx[sel], cand[ar, sel], flat_tgt[ar, sel]
     P_pair = torch.stack([P_all[ar, u_s], P_v[:, None].expand(B, n, 3, 4)], dim=2)
     ref_xy, que_xy = ref_xy_full[ar, sel], que_xy_full[ar, sel]
@@ -324,15 +450,15 @@ def _triangulate_new_flat(st: SfMState, v: int, P_v, flat_tgt, valid_m, config: 
     res, _ = reprojection_residuals(P, Xh[:, :3], uv, obs_mask)
     small = (torch.linalg.norm(res, dim=-1).amax(1) < config.triangulation_max_error_px)
     X3 = Xh[:, :3].reshape(B, n, 3)
-    enough_parallax = _cos_parallax(X3, st.cam_C[ar, u_s], st.cam_C[:, v][:, None]) < math.cos(
-        math.radians(config.min_parallax_deg))
+    enough_parallax = _cos_parallax(X3, st.cam_C[ar, u_s], take(st.cam_C, v, 1)[:, None]) \
+        < math.cos(math.radians(config.min_parallax_deg))
     keep = cand_s & (d_u > 0) & (d_v > 0) & small.reshape(B, n) & enough_parallax
     # every recording gates on `stored` (keep minus capacity overflow)
     st, ids, stored = tracks.allocate_points(st, X3, keep)
     st = tracks.set_tri_index_flat(st, u_s, ref_keys[sel], ids, stored)
     st = tracks.set_tri_index(st, v, tgt_s, ids, stored)
     st = tracks.append_observations(st, u_s, ids, ref_xy, stored)
-    return tracks.append_observations(st, torch.full_like(ids, v), ids, que_xy, stored)
+    return tracks.append_observations(st, _filled(ids, v), ids, que_xy, stored)
 
 
 def _ba_ladder(M: int, O: int) -> list:
@@ -346,9 +472,15 @@ def _ba_ladder(M: int, O: int) -> list:
     return ladder
 
 
+def _ba_bucket_index(ladder: list, n_pts, n_obs):
+    """Index of the smallest (points, observations) rung that holds both
+    live counts (ints, or 0-dim tensors for the switch)."""
+    return sum((n_pts <= m) & (n_obs <= o) for m, o in ladder[1:])
+
+
 def _ba_bucket(ladder: list, n_pts: int, n_obs: int) -> tuple:
     """Smallest (points, observations) rung that holds both live counts."""
-    return ladder[sum(n_pts <= m and n_obs <= o for m, o in ladder[1:])]
+    return ladder[_ba_bucket_index(ladder, n_pts, n_obs)]
 
 
 def _sharded_ba(st: SfMState, config: PipelineConfig):
@@ -377,21 +509,10 @@ def _sharded_ba(st: SfMState, config: PipelineConfig):
     return st, costs[None], dropped.to(torch.int32)[None]
 
 
-@lanewise
-def _ba_stage(st: SfMState, config: PipelineConfig):
-    """Bundle adjustment of every lane over all its valid views, points and
-    observations at ONE shared prefix bucket holding the largest live counts
-    (one host read; one B4 launch an LM iteration for all lanes), or sharded
-    over ``config.ba_num_shards`` ranks (one lane), then pruning. Returns
-    (state, costs, dropped_obs, pruned_obs, pruned_points)."""
-    if config.ba_num_shards > 1:
-        return _prune(config, *_sharded_ba(st, config))
-    B, M = st.points.shape[:2]
-    O = st.obs_cam.shape[1]
-    m, o = M, O
-    if config.ba_bucketing:
-        n_pts, n_obs = torch.stack([st.num_points.max(), st.num_obs.max()]).tolist()
-        m, o = _ba_bucket(_ba_ladder(M, O), n_pts, n_obs)
+def _ba_rung(st: SfMState, *, m: int, o: int, config: PipelineConfig):
+    """Bundle adjustment of every lane on the prefix of ``m`` points and
+    ``o`` observations -> (state, costs)."""
+    B = st.points.shape[0]
     cam_o = st.obs_cam[:, :o]
     ba_state = BAState(C=st.cam_C, q=st.cam_q, X=st.points[:, :m], cam_valid=st.cam_valid,
                        pt_valid=st.pt_valid[:, :m])
@@ -405,8 +526,27 @@ def _ba_stage(st: SfMState, config: PipelineConfig):
     out, costs = run_bundle_adjustment(ba_state, obs, config.ba)
     points = st.points.clone()
     points[:, :m] = out.X
-    st = st._replace(cam_C=out.C, cam_q=out.q, points=points)
-    return _prune(config, st, costs, torch.zeros(B, dtype=torch.int32, device=points.device))
+    return st._replace(cam_C=out.C, cam_q=out.q, points=points), costs
+
+
+@lanewise
+def _ba_stage(st: SfMState, config: PipelineConfig):
+    """Bundle adjustment of every lane over all its valid views, points and
+    observations at ONE shared prefix bucket holding the largest live counts
+    (one host read; one B4 launch an LM iteration for all lanes), or sharded
+    over ``config.ba_num_shards`` ranks (one lane), then pruning. Returns
+    (state, costs, dropped_obs, pruned_obs, pruned_points)."""
+    if config.ba_num_shards > 1:
+        return _prune(config, *_sharded_ba(st, config))
+    B, M = st.points.shape[:2]
+    ladder = _ba_ladder(M, st.obs_cam.shape[1]) if config.ba_bucketing else []
+    if len(ladder) > 1:
+        index = _ba_bucket_index(ladder, st.num_points.max(), st.num_obs.max())
+        st, costs = switch(index, [functools.partial(_ba_rung, m=m, o=o, config=config)
+                                   for m, o in ladder], st)
+    else:
+        st, costs = _ba_rung(st, m=M, o=st.obs_cam.shape[1], config=config)
+    return _prune(config, st, costs, torch.zeros(B, dtype=torch.int32, device=st.points.device))
 
 
 def _prune(config: PipelineConfig, st: SfMState, costs, dropped):
@@ -415,6 +555,12 @@ def _prune(config: PipelineConfig, st: SfMState, costs, dropped):
     if config.prune_max_error_px > 0:
         st, pruned_obs, pruned_pts = tracks.prune_observations(st, config.prune_max_error_px)
     return st, costs, dropped, pruned_obs, pruned_pts
+
+
+# a frame's statistics, in the order an exported frame program returns them
+INFO_KEYS = ("matches", "f_inliers", "cheirality_counts", "pnp_candidates", "pnp_inliers",
+             "new_points", "ba_costs", "ba_dropped_obs", "pruned_obs", "pruned_points",
+             "reprojection_px", "dropped_points", "dropped_obs")
 
 
 def _zero_info(st: SfMState, config: PipelineConfig) -> dict:
@@ -435,66 +581,88 @@ def _zero_info(st: SfMState, config: PipelineConfig) -> dict:
     }
 
 
-def _frame_step(st: SfMState, v: int, seeds, frame: int, xy, desc, valid,
-                config: PipelineConfig):
-    """One frame at slot ``v`` for every lane: store features, match
-    against all prior views, then the v == 0 / bootstrap / localise + BA
-    stage, and the reprojection metric. ``xy``, ``desc``, ``valid`` carry
-    the lane axis; lane b's generators come from ``(seeds[b], frame)``."""
+def _stage_info(st: SfMState, config: PipelineConfig, **found) -> dict:
+    """:func:`_zero_info` with a stage's statistics in, each in the type
+    and shape every stage returns (the stage switch needs one structure)."""
+    info = _zero_info(st, config)
+    info.update({k: t.to(info[k].dtype).expand_as(info[k]) for k, t in found.items()})
+    return info
+
+
+def _first_view(st: SfMState, v, draws, *, config: PipelineConfig):
+    """Frame 0: pin view 0 at the origin."""
+    B = st.points.shape[0]
+    dt, dev = st.cam_C.dtype, st.points.device
+    st = tracks.set_camera(st, 0, torch.zeros((B, 3), dtype=dt, device=dev),
+                           torch.eye(4, dtype=dt, device=dev)[0].expand(B, 4))
+    return st, _stage_info(st, config)
+
+
+def _second_view(st: SfMState, v, draws, *, config: PipelineConfig):
+    """Frame 1: the two-view bootstrap."""
+    st, si = _bootstrap_stage(st, draws.boot_source(0), draws.boot_source(1), config)
+    return st, _stage_info(st, config, **si)
+
+
+def _later_view(st: SfMState, v, draws, *, config: PipelineConfig):
+    """Frames 2 and later: localise view v, triangulate, bundle-adjust."""
+    st, si = _localize_stage(st, v, draws, config)
+    st, costs, dropped, pruned_o, pruned_p = _ba_stage(st, config)
+    return st, _stage_info(st, config, **si, ba_costs=costs, ba_dropped_obs=dropped,
+                           pruned_obs=pruned_o, pruned_points=pruned_p)
+
+
+def _frame_step(st: SfMState, v, draws, xy, desc, valid, config: PipelineConfig):
+    """One frame at slot ``v`` (a Python int, or a 0-dim int64 tensor in an
+    exported program) for every lane: store features, match against all
+    prior views, then the v == 0 / bootstrap / localise + BA stage (a
+    :func:`~..utils.control.switch` on ``min(v, 2)``), and the reprojection
+    metric. ``xy``, ``desc``, ``valid`` carry the lane axis; ``draws`` is a
+    :class:`LazyDraws` or :class:`FrameDraws`."""
     if any(config.distortion):
         # known lens distortion: undistort the measurements ONCE at ingest,
         # so that every later residual is the pinhole residual
-        xy = vmap(lambda x, K: undistort_pixels(x, K, config.distortion))(xy, st.K[:, v])
-    dev = st.points.device
-    B = st.points.shape[0]
+        xy = lane_map(lambda x, K: undistort_pixels(x, K, config.distortion), xy,
+                      take(st.K, v, 1))
     st = tracks.set_view_features(st, v, xy, desc, valid)
-    st = _match_stage(st, v, _gens(st, seeds, frame, _STREAM_MATCH), config)
-    info = _zero_info(st, config)
-    if v == 0:
-        dt = st.cam_C.dtype
-        st = tracks.set_camera(st, 0, torch.zeros((B, 3), dtype=dt, device=dev),
-                               torch.tensor([1.0, 0, 0, 0], dtype=dt, device=dev).expand(B, 4))
-    elif v == 1:
-        st, si = _bootstrap_stage(st, _gens(st, seeds, frame, _STREAM_STAGE),
-                                  _gens(st, seeds, frame, _STREAM_STAGE_B), config)
-        info.update(si)
-    else:
-        st, si = _localize_stage(st, v, _gens(st, seeds, frame, _STREAM_STAGE), config)
-        st, costs, dropped, pruned_o, pruned_p = _ba_stage(st, config)
-        info.update(si, ba_costs=costs, ba_dropped_obs=dropped, pruned_obs=pruned_o,
-                    pruned_points=pruned_p)
+    st = _match_stage(st, v, draws, config)
+    stages = [functools.partial(fn, config=config)
+              for fn in (_first_view, _second_view, _later_view)]
+    stage = v.clamp(max=2) if torch.is_tensor(v) else min(v, 2)
+    st, info = switch(stage, stages, st, v, draws)
     info["reprojection_px"] = tracks.reprojection_error(st)
     info["dropped_points"] = st.dropped_points
     info["dropped_obs"] = st.dropped_obs
     return st, info
 
 
-def _single_step(state: SfMState, v: int, seed: int, frame: int, xy, desc, valid,
-                 config: PipelineConfig):
+def _single_step(state: SfMState, v, draws, xy, desc, valid, config: PipelineConfig):
     """:func:`_frame_step` on one state: a stack of one lane."""
-    st, info = _frame_step(tracks.lanes_of(state), v, [seed], frame, xy[None], desc[None],
-                           valid[None], config)
+    st, info = _frame_step(tracks.lanes_of(state), v, draws, xy[None], desc[None], valid[None],
+                           config)
     return tracks.lane_state(st, 0), {k: t[0] for k, t in info.items()}
 
 
-def _assess_frame(state: SfMState, prev_slot: int, xy, desc, valid,
+def _assess_frame(state: SfMState, prev_slot, xy, desc, valid,
                   config: PipelineConfig) -> torch.Tensor:
     """Keyframe statistic: median pixel displacement of the candidate
     frame's descriptor matches against the stored view ``prev_slot`` (the
-    last ACCEPTED frame), without the fundamental gate: raw ratio matches
-    are a fine flow estimate before the frame is admitted.
+    last ACCEPTED frame; an int or a 0-dim tensor), without the fundamental
+    gate: raw ratio matches are a fine flow estimate before the frame is
+    admitted.
 
     Returns +inf (so the frame is admitted) when fewer than 8 matches exist:
     a scene cut carries new content even with no matched flow."""
     mcfg = dataclasses.replace(config.matcher, use_fundamental_gate=False)
-    res = match_descriptors(state.kp_desc[prev_slot], desc, state.kp_valid[prev_slot], valid,
-                            mcfg)
+    kp_xy = take(state.kp_xy, prev_slot, 0)
+    res = match_descriptors(take(state.kp_desc, prev_slot, 0), desc,
+                            take(state.kp_valid, prev_slot, 0), valid, mcfg)
     if any(config.distortion):
         # the STORED keypoints were undistorted at ingest; raw candidate
         # coordinates against them would measure the distortion, not motion.
         # prev_slot's K stands in for the candidate's (a flow statistic)
-        xy = undistort_pixels(xy, state.K[prev_slot], config.distortion)
-    disp = torch.linalg.norm(xy[res.target.clamp_min(0).long()] - state.kp_xy[prev_slot], dim=-1)
+        xy = undistort_pixels(xy, take(state.K, prev_slot, 0), config.distortion)
+    disp = torch.linalg.norm(xy[res.target.clamp_min(0).long()] - kp_xy, dim=-1)
     n = res.valid.sum()
     med = _nanmedian_mid(torch.where(res.valid, disp, torch.full_like(disp, math.nan)), n)
     return torch.where(n >= 8, med, torch.full_like(med, math.inf))
@@ -507,14 +675,28 @@ def _nanmedian_mid(x: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
     srt = torch.sort(x).values  # NaNs last
     lo = ((n - 1) // 2).clamp_min(0)
     hi = (n // 2).clamp(0, x.numel() - 1)
-    return 0.5 * (srt[lo] + srt[hi])
+    return 0.5 * (take(srt, lo, 0) + take(srt, hi, 0))
 
 
-def _frame_step_native(state: SfMState, v: int, seed: int, frame: int, img,
-                       config: PipelineConfig):
+def _assess_frame_native(state: SfMState, prev_slot, img, config: PipelineConfig):
+    """Detect, then the keyframe statistic: (xy, desc, valid, flow), the
+    features reused by the frame step when the frame is admitted."""
+    kps, desc = detect_and_describe(img, config.frontend)
+    flow = _assess_frame(state, prev_slot, kps.xy, desc, kps.mask, config)
+    return kps.xy, desc, kps.mask, flow
+
+
+def _frame_step_native(state: SfMState, v, draws, img, config: PipelineConfig):
     """Frame step with the frontend in front: image -> features -> frame."""
     kps, desc = detect_and_describe(img, config.frontend)
-    return _single_step(state, v, seed, frame, kps.xy, desc, kps.mask, config)
+    return _single_step(state, v, draws, kps.xy, desc, kps.mask, config)
+
+
+def _finalize_ba(state: SfMState, iterations: int, config: PipelineConfig):
+    """The live window's bundle adjustment with ``iterations`` LM
+    iterations -> :func:`_ba_stage`'s five results."""
+    cfg = dataclasses.replace(config, ba=dataclasses.replace(config.ba, iterations=iterations))
+    return _ba_stage(state, cfg)
 
 
 class IncrementalSfM:
@@ -524,10 +706,18 @@ class IncrementalSfM:
     (:meth:`process_image`); ``"precomputed"`` takes external features
     (:meth:`process_features`). ``device`` defaults to ``"cuda"``, which
     runs the hand-written kernels and raises on a machine without a card;
-    ``"cpu"`` runs their plain versions, as the tests do."""
+    ``"cpu"`` runs their plain versions, as the tests do.
+    ``collect_metrics=False`` leaves each frame's statistics as device
+    tensors (no fetch a frame), as the JAX engine does.
+
+    Every device program runs through :attr:`programs` (``frame_step``,
+    ``frame_step_native``, ``assess``, ``assess_native``, ``evict``,
+    ``reproj``, ``finalize``), so a served engine (``serve.ServedSfM``)
+    swaps in exported programs and keeps the window policy, archive and
+    keyframe bookkeeping of this class."""
 
     def __init__(self, config: PipelineConfig, K, frontend: str = "native", seed: int = 0,
-                 *, device="cuda"):
+                 collect_metrics: bool = True, *, device="cuda"):
         if config.frontend.max_keypoints != config.capacity.max_keypoints:
             raise ValueError("frontend.max_keypoints must equal capacity.max_keypoints")
         if config.ba_num_shards > 1:
@@ -537,6 +727,7 @@ class IncrementalSfM:
                                  f"by ba_num_shards={S}")
             make_mesh(S)  # raises, naming torchrun, without a group of S ranks
         self.config = config
+        self.collect_metrics = collect_metrics
         self.device = torch.device(device)
         self.state = tracks.init_state(config.capacity, np.asarray(K, np.float32),
                                        desc_dim=config.frontend.descriptor_dim, device=self.device)
@@ -550,6 +741,18 @@ class IncrementalSfM:
         # identity when keyframe_min_flow_px == 0) and the next input's index
         self._input_index = 0
         self.keyframe_indices: list = []
+        # the device programs by the name an exported artifact gives them:
+        # (state, slot, draws, features or image), (state, previous slot,
+        # features or image), (state), and (state, iterations) for finalize
+        self.programs = {
+            "frame_step": functools.partial(_single_step, config=config),
+            "frame_step_native": functools.partial(_frame_step_native, config=config),
+            "assess": functools.partial(_assess_frame, config=config),
+            "assess_native": functools.partial(_assess_frame_native, config=config),
+            "evict": tracks.evict_oldest_view,
+            "reproj": tracks.reprojection_error,
+            "finalize": functools.partial(_finalize_ba, config=config),
+        }
 
     def _to_device(self, a, dtype=None) -> torch.Tensor:
         """A tensor on the engine's device as it is, a CPU tensor or an array
@@ -560,6 +763,9 @@ class IncrementalSfM:
         else:
             a = torch.as_tensor(np.asarray(a))
         return a.to(self.device, dtype) if dtype is not None else a.to(self.device)
+
+    def _draws(self, frame: int) -> LazyDraws:
+        return LazyDraws([self.seed], frame, self.state.points.device)
 
     def _keyframe_flow(self, assess):
         """Run the keyframe gate: the flow statistic (one host read), or None
@@ -585,7 +791,7 @@ class IncrementalSfM:
         elif self.config.window_mode != "slide":
             return None
         else:
-            self.state, rec = tracks.evict_oldest_view(self.state)
+            self.state, rec = self.programs["evict"](self.state)
             self._archive.append(tracks.EvictionRecord(*(a.cpu().numpy() for a in rec)))
             slot = self._window - 1
         if K is not None:
@@ -608,31 +814,42 @@ class IncrementalSfM:
             raise RuntimeError("process_image requires the native frontend")
         img = self._to_device(img)
         if self.config.keyframe_min_flow_px > 0 and self._frame >= 1:
-            kps, desc = detect_and_describe(img, self.config.frontend)
-            return self._gated(kps.xy, desc, kps.mask, K)
+            feats = []
+
+            def assess(prev):
+                *f, flow = self.programs["assess_native"](self.state, prev, img)
+                feats.extend(f)
+                return flow
+
+            flow = self._keyframe_flow(assess)
+            if flow < self.config.keyframe_min_flow_px:
+                return self._skip_info(flow)
+            return self._admit(*feats, K, flow)
         v = self._frame
         slot = self._begin_frame(v, K)
         if slot is None:
             return {"skipped": True, "frame": v}
-        self.state, info = _frame_step_native(self.state, slot, self.seed, v, img, self.config)
+        self.state, info = self.programs["frame_step_native"](self.state, slot, self._draws(v),
+                                                              img)
         return self._finish_frame(v, info)
 
     def process_features(self, xy, desc, valid, K=None) -> dict:
-        return self._gated(self._to_device(xy, torch.float32), self._to_device(desc, torch.float32),
-                           self._to_device(valid, torch.bool), K)
-
-    def _gated(self, xy, desc, valid, K) -> dict:
-        """The keyframe gate, then the frame step, on device features."""
+        xy, desc = self._to_device(xy, torch.float32), self._to_device(desc, torch.float32)
+        valid = self._to_device(valid, torch.bool)
         flow = self._keyframe_flow(
-            lambda prev: _assess_frame(self.state, prev, xy, desc, valid, self.config))
+            lambda prev: self.programs["assess"](self.state, prev, xy, desc, valid))
         if flow is not None and flow < self.config.keyframe_min_flow_px:
             return self._skip_info(flow)
+        return self._admit(xy, desc, valid, K, flow)
+
+    def _admit(self, xy, desc, valid, K, flow) -> dict:
+        """The frame step on device features that passed the keyframe gate."""
         v = self._frame
         slot = self._begin_frame(v, K)
         if slot is None:
             return {"skipped": True, "frame": v}
-        self.state, info = _single_step(self.state, slot, self.seed, v, xy, desc, valid,
-                                        self.config)
+        self.state, info = self.programs["frame_step"](self.state, slot, self._draws(v), xy,
+                                                       desc, valid)
         info = self._finish_frame(v, info)
         if flow is not None:
             info["flow_px"] = flow
@@ -642,9 +859,11 @@ class IncrementalSfM:
         self._frame = v + 1
         self.keyframe_indices.append(self._input_index)
         self._input_index += 1
-        info = {k: (val.cpu().numpy() if torch.is_tensor(val) else val)
-                for k, val in dict(info, frame=v).items()}
-        info["reprojection_px"] = float(info["reprojection_px"])
+        info = dict(info, frame=v)
+        if self.collect_metrics:
+            info = {k: (val.cpu().numpy() if torch.is_tensor(val) else val)
+                    for k, val in info.items()}
+            info["reprojection_px"] = float(info["reprojection_px"])
         return info
 
     # -- checkpointing -------------------------------------------------------
@@ -669,9 +888,7 @@ class IncrementalSfM:
         """Bundle adjustment of the live window with ``iterations`` LM
         iterations (the per-frame BA runs ``config.ba.iterations``).
         Returns the per-iteration costs."""
-        cfg = dataclasses.replace(self.config,
-                                  ba=dataclasses.replace(self.config.ba, iterations=iterations))
-        self.state, costs, _, _, _ = _ba_stage(self.state, cfg)
+        self.state, costs, _, _, _ = self.programs["finalize"](self.state, iterations)
         return costs.cpu().numpy()
 
     def finalize_global(self, iterations: int = 20, num_shards: int = 1,
@@ -711,7 +928,7 @@ class IncrementalSfM:
 
     def reprojection_error(self) -> float:
         """Mean pixel reprojection error over all observations."""
-        return float(tracks.reprojection_error(self.state))
+        return float(self.programs["reproj"](self.state))
 
     def poses(self):
         """(locs (F, 3), rots (F, 3, 3)) numpy, cam-to-world, for every

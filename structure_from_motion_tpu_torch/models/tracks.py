@@ -26,6 +26,7 @@ import torch
 from structure_from_motion_tpu_torch.config import CapacityConfig
 from structure_from_motion_tpu_torch.device import DTYPE
 from structure_from_motion_tpu_torch.ops.reproj import pixel_residuals
+from structure_from_motion_tpu_torch.utils.control import put, take
 
 
 class SfMState(NamedTuple):
@@ -80,7 +81,8 @@ def lanewise(fn):
     def wrapper(state, *args, **kwargs):
         if state.num_points.dim():
             return fn(state, *args, **kwargs)
-        lift = lambda a: a[None] if torch.is_tensor(a) else a  # noqa: E731
+        # a 0-dim tensor is a slot index (``v``), shared by the lanes
+        lift = lambda a: a[None] if torch.is_tensor(a) and a.dim() else a  # noqa: E731
         return _drop_lane(fn(lanes_of(state), *map(lift, args), **kwargs))
 
     return wrapper
@@ -103,12 +105,6 @@ def _set_drop(t: torch.Tensor, dest: torch.Tensor, vals) -> torch.Tensor:
         vals = vals.to(t.dtype)
     buf[_lane(t.shape[0], t.device), dest] = vals
     return buf[:, :-1]
-
-
-def _set_col(t: torch.Tensor, v: int, val) -> torch.Tensor:
-    out = t.clone()
-    out[:, v] = val.to(t.dtype) if torch.is_tensor(val) else val
-    return out
 
 
 def init_state(cap: CapacityConfig, K, desc_dim: int = 128, *, device="cuda",
@@ -146,9 +142,9 @@ def init_state(cap: CapacityConfig, K, desc_dim: int = 128, *, device="cuda",
 @lanewise
 def set_view_features(state: SfMState, v: int, xy, desc, valid) -> SfMState:
     """Store every lane's fixed-size keypoint buffers at row ``v``."""
-    return state._replace(kp_xy=_set_col(state.kp_xy, v, xy),
-                          kp_desc=_set_col(state.kp_desc, v, desc),
-                          kp_valid=_set_col(state.kp_valid, v, valid))
+    return state._replace(kp_xy=put(state.kp_xy, v, xy, 1),
+                          kp_desc=put(state.kp_desc, v, desc, 1),
+                          kp_valid=put(state.kp_valid, v, valid, 1))
 
 
 @lanewise
@@ -162,21 +158,19 @@ def record_matches(state: SfMState, v: int, target, valid) -> SfMState:
     ks = torch.arange(Kk, dtype=torch.int32, device=tbl.device).expand_as(fwd)
     inv = torch.full(fwd.shape[:-1] + (Kk + 1,), -1, dtype=torch.int32, device=tbl.device)
     inv.scatter_(-1, torch.where(valid, target, Kk).long(), ks)
-    tbl = tbl.clone()
-    tbl[:, :, v] = fwd
-    tbl[:, v, :] = inv[..., :Kk]
-    return state._replace(match_table=tbl)
+    tbl = put(tbl, v, fwd, 2)
+    return state._replace(match_table=put(tbl, v, inv[..., :Kk], 1))
 
 
 @lanewise
 def set_view_K(state: SfMState, v: int, K) -> SfMState:
-    return state._replace(K=_set_col(state.K, v, K))
+    return state._replace(K=put(state.K, v, K, 1))
 
 
 @lanewise
 def set_camera(state: SfMState, v: int, C, q) -> SfMState:
-    return state._replace(cam_C=_set_col(state.cam_C, v, C), cam_q=_set_col(state.cam_q, v, q),
-                          cam_valid=_set_col(state.cam_valid, v, True))
+    return state._replace(cam_C=put(state.cam_C, v, C, 1), cam_q=put(state.cam_q, v, q, 1),
+                          cam_valid=put(state.cam_valid, v, True, 1))
 
 
 @lanewise
@@ -203,21 +197,41 @@ def allocate_points(state: SfMState, X: torch.Tensor, mask: torch.Tensor):
     return state, _i32(ids), stored
 
 
+def _last_writers(dest: torch.Tensor, mask: torch.Tensor, n: int) -> torch.Tensor:
+    """``mask`` kept only at the LAST masked position (in flat order) of each
+    destination in [0, n) of a lane: the sequential last-writer result of a
+    scatter with repeated keys, which a CUDA scatter does not promise (its
+    writes race), as ONE write per key."""
+    B, N = dest.shape
+    ar = _lane(B, dest.device)
+    order = torch.arange(N, device=dest.device).expand(B, N)
+    key = torch.where(mask, dest, n) + ar * (n + 1)
+    last = torch.full((B * (n + 1),), -1, dtype=torch.long, device=dest.device)
+    last.scatter_reduce_(0, key.reshape(-1), torch.where(mask, order, -1).reshape(-1), "amax")
+    return mask & (last[key] == order)
+
+
 @lanewise
 def set_tri_index(state: SfMState, v: int, keys, ids, mask) -> SfMState:
-    """``tri_index[v, keys] = ids`` where mask."""
+    """``tri_index[v, keys] = ids`` where mask; of several masked writes to
+    one key the last (in flat order) wins, on every device."""
     Kk = state.tri_index.shape[2]
-    row = _set_drop(state.tri_index[:, v], torch.where(mask, keys, Kk).long(),
+    keys = keys.long()
+    mask = _last_writers(keys, mask, Kk)
+    row = _set_drop(take(state.tri_index, v, 1), torch.where(mask, keys, Kk),
                     torch.where(mask, ids, -1))
-    return state._replace(tri_index=_set_col(state.tri_index, v, row))
+    return state._replace(tri_index=put(state.tri_index, v, row, 1))
 
 
 @lanewise
 def set_tri_index_flat(state: SfMState, views, keys, ids, mask) -> SfMState:
-    """``tri_index[views, keys] = ids`` where mask (views spanning many rows)."""
+    """``tri_index[views, keys] = ids`` where mask (views spanning many rows);
+    the last of several masked writes to one entry wins."""
     B, V, Kk = state.tri_index.shape
-    flat = torch.where(mask, views.long() * Kk + keys.long(), V * Kk)
-    tri = _set_drop(state.tri_index.reshape(B, -1), flat, torch.where(mask, ids, -1))
+    flat = views.long() * Kk + keys.long()
+    mask = _last_writers(flat, mask, V * Kk)
+    tri = _set_drop(state.tri_index.reshape(B, -1), torch.where(mask, flat, V * Kk),
+                    torch.where(mask, ids, -1))
     return state._replace(tri_index=tri.view(B, V, Kk))
 
 
@@ -249,8 +263,8 @@ def matched_pair_arrays(state: SfMState, u: int, v: int):
     valid = tgt >= 0
     ref_keys = torch.arange(Kk, dtype=torch.int32, device=tgt.device).expand(B, Kk)
     que_keys = torch.where(valid, tgt, 0)
-    que_xy = state.kp_xy[:, v][_lane(B, tgt.device), que_keys.long()]
-    return ref_keys, que_keys, state.kp_xy[:, u], que_xy, valid
+    que_xy = take(state.kp_xy, v, 1)[_lane(B, tgt.device), que_keys.long()]
+    return ref_keys, que_keys, take(state.kp_xy, u, 1), que_xy, valid
 
 
 @lanewise

@@ -46,15 +46,18 @@ call.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
 
 from structure_from_motion_tpu_torch.config import BAConfig
+from structure_from_motion_tpu_torch.device import repeat_each
 from structure_from_motion_tpu_torch.ops.ba_cuda import ba_blocks, cam_onehot, huber_weights
 from structure_from_motion_tpu_torch.ops.ba_matvec import expand_cam, reduce_cam
 from structure_from_motion_tpu_torch.ops.linalg import inv3x3, pcg_solve, solve_psd
 from structure_from_motion_tpu_torch.ops.reproj import batched_residual_jacobians
+from structure_from_motion_tpu_torch.utils.control import fori, put
 from structure_from_motion_tpu_torch.utils.rotations import quat_normalize
 
 __all__ = [
@@ -148,7 +151,7 @@ def _to_ell(obs: BAObservations, m: int, rows: int, tail: int = 0) -> BAObservat
     cam[dest] = s_cam.to(torch.int32)
     uv[dest] = s_uv
     valid[dest] = keep
-    point = torch.arange(m, dtype=torch.int32, device=s_pt.device).repeat_interleave(rows)
+    point = repeat_each(torch.arange(m, dtype=torch.int32, device=s_pt.device), rows)
     if tail:
         pt_tail = torch.full((total + 1,), m - 1, dtype=torch.int32, device=s_pt.device)
         pt_tail[dest] = s_pt.to(torch.int32)
@@ -219,7 +222,7 @@ def _point_gather(vals: torch.Tensor, lay: ObsLayout) -> torch.Tensor:
     outs, p0 = [], 0
     for n, r in lay.tiers:
         if r:
-            outs.append(vals.narrow(a, p0, n).repeat_interleave(r, dim=a))
+            outs.append(repeat_each(vals.narrow(a, p0, n), r, a))
         p0 += n
     if lay.pad:
         outs.append(vals.narrow(a, 0, 1).expand(vals.shape[:a] + (lay.pad,) + vals.shape[a + 1:]))
@@ -279,7 +282,7 @@ def _solve_dense(U, Dinv, W, b_red, obs, pin, lam, lay: ObsLayout, psum=None):
     blocks = torch.einsum("...vij,vw->...viwj", U + lam[..., None, None, None] * eye7,
                           torch.eye(V, dtype=dt, device=dev))  # block diagonal
     S = blocks.reshape(lead + (V * 7, V * 7)) - coupling
-    pin7 = pin.repeat_interleave(7, dim=-1)
+    pin7 = repeat_each(pin, 7, -1)
     eye = torch.eye(V * 7, dtype=dt, device=dev)
     S = torch.where(pin7[..., :, None], eye, S)
     S = torch.where(pin7[..., None, :], torch.where(eye > 0, S, torch.zeros_like(S)), S)
@@ -446,24 +449,34 @@ def run_bundle_adjustment(state: BAState, obs: BAObservations, config: BAConfig,
     obs, lay = _layout(state, obs, config)
     lam = torch.full(state.C.shape[:-2], config.damping, dtype=state.X.dtype,
                      device=state.X.device)
-    costs = []
-    for _ in range(config.iterations):
-        U, D, W, b_c, b_p, cost = _assemble(state, obs, config, lay)
-        if psum is not None:
-            cost = psum(cost)  # the accept test compares global costs
-        dc, dp = _reduce_and_solve(U, D, W, b_c, b_p, state, obs, config, lam, lay, cg_iters,
-                                   psum)
-        cand = _apply_step(state, dc, dp)
-        costs.append(cost)
-        if not config.adaptive:
-            state = cand
-            continue
-        accept = total_reprojection_cost(cand, obs, config.huber_delta, lay, psum) < cost
-        state = BAState(*(torch.where(accept.reshape(accept.shape + (1,) * (a.dim() - accept.dim())),
-                                      a, b) for a, b in zip(cand, state)))
-        lam = torch.clamp(
-            torch.where(accept, lam * config.damping_down, lam * config.damping_up),
-            config.min_damping, config.max_damping,
-        )
-    return state, torch.stack(costs, dim=-1)
+    costs = state.X.new_zeros(state.C.shape[:-2] + (config.iterations,))
+    C, q, X, _, costs = fori(
+        config.iterations,
+        functools.partial(_lm_iteration, config=config, cg_iters=cg_iters, psum=psum),
+        (state.C, state.q, state.X, lam, costs), state.cam_valid, state.pt_valid, obs, lay)
+    return state._replace(C=C, q=q, X=X), costs
+
+
+def _lm_iteration(i, C, q, X, lam, costs, cam_valid, pt_valid, obs, lay: ObsLayout, *,
+                  config: BAConfig, cg_iters, psum):
+    """LM iteration ``i``: assembly, reduced solve, the candidate step, its
+    cost in ``costs[..., i]`` and (adaptive) the accept test and lambda."""
+    state = BAState(C=C, q=q, X=X, cam_valid=cam_valid, pt_valid=pt_valid)
+    U, D, W, b_c, b_p, cost = _assemble(state, obs, config, lay)
+    if psum is not None:
+        cost = psum(cost)  # the accept test compares global costs
+    dc, dp = _reduce_and_solve(U, D, W, b_c, b_p, state, obs, config, lam, lay, cg_iters, psum)
+    cand = _apply_step(state, dc, dp)
+    costs = put(costs, i, cost, dim=-1 % costs.dim())
+    if not config.adaptive:
+        return cand.C, cand.q, cand.X, lam, costs
+    accept = total_reprojection_cost(cand, obs, config.huber_delta, lay, psum) < cost
+    state = BAState(*(torch.where(accept.reshape(accept.shape + (1,) * (a.dim() - accept.dim())),
+                                  a, b) for a, b in zip(cand, state)))
+    lam = torch.clamp(
+        torch.where(accept, lam * config.damping_down, lam * config.damping_up),
+        config.min_damping, config.max_damping,
+    )
+    return state.C, state.q, state.X, lam, costs
+
 

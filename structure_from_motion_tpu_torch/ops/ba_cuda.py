@@ -1,8 +1,8 @@
 """Kernel B4: fused bundle-adjustment block assembly.
 
 Port of ``structure_from_motion_tpu/ops/ba_pallas.py``. :func:`ba_blocks`
-launches ``csrc/ba_blocks.cu`` for CUDA tensors and runs
-:func:`ba_blocks_reference` for CPU tensors. Inputs are pre-gathered per
+calls the ``sfm::ba_blocks`` operator, which launches ``csrc/ba_blocks.cu``
+for CUDA tensors and runs :func:`ba_blocks_reference` for CPU tensors. Inputs are pre-gathered per
 observation, as for the TPU kernel; any observation count O.
 """
 
@@ -55,19 +55,26 @@ def ba_blocks_reference(cam, C_o, q_o, X_o, uv, w, n_views: int, huber_delta: fl
     return U, b_c, DtD, W, bp_o, (res**2).reshape(lead + (-1,)).sum(-1)
 
 
-def ba_blocks(cam, C_o, q_o, X_o, uv, w, n_views: int, huber_delta: float):
-    """Fused residual/Jacobian/block products over all observations; same
-    outputs as :func:`ba_blocks_reference`. With a lane axis ((B, O) ids,
-    (B, O, 3) centres, ...) ONE launch makes every lane's blocks and camera
-    sums, each lane exactly as its own launch (4 must divide O then). On the
-    card an observation whose camera id lies outside [0, n_views) enters no
-    camera sum, and the cost is the sum of the cameras' shares (the plain
-    version's cost counts every residual; the pipeline gives such an id no
-    weight)."""
-    if cam.device.type == "cpu":
-        return ba_blocks_reference(cam, C_o, q_o, X_o, uv, w, n_views, huber_delta)
-    if cam.device.type != "cuda":
-        raise ValueError(f"ba_blocks: unsupported device {cam.device}")
+@torch.library.custom_op("sfm::ba_blocks", mutates_args=(), device_types="cpu")
+def _ba_blocks_op(cam: torch.Tensor, C_o: torch.Tensor, q_o: torch.Tensor, X_o: torch.Tensor,
+                  uv: torch.Tensor, w: torch.Tensor, n_views: int, huber_delta: float
+                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
+                             torch.Tensor, torch.Tensor]:
+    """B4 as an operator: the plain version on the CPU, the kernel on the
+    card, no other device."""
+    return ba_blocks_reference(cam, C_o, q_o, X_o, uv, w, n_views, huber_delta)
+
+
+@_ba_blocks_op.register_fake
+def _(cam, C_o, q_o, X_o, uv, w, n_views, huber_delta):
+    lead, O = cam.shape[:-1], cam.shape[-1]
+    e = C_o.new_empty
+    return (e(lead + (n_views, 7, 7)), e(lead + (n_views, 7)), e(lead + (O, 3, 3)),
+            e(lead + (O, 7, 3)), e(lead + (O, 3)), e(lead))
+
+
+def _check(cam, C_o, q_o, X_o, uv, w, n_views: int) -> int:
+    """What the kernel takes -> the lane count (0 without a lane axis)."""
     lead = cam.shape[:-1]
     lanes = cam.shape[0] if cam.dim() == 2 else 0
     O = cam.shape[-1]
@@ -84,6 +91,13 @@ def ba_blocks(cam, C_o, q_o, X_o, uv, w, n_views: int, huber_delta: float):
     if O == 0 or n_views < 1 or (lanes and not (lanes <= 65535 and O % 4 == 0)):
         raise ValueError("ba_blocks: need O > 0 observations and n_views > 0 (and, with "
                          "lanes, 4 | O and at most 65535 of them)")
+    return lanes
+
+
+@_ba_blocks_op.register_kernel("cuda")
+def _(cam, C_o, q_o, X_o, uv, w, n_views, huber_delta):
+    lanes = _check(cam, C_o, q_o, X_o, uv, w, n_views)
+    lead, O = cam.shape[:-1], cam.shape[-1]
     dev = cam.device
     n = max(lanes, 1)
     nb = -(-O // _BLOCK)
@@ -103,14 +117,32 @@ def ba_blocks(cam, C_o, q_o, X_o, uv, w, n_views: int, huber_delta: float):
     rc = kernels.library().sfm_ba_blocks_lanes(*ptrs, n, O, n_views, *outs)
     kernels.check(rc, "sfm_ba_blocks_lanes")
     ba_blocks.launches += 1
+    # an operator's outputs may not share storage: U and b_c leave the
+    # camera sums as copies (V x 56 floats)
     return (
-        acc[..., :49].reshape(lead + (n_views, 7, 7)),
-        acc[..., 49:56],
+        acc[..., :49].reshape(lead + (n_views, 7, 7)).clone(),
+        acc[..., 49:56].clone(),
         dtd.view(lead + (O, 3, 3)),
         wblk.view(lead + (O, 7, 3)),
         bp,
         acc[..., 56].sum(-1),
     )
+
+
+def ba_blocks(cam, C_o, q_o, X_o, uv, w, n_views: int, huber_delta: float):
+    """Fused residual/Jacobian/block products over all observations; same
+    outputs as :func:`ba_blocks_reference` (the ``sfm::ba_blocks``
+    operator). With a lane axis ((B, O) ids, (B, O, 3) centres, ...) ONE
+    launch makes every lane's blocks and camera sums, each lane exactly as
+    its own launch (4 must divide O then). On the card an observation whose
+    camera id lies outside [0, n_views) enters no camera sum, and the cost
+    is the sum of the cameras' shares (the plain version's cost counts
+    every residual; the pipeline gives such an id no weight)."""
+    if cam.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"ba_blocks: unsupported device {cam.device}")
+    if cam.device.type == "cuda":
+        _check(cam, C_o, q_o, X_o, uv, w, n_views)
+    return torch.ops.sfm.ba_blocks(cam, C_o, q_o, X_o, uv, w, int(n_views), float(huber_delta))
 
 
 ba_blocks.launches = 0

@@ -12,6 +12,7 @@ component ``i*3+c`` (the JAX package's ``w21`` transposed). B6 walks the
 camera-major view of the stream that ``ops/ba.compute_cam_ell`` builds
 once per BA call: ``perm[v*rows + r]`` is camera v's r-th observation,
 ``mask`` marks the filled slots. :func:`expand_cam` and :func:`reduce_cam`
+call the ``sfm::expand_cam`` and ``sfm::reduce_cam`` operators, which
 launch ``csrc/ba_matvec.cu`` for CUDA tensors and run the plain versions
 for CPU tensors.
 """
@@ -47,18 +48,31 @@ def _check(name: str, t: torch.Tensor, shape: tuple, dtype, dev) -> None:
         raise ValueError(f"{name} must be a contiguous {tuple(shape)} {dtype} tensor on {dev}")
 
 
-def expand_cam(cam: torch.Tensor, w21: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """t (O, 3) = W_o^T x[cam_o]; same result as :func:`expand_cam_reference`."""
-    if cam.device.type == "cpu":
-        return expand_cam_reference(cam, w21, x)
-    if cam.device.type != "cuda":
-        raise ValueError(f"expand_cam: unsupported device {cam.device}")
+@torch.library.custom_op("sfm::expand_cam", mutates_args=(), device_types="cpu")
+def _expand_cam_op(cam: torch.Tensor, w21: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """B5 as an operator: the plain version on the CPU, the kernel on the
+    card, no other device."""
+    return expand_cam_reference(cam, w21, x)
+
+
+@_expand_cam_op.register_fake
+def _(cam, w21, x):
+    return w21.new_empty((cam.shape[0], 3))
+
+
+def _check_expand(cam, w21, x) -> None:
     O, V = cam.shape[0], x.shape[0]
     _check("expand_cam: cam", cam, (O,), torch.int32, cam.device)
     _check("expand_cam: w21", w21, (O, 21), torch.float32, cam.device)
     _check("expand_cam: x", x, (V, 7), torch.float32, cam.device)
     if O == 0 or V < 1:
         raise ValueError("expand_cam: need O > 0 observations and V > 0 cameras")
+
+
+@_expand_cam_op.register_kernel("cuda")
+def _(cam, w21, x):
+    _check_expand(cam, w21, x)
+    O, V = cam.shape[0], x.shape[0]
     t = torch.empty((O, 3), dtype=torch.float32, device=cam.device)
     rc = kernels.library().sfm_expand_cam(
         cam.data_ptr(), w21.data_ptr(), x.data_ptr(), O, V, t.data_ptr(),
@@ -69,14 +83,30 @@ def expand_cam(cam: torch.Tensor, w21: torch.Tensor, x: torch.Tensor) -> torch.T
     return t
 
 
-def reduce_cam(w21: torch.Tensor, y: torch.Tensor, perm: torch.Tensor, mask: torch.Tensor,
-               n_views: int) -> torch.Tensor:
-    """coup (V, 7) = per-camera sum of W_o y_o; same result as
-    :func:`reduce_cam_reference`, and the same bits on every run."""
-    if w21.device.type == "cpu":
-        return reduce_cam_reference(w21, y, perm, mask, n_views)
-    if w21.device.type != "cuda":
-        raise ValueError(f"reduce_cam: unsupported device {w21.device}")
+def expand_cam(cam: torch.Tensor, w21: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """t (O, 3) = W_o^T x[cam_o]; same result as :func:`expand_cam_reference`
+    (the ``sfm::expand_cam`` operator)."""
+    if cam.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"expand_cam: unsupported device {cam.device}")
+    if cam.device.type == "cuda":
+        _check_expand(cam, w21, x)
+    return torch.ops.sfm.expand_cam(cam, w21, x)
+
+
+@torch.library.custom_op("sfm::reduce_cam", mutates_args=(), device_types="cpu")
+def _reduce_cam_op(w21: torch.Tensor, y: torch.Tensor, perm: torch.Tensor, mask: torch.Tensor,
+                   n_views: int) -> torch.Tensor:
+    """B6 as an operator: the plain version on the CPU, the kernel on the
+    card, no other device."""
+    return reduce_cam_reference(w21, y, perm, mask, n_views)
+
+
+@_reduce_cam_op.register_fake
+def _(w21, y, perm, mask, n_views):
+    return w21.new_empty((n_views, 7))
+
+
+def _check_reduce(w21, y, perm, mask, n_views: int) -> None:
     O, S = w21.shape[0], perm.shape[0]
     dev = w21.device
     _check("reduce_cam: w21", w21, (O, 21), torch.float32, dev)
@@ -85,6 +115,13 @@ def reduce_cam(w21: torch.Tensor, y: torch.Tensor, perm: torch.Tensor, mask: tor
     _check("reduce_cam: mask", mask, (S,), torch.bool, dev)
     if n_views < 1 or S % n_views:
         raise ValueError(f"reduce_cam: {S} camera-major slots do not split into {n_views} cameras")
+
+
+@_reduce_cam_op.register_kernel("cuda")
+def _(w21, y, perm, mask, n_views):
+    _check_reduce(w21, y, perm, mask, n_views)
+    O, S = w21.shape[0], perm.shape[0]
+    dev = w21.device
     coup = torch.empty((n_views, 7), dtype=torch.float32, device=dev)
     rc = kernels.library().sfm_reduce_cam(
         w21.data_ptr(), y.data_ptr(), perm.data_ptr(), mask.data_ptr(), O, n_views,
@@ -93,6 +130,18 @@ def reduce_cam(w21: torch.Tensor, y: torch.Tensor, perm: torch.Tensor, mask: tor
     kernels.check(rc, "sfm_reduce_cam")
     reduce_cam.launches += 1
     return coup
+
+
+def reduce_cam(w21: torch.Tensor, y: torch.Tensor, perm: torch.Tensor, mask: torch.Tensor,
+               n_views: int) -> torch.Tensor:
+    """coup (V, 7) = per-camera sum of W_o y_o; same result as
+    :func:`reduce_cam_reference`, and the same bits on every run (the
+    ``sfm::reduce_cam`` operator)."""
+    if w21.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"reduce_cam: unsupported device {w21.device}")
+    if w21.device.type == "cuda":
+        _check_reduce(w21, y, perm, mask, n_views)
+    return torch.ops.sfm.reduce_cam(w21, y, perm, mask, int(n_views))
 
 
 expand_cam.launches = 0

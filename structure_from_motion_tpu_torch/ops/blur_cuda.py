@@ -1,8 +1,10 @@
 """Kernel B1: separable Gaussian blur of one octave's levels.
 
 Port of ``structure_from_motion_tpu/ops/blur_pallas.py``. :func:`blur_levels`
-launches ``csrc/blur.cu`` for a CUDA tensor and runs
-:func:`blur_levels_reference` for a CPU tensor; there is no other route. On
+calls the ``sfm::blur_levels`` operator (``torch.library``; it traces into
+an exported program), which launches ``csrc/blur.cu`` for a CUDA tensor and
+runs :func:`blur_levels_reference` for a CPU tensor; there is no other
+route. On
 the card it serves EVERY octave: the TPU's largest-octave-only gating was
 about Mosaic compile time and 128-lane alignment, neither of which applies.
 
@@ -77,21 +79,40 @@ def blur_levels_reference(base: torch.Tensor, kernels_1d: list) -> torch.Tensor:
     return torch.stack(out)
 
 
-def blur_levels(base: torch.Tensor, kernels_1d: list) -> torch.Tensor:
-    """(H, W) f32 -> (L, H, W) blurred levels, or a lane stack (B, H, W) ->
-    (B, L, H, W) in ONE launch a group of eight levels for all lanes, each
-    lane exactly as its own (H, W) launch (see the reference above)."""
-    if base.device.type == "cpu":
-        return blur_levels_reference(base, kernels_1d)
-    if base.device.type != "cuda":
-        raise ValueError(f"blur_levels: unsupported device {base.device}")
+def _kernels_of(taps: list, lengths: list) -> list:
+    """The op's flat taps back into one float32 array a level."""
+    ends = np.cumsum(lengths)
+    return [np.asarray(taps[e - n:e], np.float32) for e, n in zip(ends, lengths)]
+
+
+@torch.library.custom_op("sfm::blur_levels", mutates_args=(), device_types="cpu")
+def _blur_levels_op(base: torch.Tensor, taps: list[float], lengths: list[int]) -> torch.Tensor:
+    """B1 as an operator: the plain version on the CPU, the kernel on the
+    card (registered below), no other device."""
+    return blur_levels_reference(base, _kernels_of(taps, lengths))
+
+
+@_blur_levels_op.register_fake
+def _(base, taps, lengths):
+    return base.new_empty(base.shape[:-2] + (len(lengths),) + base.shape[-2:])
+
+
+def _check(base: torch.Tensor, L: int) -> None:
+    """What the kernel takes (the wrapper's checks, and the launch's)."""
     if base.dtype != torch.float32 or base.dim() not in (2, 3) or not base.is_contiguous():
         raise ValueError("blur_levels needs a contiguous (H, W) or (B, H, W) float32 tensor")
+    H, W = base.shape[-2:]
+    if L == 0 or H == 0 or W == 0 or (base.dim() == 3 and not 0 < base.shape[0] <= 8191):
+        raise ValueError("blur_levels: need L, H, W > 0 and 1 to 8191 lanes")
+
+
+@_blur_levels_op.register_kernel("cuda")
+def _(base, taps, lengths):
+    _check(base, len(lengths))
+    kernels_1d = _kernels_of(taps, lengths)
     L = len(kernels_1d)
     H, W = base.shape[-2:]
     lanes = base.shape[0] if base.dim() == 3 else 0
-    if L == 0 or H == 0 or W == 0 or (base.dim() == 3 and not 0 < lanes <= 8191):
-        raise ValueError("blur_levels: need L, H, W > 0 and 1 to 8191 lanes")
     out = torch.empty(base.shape[:-2] + (L, H, W), dtype=torch.float32, device=base.device)
     lib, stream = kernels.library(), kernels.stream_ptr(base.device)
     for l0 in range(0, L, MAX_LEVELS):
@@ -103,6 +124,20 @@ def blur_levels(base: torch.Tensor, kernels_1d: list) -> torch.Tensor:
         kernels.check(rc, "sfm_blur_levels_lanes")
         blur_levels.launches += 1
     return out
+
+
+def blur_levels(base: torch.Tensor, kernels_1d: list) -> torch.Tensor:
+    """(H, W) f32 -> (L, H, W) blurred levels, or a lane stack (B, H, W) ->
+    (B, L, H, W) in ONE launch a group of eight levels for all lanes, each
+    lane exactly as its own (H, W) launch (see the reference above). Calls
+    the ``sfm::blur_levels`` operator (the plain version on the CPU)."""
+    if base.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"blur_levels: unsupported device {base.device}")
+    taps = [np.ascontiguousarray(k, np.float32).reshape(-1) for k in kernels_1d]
+    if base.device.type == "cuda":
+        _check(base, len(taps))
+    return torch.ops.sfm.blur_levels(base, [float(x) for t in taps for x in t],
+                                     [t.size for t in taps])
 
 
 blur_levels.launches = 0

@@ -5,10 +5,12 @@ C = -R t."""
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
 
+from structure_from_motion_tpu_torch.utils.control import fori, lane_map, take
 from structure_from_motion_tpu_torch.utils.geometry import camera_extrinsic
 from structure_from_motion_tpu_torch.utils.rotations import so3_exp, so3_hat
 
@@ -21,8 +23,10 @@ class PoseCandidates(NamedTuple):
 
 def decompose_essential(E: torch.Tensor) -> PoseCandidates:
     """Four (R, C) candidates from an essential matrix."""
-    W = torch.tensor([[0.0, -1.0, 0.0], [1.0, 0.0, 0.0], [0.0, 0.0, 1.0]],
-                     dtype=E.dtype, device=E.device)
+    # [[0, -1, 0], [1, 0, 0], [0, 0, 1]] by device ops (no upload, so an
+    # exported branch can hold it; 0 - x keeps every zero +0)
+    eye = torch.eye(3, dtype=E.dtype, device=E.device)
+    W = torch.stack([0.0 - eye[1], eye[0], eye[2]])
     u, _, vh = torch.linalg.svd(E)
     t = u[:, 2]
     Ra = u @ W @ vh
@@ -55,10 +59,57 @@ def disambiguate_poses(P_ref, P_cands, X_cands_h, mask):
     )
     counts = valid.sum(1)
     best = torch.argmax(counts)
-    return best, counts, valid[best]
+    return best, counts, take(valid, best)
 
 
-def refine_relative_pose(R, t, x1n, x2n, mask, iterations: int = 20, damping: float = 1e-6):
+def _pose_step(R, t, x1h, x2h, m, damping: float):
+    """One Gauss-Newton step of :func:`refine_relative_pose` on one problem."""
+    dt, dev = R.dtype, R.device
+    eye = torch.eye(3, dtype=dt, device=dev)
+    z_axis, x_axis = eye[2], eye[0]
+    gens = so3_hat(eye)  # (3, 3, 3): [e_k]x
+
+    def tangent_basis(tt):
+        up = torch.where(tt[2].abs() < 0.9, z_axis, x_axis)
+        e1 = torch.linalg.cross(tt, up)
+        e1 = e1 / torch.linalg.norm(e1).clamp_min(1e-12)
+        return e1, torch.linalg.cross(tt, e1)
+
+    e1, e2 = tangent_basis(t)
+    R_w2c = R.T
+    tx = so3_hat(t)
+    E = tx @ R_w2c
+    # dE/dp: rotation (R0 [e_k]x)^T = -[e_k]x R0^T, then the two tangents
+    dE = torch.cat([
+        -(tx @ gens @ R_w2c),
+        torch.stack([so3_hat(e1) @ R_w2c, so3_hat(e2) @ R_w2c]),
+    ])  # (5, 3, 3)
+    Ex1 = x1h @ E.T  # (N, 3)
+    Etx2 = x2h @ E
+    dEx1 = x1h @ dE.transpose(-1, -2)  # (5, N, 3)
+    dEtx2 = x2h @ dE
+    num = (x2h * Ex1).sum(1)
+    dnum = (x2h * dEx1).sum(-1)  # (5, N)
+    a = Ex1[:, 0] ** 2 + Ex1[:, 1] ** 2 + Etx2[:, 0] ** 2 + Etx2[:, 1] ** 2
+    da = 2.0 * (Ex1[:, 0] * dEx1[..., 0] + Ex1[:, 1] * dEx1[..., 1]
+                + Etx2[:, 0] * dEtx2[..., 0] + Etx2[:, 1] * dEtx2[..., 1])
+    den = torch.sqrt(a.clamp_min(1e-18))
+    dden = torch.where(a > 1e-18, da / (2.0 * den), torch.zeros_like(da))
+    r = (num / den) * m
+    J = ((dnum * den - num * dden) / (den * den) * m).T  # (N, 5)
+    eye5 = torch.eye(5, dtype=dt, device=dev)
+    p = -torch.linalg.solve_ex(J.T @ J + damping * eye5, J.T @ r)[0]
+    R = R @ so3_exp(p[:3])
+    t = t + p[3] * e1 + p[4] * e2
+    return R, t / torch.linalg.norm(t).clamp_min(1e-12)
+
+
+def _centre(R, t):
+    return -R @ t
+
+
+def refine_relative_pose(R, t, x1n, x2n, mask, iterations: int = 20, damping: float = 1e-6,
+                         lanes: bool = False):
     """Gauss-Newton on the Sampson error of E = [t]x R_w2c over 5 dof (so(3)
     on R, a 2-dof tangent on the unit sphere at t). Returns (R, t, C = -R t).
 
@@ -67,48 +118,16 @@ def refine_relative_pose(R, t, x1n, x2n, mask, iterations: int = 20, damping: fl
     local update R0 (I + [p]x + [p]x^2 / 2) gives dR_w2c/dp_k =
     -[e_k]x R_w2c, and the tangent basis at the unit t gives dt/dp_{3,4} =
     e1, e2; so dE/dp is five 3x3 matrices, and the residual
-    r = m * num / den differentiates by the quotient rule."""
-    dt, dev = R.dtype, R.device
-    t = t / torch.linalg.norm(t).clamp_min(1e-12)
-    z_axis = torch.tensor([0.0, 0.0, 1.0], dtype=dt, device=dev)
-    x_axis = torch.tensor([1.0, 0.0, 0.0], dtype=dt, device=dev)
-    gens = so3_hat(torch.eye(3, dtype=dt, device=dev))  # (3, 3, 3): [e_k]x
-
-    def tangent_basis(tt):
-        up = torch.where(tt[2].abs() < 0.9, z_axis, x_axis)
-        e1 = torch.linalg.cross(tt, up)
-        e1 = e1 / torch.linalg.norm(e1).clamp_min(1e-12)
-        return e1, torch.linalg.cross(tt, e1)
-
-    x1h = torch.cat([x1n, torch.ones_like(x1n[:, :1])], dim=1)
-    x2h = torch.cat([x2n, torch.ones_like(x2n[:, :1])], dim=1)
-    m = mask.to(dt)
-    eye5 = torch.eye(5, dtype=dt, device=dev)
-    for _ in range(iterations):
-        e1, e2 = tangent_basis(t)
-        R_w2c = R.T
-        tx = so3_hat(t)
-        E = tx @ R_w2c
-        # dE/dp: rotation (R0 [e_k]x)^T = -[e_k]x R0^T, then the two tangents
-        dE = torch.cat([
-            -(tx @ gens @ R_w2c),
-            torch.stack([so3_hat(e1) @ R_w2c, so3_hat(e2) @ R_w2c]),
-        ])  # (5, 3, 3)
-        Ex1 = x1h @ E.T  # (N, 3)
-        Etx2 = x2h @ E
-        dEx1 = x1h @ dE.transpose(-1, -2)  # (5, N, 3)
-        dEtx2 = x2h @ dE
-        num = (x2h * Ex1).sum(1)
-        dnum = (x2h * dEx1).sum(-1)  # (5, N)
-        a = Ex1[:, 0] ** 2 + Ex1[:, 1] ** 2 + Etx2[:, 0] ** 2 + Etx2[:, 1] ** 2
-        da = 2.0 * (Ex1[:, 0] * dEx1[..., 0] + Ex1[:, 1] * dEx1[..., 1]
-                    + Etx2[:, 0] * dEtx2[..., 0] + Etx2[:, 1] * dEtx2[..., 1])
-        den = torch.sqrt(a.clamp_min(1e-18))
-        dden = torch.where(a > 1e-18, da / (2.0 * den), torch.zeros_like(da))
-        r = (num / den) * m
-        J = ((dnum * den - num * dden) / (den * den) * m).T  # (N, 5)
-        p = -torch.linalg.solve_ex(J.T @ J + damping * eye5, J.T @ r)[0]
-        R = R @ so3_exp(p[:3])
-        t = t + p[3] * e1 + p[4] * e2
-        t = t / torch.linalg.norm(t).clamp_min(1e-12)
-    return R, t, -R @ t
+    r = m * num / den differentiates by the quotient rule. With ``lanes``
+    every input has a leading lane axis, one problem a lane. The iterations
+    are a :func:`~..utils.control.fori` (the JAX package's ``fori_loop``)."""
+    t = t / torch.linalg.norm(t, dim=-1, keepdim=True).clamp_min(1e-12)
+    x1h = torch.cat([x1n, torch.ones_like(x1n[..., :1])], dim=-1)
+    x2h = torch.cat([x2n, torch.ones_like(x2n[..., :1])], dim=-1)
+    step = functools.partial(_pose_step, damping=damping)
+    centre = _centre
+    if lanes:  # a leading lane axis: one problem a lane (the step vmapped)
+        step, centre = functools.partial(lane_map, step), functools.partial(lane_map, centre)
+    R, t = fori(iterations, lambda i, R, t, *rest: step(R, t, *rest), (R, t), x1h, x2h,
+                mask.to(R.dtype))
+    return R, t, centre(R, t)

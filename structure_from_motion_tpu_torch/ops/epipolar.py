@@ -8,6 +8,7 @@ runs one RANSAC per prior view in a single batch.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -15,6 +16,7 @@ import torch
 from structure_from_motion_tpu_torch.config import RansacConfig
 from structure_from_motion_tpu_torch.ops.linalg import floor_abs, nullspace
 from structure_from_motion_tpu_torch.ops.ransac import ransac
+from structure_from_motion_tpu_torch.utils.control import fori
 from structure_from_motion_tpu_torch.utils.geometry import to_homogeneous
 
 
@@ -38,7 +40,7 @@ def hartley_normalization(pts: torch.Tensor, mask: torch.Tensor, eps: float = 1e
     T[..., 1, 1] = scale
     T[..., 0, 2] = -mean[..., 0] * scale
     T[..., 1, 2] = -mean[..., 1] * scale
-    T[..., 2, 2] = 1.0
+    T[..., 2, 2].fill_(1.0)
     return T, to_homogeneous(pts) @ T.transpose(-1, -2)
 
 
@@ -96,6 +98,25 @@ def _gather_rows(pts, idx):
     return torch.take_along_dim(pts, flat, dim=-2).reshape(*idx.shape, pts.shape[-1])
 
 
+def _to_pix(Fn, T_r, T_q):
+    """Normalised-coordinate F (with or without a hypothesis axis) -> pixels."""
+    Tq = T_q if Fn.dim() == T_q.dim() else T_q[..., None, :, :]
+    Tr = T_r if Fn.dim() == T_r.dim() else T_r[..., None, :, :]
+    return Tq.transpose(-1, -2) @ Fn @ Tr
+
+
+def _lo_refit(i, F_norm, inliers, n_inl, inl_cur, ref_h, que_h, ref_pix, que_pix, mask, T_r,
+              T_q, *, threshold: float):
+    """One least-squares refit on the current consensus; kept on ties."""
+    F_refit = eight_point(ref_h, que_h, weights=inl_cur.to(ref_h.dtype))
+    inl_new = (sampson_distances(_to_pix(F_refit, T_r, T_q), ref_pix, que_pix) < threshold) & mask
+    n_new = inl_new.sum(-1)
+    take = n_new >= n_inl
+    F_norm = torch.where(take[..., None, None], F_refit, F_norm)
+    inliers = torch.where(take[..., None], inl_new, inliers)
+    return F_norm, inliers, torch.where(take, n_new, n_inl), inl_new
+
+
 def find_fundamental(
     idx_sets: torch.Tensor,
     ref_pts: torch.Tensor,
@@ -114,9 +135,7 @@ def find_fundamental(
     thr = config.inlier_threshold
 
     def to_pix(Fn):
-        Tq = T_q if Fn.dim() == T_q.dim() else T_q[..., None, :, :]
-        Tr = T_r if Fn.dim() == T_r.dim() else T_r[..., None, :, :]
-        return Tq.transpose(-1, -2) @ Fn @ Tr
+        return _to_pix(Fn, T_r, T_q)
 
     res = ransac(
         idx_sets,
@@ -135,16 +154,10 @@ def find_fundamental(
     inliers = torch.where(exact[..., None], mask, res.inliers)
     n_inl = inliers.sum(-1)
 
-    inl_cur = inliers
-    for _ in range(3):  # LO refits
-        F_refit = eight_point(ref_h, que_h, weights=inl_cur.to(ref_h.dtype))
-        inl_new = (sampson_distances(to_pix(F_refit), ref_pix, que_pix) < thr) & mask
-        n_new = inl_new.sum(-1)
-        take = n_new >= n_inl
-        F_norm = torch.where(take[..., None, None], F_refit, F_norm)
-        inliers = torch.where(take[..., None], inl_new, inliers)
-        n_inl = torch.where(take, n_new, n_inl)
-        inl_cur = inl_new
+    # three LO refits (the JAX package's scan)
+    F_norm, inliers, n_inl, _ = fori(
+        3, functools.partial(_lo_refit, threshold=thr), (F_norm, inliers, n_inl, inliers),
+        ref_h, que_h, ref_pix, que_pix, mask, T_r, T_q)
 
     F_pix = to_pix(F_norm)
     return FundamentalResult(
@@ -157,5 +170,5 @@ def essential_from_fundamental(F, K_ref, K_que):
     scaled by E[2,2]."""
     E = K_que.transpose(-1, -2) @ F @ K_ref
     u, _, vh = torch.linalg.svd(E)
-    E = (u * torch.tensor([1.0, 1.0, 0.0], dtype=E.dtype, device=E.device)) @ vh
+    E = (u * (1.0 - torch.eye(3, dtype=E.dtype, device=E.device)[2])) @ vh  # (1, 1, 0)
     return E / floor_abs(E[..., 2:3, 2:3], 1e-12)

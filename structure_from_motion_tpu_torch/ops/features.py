@@ -46,7 +46,7 @@ import torch
 import torch.nn.functional as F
 
 from structure_from_motion_tpu_torch.config import FrontendConfig
-from structure_from_motion_tpu_torch.device import clamp_index, stable_topk
+from structure_from_motion_tpu_torch.device import clamp_index, repeat_each, stable_topk
 from structure_from_motion_tpu_torch.ops.blur_cuda import blur_levels
 from structure_from_motion_tpu_torch.ops.features_cuda import (
     BLOCK,
@@ -491,7 +491,7 @@ def _detect_dog(img: torch.Tensor, cfg: FrontendConfig):
         cands.append(cand)
         base = _downsample2(gauss.select(-3, S))
     xi, yi, s_idx, resp, ok = (torch.cat(c, dim=-1) for c in zip(*cands))
-    oct_idx = torch.arange(cfg.num_octaves, device=dev).repeat_interleave(per_octave_k)
+    oct_idx = repeat_each(torch.arange(cfg.num_octaves, device=dev), per_octave_k)
     oct_idx = oct_idx.expand(lead + oct_idx.shape)
 
     def take(t, idx):

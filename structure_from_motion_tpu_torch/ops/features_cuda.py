@@ -6,8 +6,10 @@ Port of ``structure_from_motion_tpu/ops/features_pallas.py``.
 gives each 8x8 block's largest masked response and its place in the block
 without ever writing the (S, H, W) map; :func:`candidate_response` writes
 the map (any H and W; :func:`block_argmax` reduces it for a block other
-than 8). Each launches its kernel of ``csrc/cand.cu`` for a
-CUDA tensor and runs its plain version (``*_reference``) for a CPU tensor.
+than 8). Each calls its ``torch.library`` operator (``sfm::candidate_block_max``,
+``sfm::candidate_response``), which launches its kernel of ``csrc/cand.cu``
+for a CUDA tensor and runs its plain version (``*_reference``) for a CPU
+tensor.
 Kernel and plain version give the same numbers bit for bit (the kernels'
 Hessian arithmetic is explicitly rounded).
 """
@@ -66,19 +68,31 @@ def _lanes_of(dog: torch.Tensor, name: str) -> int:
     return lanes
 
 
-def candidate_response(
-    dog: torch.Tensor, contrast: float, edge_threshold: float, border: int = 8
-) -> torch.Tensor:
-    """(S+2, H, W) f32 DoG stack -> (S, H, W) masked |response| map; a lane
-    stack (B, S+2, H, W) -> (B, S, H, W) in one launch."""
-    if dog.device.type == "cpu":
-        return candidate_response_reference(dog, contrast, edge_threshold, border)
-    if dog.device.type != "cuda":
-        raise ValueError(f"candidate_response: unsupported device {dog.device}")
+@torch.library.custom_op("sfm::candidate_response", mutates_args=(), device_types="cpu")
+def _candidate_response_op(dog: torch.Tensor, contrast: float, edge_threshold: float,
+                           border: int) -> torch.Tensor:
+    """The map kernel as an operator: the plain version on the CPU, the
+    kernel on the card, no other device."""
+    return candidate_response_reference(dog, contrast, edge_threshold, border)
+
+
+@_candidate_response_op.register_fake
+def _(dog, contrast, edge_threshold, border):
+    return dog.new_empty(dog.shape[:-3] + (dog.shape[-3] - 2,) + dog.shape[-2:])
+
+
+def _check_map(dog: torch.Tensor) -> int:
     lanes = _lanes_of(dog, "candidate_response")
     S2, H, W = dog.shape[-3:]
     if S2 < 3 or H == 0 or W == 0:
         raise ValueError(f"candidate_response: bad DoG shape {tuple(dog.shape)}")
+    return lanes
+
+
+@_candidate_response_op.register_kernel("cuda")
+def _(dog, contrast, edge_threshold, border):
+    lanes = _check_map(dog)
+    S2, H, W = dog.shape[-3:]
     out = torch.empty(dog.shape[:-3] + (S2 - 2, H, W), dtype=torch.float32, device=dog.device)
     args = (S2 - 2, H, W, float(contrast), float(edge_threshold),
             float((edge_threshold + 1.0) ** 2), int(border), out.data_ptr(),
@@ -88,6 +102,20 @@ def candidate_response(
     kernels.check(rc, "sfm_candidate_response_lanes")
     candidate_response.launches += 1
     return out
+
+
+def candidate_response(
+    dog: torch.Tensor, contrast: float, edge_threshold: float, border: int = 8
+) -> torch.Tensor:
+    """(S+2, H, W) f32 DoG stack -> (S, H, W) masked |response| map; a lane
+    stack (B, S+2, H, W) -> (B, S, H, W) in one launch (the
+    ``sfm::candidate_response`` operator)."""
+    if dog.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"candidate_response: unsupported device {dog.device}")
+    if dog.device.type == "cuda":
+        _check_map(dog)
+    return torch.ops.sfm.candidate_response(dog, float(contrast), float(edge_threshold),
+                                            int(border))
 
 
 candidate_response.launches = 0
@@ -133,24 +161,37 @@ def candidate_block_max_reference(
     return block_argmax(resp, block)
 
 
-def candidate_block_max(
-    dog: torch.Tensor, contrast: float, edge_threshold: float, border: int = 8
-):
-    """(S+2, H, W) f32 DoG stack -> ``(cand, pos)`` of its 8x8 blocks (see
-    :func:`candidate_block_max_reference`); a lane stack (B, S+2, H, W) ->
-    (B, S, H/8, W/8) each, in one launch. On the card: 1 <= S <= 4,
-    ``border`` >= 1 and a contiguous, 16-byte aligned stack."""
-    if dog.device.type == "cpu":
-        return candidate_block_max_reference(dog, contrast, edge_threshold, border)
-    if dog.device.type != "cuda":
-        raise ValueError(f"candidate_block_max: unsupported device {dog.device}")
+@torch.library.custom_op("sfm::candidate_block_max", mutates_args=(), device_types="cpu")
+def _candidate_block_max_op(dog: torch.Tensor, contrast: float, edge_threshold: float,
+                            border: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """B2f as an operator: the plain version on the CPU, the kernel on the
+    card, no other device."""
+    return candidate_block_max_reference(dog, contrast, edge_threshold, border)
+
+
+@_candidate_block_max_op.register_fake
+def _(dog, contrast, edge_threshold, border):
+    shape = dog.shape[:-3] + (dog.shape[-3] - 2, dog.shape[-2] // BLOCK, dog.shape[-1] // BLOCK)
+    return dog.new_empty(shape), dog.new_empty(shape, dtype=torch.int32)
+
+
+def _check_fused(dog: torch.Tensor, border: int) -> int:
     lanes = _lanes_of(dog, "candidate_block_max")
     S2, H, W = dog.shape[-3:]
     if not 3 <= S2 <= 6 or H == 0 or W == 0 or H % BLOCK or W % BLOCK:
         raise ValueError(f"candidate_block_max on the card: {BLOCK} must divide H and W, with "
                          f"1 to 4 layers; got {tuple(dog.shape)}")
-    if border < 1 or dog.data_ptr() % 16:
-        raise ValueError("candidate_block_max needs border >= 1 and a 16-byte aligned stack")
+    if border < 1:
+        raise ValueError("candidate_block_max needs border >= 1")
+    return lanes
+
+
+@_candidate_block_max_op.register_kernel("cuda")
+def _(dog, contrast, edge_threshold, border):
+    lanes = _check_fused(dog, border)
+    if dog.data_ptr() % 16:
+        raise ValueError("candidate_block_max needs a 16-byte aligned stack")
+    S2, H, W = dog.shape[-3:]
     shape = dog.shape[:-3] + (S2 - 2, H // BLOCK, W // BLOCK)
     cand = torch.empty(shape, dtype=torch.float32, device=dog.device)
     pos = torch.empty(shape, dtype=torch.int32, device=dog.device)
@@ -162,6 +203,22 @@ def candidate_block_max(
     kernels.check(rc, "sfm_candidate_block_max_lanes")
     candidate_block_max.launches += 1
     return cand, pos
+
+
+def candidate_block_max(
+    dog: torch.Tensor, contrast: float, edge_threshold: float, border: int = 8
+):
+    """(S+2, H, W) f32 DoG stack -> ``(cand, pos)`` of its 8x8 blocks (see
+    :func:`candidate_block_max_reference`); a lane stack (B, S+2, H, W) ->
+    (B, S, H/8, W/8) each, in one launch (the ``sfm::candidate_block_max``
+    operator). On the card: 1 <= S <= 4, ``border`` >= 1 and a contiguous,
+    16-byte aligned stack."""
+    if dog.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"candidate_block_max: unsupported device {dog.device}")
+    if dog.device.type == "cuda":
+        _check_fused(dog, border)
+    return torch.ops.sfm.candidate_block_max(dog, float(contrast), float(edge_threshold),
+                                             int(border))
 
 
 candidate_block_max.launches = 0

@@ -2,7 +2,8 @@
 ratio test, cross-check, dedup.
 
 Port of ``structure_from_motion_tpu/ops/matching.py``. :func:`match_top2`
-launches ``csrc/match_top2.cu`` for CUDA tensors and runs
+calls the ``sfm::match_top2`` operator, which launches
+``csrc/match_top2.cu`` for CUDA tensors and runs
 :func:`match_top2_reference` for CPU tensors; it takes a lane axis, each
 lane's references against that lane's queries, in one launch. The Hamming
 metric and cross-check use no kernel in the JAX package either
@@ -50,15 +51,23 @@ def match_top2_reference(desc_ref, desc_que, mask_que):
     return (d1 + sqr).clamp_min(0.0), (d2 + sqr).clamp_min(0.0), j1.to(torch.int32)
 
 
-def match_top2(desc_ref, desc_que, mask_que):
-    """(Nr, 128) x (Nq, 128) f32 -> (d1^2 (Nr,), d2^2 (Nr,), j1 (Nr,) int32)
-    without materialising the (Nr, Nq) distance matrix on the card; with a
-    lane axis, (B, Nr, 128) x (B, Nq, 128) with (B, Nq) masks -> (B, Nr)
-    each, in one launch."""
-    if desc_ref.device.type == "cpu":
-        return match_top2_reference(desc_ref, desc_que, mask_que)
-    if desc_ref.device.type != "cuda":
-        raise ValueError(f"match_top2: unsupported device {desc_ref.device}")
+@torch.library.custom_op("sfm::match_top2", mutates_args=(), device_types="cpu")
+def _match_top2_op(desc_ref: torch.Tensor, desc_que: torch.Tensor,
+                   mask_que: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """B3 as an operator: the plain version on the CPU, the kernel on the
+    card, no other device."""
+    return match_top2_reference(desc_ref, desc_que, mask_que)
+
+
+@_match_top2_op.register_fake
+def _(desc_ref, desc_que, mask_que):
+    lead = desc_ref.shape[:-1]
+    return (desc_ref.new_empty(lead), desc_ref.new_empty(lead),
+            desc_ref.new_empty(lead, dtype=torch.int32))
+
+
+def _check(desc_ref, desc_que, mask_que) -> int:
+    """What the kernel takes -> the lane count (0 without a lane axis)."""
     lanes = desc_ref.shape[0] if desc_ref.dim() == 3 else 0
     Nr, D = desc_ref.shape[-2:]
     Nq = desc_que.shape[-2] if desc_que.dim() >= 2 else 0
@@ -75,6 +84,14 @@ def match_top2(desc_ref, desc_que, mask_que):
                          "device")
     if Nr == 0 or Nq == 0 or (desc_ref.dim() == 3 and not 0 < lanes <= 65535):
         raise ValueError("match_top2: empty descriptor set, or not 1 to 65535 lanes")
+    return lanes
+
+
+@_match_top2_op.register_kernel("cuda")
+def _(desc_ref, desc_que, mask_que):
+    lanes = _check(desc_ref, desc_que, mask_que)
+    Nr, Nq = desc_ref.shape[-2], desc_que.shape[-2]
+    lead = desc_ref.shape[:-2]
     dev = desc_ref.device
     sqq = (desc_que * desc_que).sum(-1)
     maskq = mask_que.to(torch.uint8)
@@ -89,6 +106,18 @@ def match_top2(desc_ref, desc_que, mask_que):
     match_top2.launches += 1
     sqr = (desc_ref * desc_ref).sum(-1)
     return (d1 + sqr).clamp_min(0.0), (d2 + sqr).clamp_min(0.0), j1
+
+
+def match_top2(desc_ref, desc_que, mask_que):
+    """(Nr, 128) x (Nq, 128) f32 -> (d1^2 (Nr,), d2^2 (Nr,), j1 (Nr,) int32)
+    without materialising the (Nr, Nq) distance matrix on the card; with a
+    lane axis, (B, Nr, 128) x (B, Nq, 128) with (B, Nq) masks -> (B, Nr)
+    each, in one launch (the ``sfm::match_top2`` operator)."""
+    if desc_ref.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"match_top2: unsupported device {desc_ref.device}")
+    if desc_ref.device.type == "cuda":
+        _check(desc_ref, desc_que, mask_que)
+    return torch.ops.sfm.match_top2(desc_ref, desc_que, mask_que)
 
 
 match_top2.launches = 0

@@ -6,11 +6,12 @@ The DLT takes its null vector and rotation from the SVD on every device
 faster and more accurate than its accelerator path, gram inverse iteration
 plus a Newton polar factor). RANSAC samples are inputs of :func:`linear_pnp_ransac` (see :func:`sample_pnp`);
 the LM loops keep the JAX package's early exit once the squared step
-falls below 1e-14.
+falls below 1e-14 (``utils/control.loop``).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -23,6 +24,7 @@ from structure_from_motion_tpu_torch.ops.linalg import (
 )
 from structure_from_motion_tpu_torch.ops.ransac import draw_uniform, ransac, sample_index_sets
 from structure_from_motion_tpu_torch.ops.reproj import batched_residual_jacobians, pixel_residuals
+from structure_from_motion_tpu_torch.utils.control import fori, loop
 from structure_from_motion_tpu_torch.utils.geometry import normalized_camera_coords
 from structure_from_motion_tpu_torch.utils.rotations import (
     quat_normalize,
@@ -68,55 +70,57 @@ def solve_pnp_dlt(X, meas_norm, weights=None):
     return R, -torch.einsum("...ij,...j->...i", R, t)
 
 
+def _lm_body(i, q, C, active, X, meas_norm, m, delta_h, damping: float):
+    """One LM step of every still active problem: a finished problem keeps
+    its iterate (``torch.where``, so a singular system of a converged
+    problem cannot reach it) and stays finished."""
+    lead = q.shape[:-1]
+    n = X.shape[-2]
+    res, J_cam, _ = batched_residual_jacobians(
+        C[..., None, :].expand(lead + (n, 3)).reshape(-1, 3),
+        q[..., None, :].expand(lead + (n, 4)).reshape(-1, 4),
+        X.reshape(-1, 3), meas_norm.reshape(-1, 2))
+    res, J_cam = res.reshape(lead + (n, 2)), J_cam.reshape(lead + (n, 2, 7))
+    mm = m
+    if delta_h is not None:
+        nrm = torch.linalg.norm(res, dim=-1)
+        hw = torch.sqrt(torch.where(nrm <= delta_h, torch.ones_like(nrm),
+                                    delta_h / nrm.clamp_min(1e-12)))
+        mm = m * torch.where(delta_h > 0, hw, torch.ones_like(hw))
+    res = res * mm[..., None]
+    J = (J_cam * mm[..., None, None]).reshape(lead + (-1, 7))
+    Jt = J.transpose(-1, -2)
+    eye = torch.eye(7, dtype=X.dtype, device=X.device)
+    delta = torch.linalg.solve_ex(Jt @ J + damping * eye,
+                                  Jt @ res.reshape(lead + (-1, 1)))[0][..., 0]
+    on = active[..., None]
+    C = torch.where(on, C + delta[..., :3], C)
+    q = torch.where(on, quat_normalize(q + delta[..., 3:]), q)
+    return i + 1, q, C, active & ((delta * delta).sum(-1) > 1e-14)
+
+
 def _lm_steps(q, C, X, meas_norm, mask, iterations: int, damping: float, huber_delta=0.0):
     """LM iterations on [C, q] over the masked observations, stopping once
     the squared step is <= 1e-14. ``huber_delta`` (float or tensor,
     normalised units) > 0 turns on IRLS Huber reweighting.
 
     Leading axes in front of the pose ((B, 4), (B, 3) over (B, N, 3) points)
-    are independent problems, one a lane of the batched engine: a lane
+    are independent problems, one a lane of the batched engine: a problem
     whose step has fallen below the threshold takes no more steps and
-    keeps its iterate, and the loop ends (one host read an iteration) when
-    every lane has stopped, so each lane gets what a call on it alone
-    gives. ``huber_delta`` may then hold one value a lane."""
+    keeps its iterate, and the loop (:func:`~..utils.control.loop`: one
+    host read an iteration, a ``while_loop`` in an exported program) ends
+    when every problem has stopped, so each gets what a call on it alone
+    gives. ``huber_delta`` may then hold one value a problem."""
     lead = q.shape[:-1]
-    m = mask.to(X.dtype)
-    eye = torch.eye(7, dtype=X.dtype, device=X.device)
-    n = X.shape[-2]
     robust = not (isinstance(huber_delta, (int, float)) and huber_delta <= 0.0)
-    if robust:
-        delta_h = torch.as_tensor(huber_delta, dtype=X.dtype, device=X.device)[..., None]
-    # a stack of several lanes stops lane by lane; one problem stops as a whole
-    active = torch.ones(lead, dtype=torch.bool, device=X.device) if lead.numel() > 1 else None
-    for _ in range(iterations):
-        res, J_cam, _ = batched_residual_jacobians(
-            C[..., None, :].expand(lead + (n, 3)).reshape(-1, 3),
-            q[..., None, :].expand(lead + (n, 4)).reshape(-1, 4),
-            X.reshape(-1, 3), meas_norm.reshape(-1, 2))
-        res, J_cam = res.reshape(lead + (n, 2)), J_cam.reshape(lead + (n, 2, 7))
-        mm = m
-        if robust:
-            nrm = torch.linalg.norm(res, dim=-1)
-            hw = torch.sqrt(torch.where(nrm <= delta_h, torch.ones_like(nrm),
-                                        delta_h / nrm.clamp_min(1e-12)))
-            mm = m * torch.where(delta_h > 0, hw, torch.ones_like(hw))
-        res = res * mm[..., None]
-        J = (J_cam * mm[..., None, None]).reshape(lead + (-1, 7))
-        Jt = J.transpose(-1, -2)
-        delta = torch.linalg.solve_ex(Jt @ J + damping * eye,
-                                      Jt @ res.reshape(lead + (-1, 1)))[0][..., 0]
-        if active is None:
-            C = C + delta[..., :3]
-            q = quat_normalize(q + delta[..., 3:])
-            if not float((delta * delta).sum()) > 1e-14:
-                break
-            continue
-        delta = delta * active[..., None].to(delta.dtype)  # finished lanes keep their iterate
-        C = C + delta[..., :3]
-        q = torch.where(active[..., None], quat_normalize(q + delta[..., 3:]), q)
-        active = active & ((delta * delta).sum(-1) > 1e-14)
-        if not bool(active.any()):
-            break
+    delta_h = (torch.as_tensor(huber_delta, dtype=X.dtype, device=X.device)[..., None]
+               if robust else None)
+    carried = (torch.zeros((), dtype=torch.long, device=X.device), q, C,
+               torch.ones(lead, dtype=torch.bool, device=X.device))
+    _, q, C, _ = loop(
+        lambda i, q, C, active, *_: (i < iterations) & active.any(),
+        functools.partial(_lm_body, damping=damping),
+        carried, X, meas_norm, mask.to(X.dtype), delta_h)
     return q, C
 
 
@@ -129,19 +133,41 @@ def _rows(t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return rows.reshape(idx.shape + t.shape[-1:])
 
 
+class PnPDraws(NamedTuple):
+    """The uniforms of one :func:`sample_pnp` call, drawn beforehand, each
+    with its lane axis: the scoring subset's (B, n) (None without one),
+    then the hypotheses' (B, H, n), in that order from one generator."""
+
+    sub: torch.Tensor | None
+    hyp: torch.Tensor
+
+
 def sample_pnp(gen, mask: torch.Tensor, config: RansacConfig):
     """(idx_sets (H, s), scoring subset (score_subset,) or None) drawn from
     ``gen`` for :func:`linear_pnp_ransac`; with a list of generators, one a
-    lane, and a lane axis in front of ``mask``, the same a lane."""
+    lane, and a lane axis in front of ``mask``, the same a lane; or from
+    the lanes' :class:`PnPDraws`."""
     n = mask.shape[-1]
     sub = None
+    given = isinstance(gen, PnPDraws)
     if 0 < config.score_subset < n:
-        u = draw_uniform(gen, (n,), mask.device)
+        u = draw_uniform(gen.sub if given else gen, (n,), mask.device)
         u = torch.where(mask, u, torch.full_like(u, float("-inf")))
         sub = stable_topk(u, config.score_subset)[1]
     # a lane's hypotheses come after its subset in its generator's stream
-    idx_sets = sample_index_sets(gen, mask, config.num_hypotheses, config.sample_num)
+    idx_sets = sample_index_sets(gen.hyp if given else gen, mask, config.num_hypotheses,
+                                 config.sample_num)
     return idx_sets, sub
+
+
+def _lo_round(i, q, C, inl, X, meas_norm, Kp, uv, mask, *, threshold: float):
+    """One LO round: weighted DLT refit on the inliers, a 10-step LM polish,
+    then the pixel inliers of the result."""
+    R_refit, C_refit = solve_pnp_dlt(X, meas_norm, weights=inl.to(X.dtype))
+    q, C = _lm_steps(rotation_to_quat(R_refit), C_refit, X, meas_norm, inl,
+                     iterations=10, damping=1e-3)
+    res_pix, _ = pixel_residuals(Kp, C[..., None, :], q[..., None, :], X, uv)
+    return q, C, (torch.linalg.norm(res_pix, dim=-1) < threshold) & mask
 
 
 def linear_pnp_ransac(idx_sets, X, uv, K, mask, config: RansacConfig, sub=None) -> PnPResult:
@@ -180,14 +206,8 @@ def linear_pnp_ransac(idx_sets, X, uv, K, mask, config: RansacConfig, sub=None) 
         (q_best, C_best), inliers = res.model, res.inliers
     n_best = inliers.sum(-1)
 
-    q, C, inl = q_best, C_best, inliers
-    Kp = K[..., None, :, :]
-    for _ in range(3):  # LO rounds
-        R_refit, C_refit = solve_pnp_dlt(X, meas_norm, weights=inl.to(X.dtype))
-        q, C = _lm_steps(rotation_to_quat(R_refit), C_refit, X, meas_norm, inl,
-                         iterations=10, damping=1e-3)
-        res_pix, _ = pixel_residuals(Kp, C[..., None, :], q[..., None, :], X, uv)
-        inl = (torch.linalg.norm(res_pix, dim=-1) < config.inlier_threshold) & mask
+    q, C, inl = fori(3, functools.partial(_lo_round, threshold=config.inlier_threshold),
+                     (q_best, C_best, inliers), X, meas_norm, K[..., None, :, :], uv, mask)
     better = (inl.sum(-1) >= n_best)[..., None]
     q_best = torch.where(better, q, q_best)
     C_best = torch.where(better, C, C_best)
@@ -209,8 +229,8 @@ def estimate_pnp(gen, X, uv, K, mask, ransac_config: RansacConfig, lm_config: LM
     """Linear RANSAC -> (with a motion prior) a Huber-IRLS LM candidate from
     the prior, the one with more pixel inliers winning -> 25-step polish on
     the winner's inliers -> :func:`refine_pnp`. With a list of generators,
-    one a lane, every array takes a leading lane axis, and so does every
-    field of the result."""
+    one a lane (or the lanes' :class:`PnPDraws`), every array takes a
+    leading lane axis, and so does every field of the result."""
     idx_sets, sub = sample_pnp(gen, mask, ransac_config)
     lin = linear_pnp_ransac(idx_sets, X, uv, K, mask, ransac_config, sub)
     inliers, num_inliers, R0, C0 = lin.inliers, lin.num_inliers, lin.R, lin.C

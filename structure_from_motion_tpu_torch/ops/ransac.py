@@ -1,7 +1,8 @@
 """Hypothesis-batch RANSAC (port of ``structure_from_motion_tpu/ops/ransac.py``).
 
 The hypothesis index sets are an INPUT of :func:`ransac`: the main path
-draws them with :func:`sample_index_sets` from a ``torch.Generator``, and
+draws them with :func:`sample_index_sets` from a ``torch.Generator`` (or
+takes uniforms drawn beforehand, as an exported frame program does), and
 the tests hand in the JAX package's own draws (``jax.random`` cannot be
 reproduced in torch). Everything may carry leading batch axes (the F-gate
 runs one RANSAC per prior view in one batch).
@@ -28,7 +29,12 @@ def draw_uniform(gen, shape: tuple, device) -> torch.Tensor:
     one a lane, ``(B,) + shape`` with lane b drawn from ``gen[b]`` exactly as
     ``torch.rand(shape, generator=gen[b])`` draws them alone: one draw a
     lane (the one per-lane loop of the batched engine; a generator's
-    stream cannot be split across lanes)."""
+    stream cannot be split across lanes). A tensor ``gen`` holds the draw
+    already, with its lane axis, and is returned as it is."""
+    if torch.is_tensor(gen):
+        if gen.shape[1:] != tuple(shape):
+            raise ValueError(f"drawn uniforms of shape {tuple(gen.shape)}, need (B,) + {shape}")
+        return gen
     if isinstance(gen, torch.Generator):
         return torch.rand(shape, generator=gen, device=device)
     if len(gen) == 1:
@@ -42,7 +48,8 @@ def sample_index_sets(gen, mask: torch.Tensor, num_hypotheses: int,
     uniform without replacement within each hypothesis (top-k of i.i.d.
     uniforms with masked entries at -inf). ``gen`` is a generator, or a list
     of them for a lane axis in front of ``mask``: lane b's sets are then
-    what ``sample_index_sets(gen[b], mask[b], ...)`` gives."""
+    what ``sample_index_sets(gen[b], mask[b], ...)`` gives; or those lanes'
+    uniforms (:func:`draw_uniform`)."""
     lead = 0 if isinstance(gen, torch.Generator) else 1
     shape = mask.shape[lead:-1] + (num_hypotheses, mask.shape[-1])
     u = draw_uniform(gen, shape, mask.device)

@@ -2,12 +2,14 @@
 ``structure_from_motion_tpu/ops/triangulation.py``).
 
 The DLT null vector comes from the SVD on every device (the JAX package's
-CPU path; see ``ops/pnp.py`` for why the card takes it too); the LM loop is
-a Python loop with the JAX package's early exit once the largest squared
-step falls below 1e-14.
+CPU path; see ``ops/pnp.py`` for why the card takes it too); the LM loop
+(``utils/control.loop``) has the JAX package's early exit once the largest
+squared step falls below 1e-14.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -17,6 +19,7 @@ from structure_from_motion_tpu_torch.ops.linalg import (
     inv3x3,
     nullspace,
 )
+from structure_from_motion_tpu_torch.utils.control import loop
 
 
 def linear_triangulate(P: torch.Tensor, uv: torch.Tensor, obs_mask: torch.Tensor) -> torch.Tensor:
@@ -64,37 +67,37 @@ def _projection_jacobian(P, X, obs_mask):
     return J * obs_mask[..., None, None].to(X.dtype)
 
 
+def _lm_body(i, X, active, P, uv, obs_mask, lam: float):
+    """One LM step of every point of a still active lane; a finished lane's
+    points keep their iterate."""
+    res, _ = reprojection_residuals(P, X, uv, obs_mask)
+    J = _projection_jacobian(P, X, obs_mask)
+    Jf = J.reshape(J.shape[0], -1, 3)
+    rf = res.reshape(res.shape[0], -1)
+    eye = torch.eye(3, dtype=X.dtype, device=X.device)
+    JtJ = torch.einsum("nki,nkj->nij", Jf, Jf) + lam * eye
+    Jte = torch.einsum("nki,nk->ni", Jf, rf)
+    delta = torch.einsum("nij,nj->ni", inv3x3(JtJ), Jte)
+    lanes = active.shape[0]
+    Xl = X.view(lanes, -1, 3)
+    X = torch.where(active[:, None, None], Xl - delta.reshape(lanes, -1, 3), Xl).view(X.shape)
+    return i + 1, X, active & ((delta * delta).sum(-1).view(lanes, -1).amax(1) > 1e-14)
+
+
 def refine_triangulate(P, uv, obs_mask, X0_h, config: LMConfig, lanes: int = 0) -> torch.Tensor:
     """Fixed-damping LM over all points at once -> refined (N, 4), W = 1.
 
-    ``lanes`` > 1: the N points are ``lanes`` equal runs, one a lane of the
-    batched engine, each stopping on its own (its largest squared step
-    <= 1e-14) and then keeping its iterate; the loop ends when every lane
-    has stopped, so each lane gets what a call on its run alone gives."""
+    The points are ``max(lanes, 1)`` equal runs, one a lane of the batched
+    engine, each stopping on its own (its largest squared step <= 1e-14)
+    and then keeping its iterate; the loop (:func:`~..utils.control.loop`)
+    ends when every lane has stopped, so each lane gets what a call on its
+    run alone gives."""
     X = X0_h[..., :3] / _safe(X0_h[..., 3:4])
-    lam = config.damping
-    eye = torch.eye(3, dtype=X.dtype, device=X.device)
-    active = torch.ones(lanes, dtype=torch.bool, device=X.device) if lanes > 1 else None
-    for _ in range(config.iterations):
-        res, _ = reprojection_residuals(P, X, uv, obs_mask)
-        J = _projection_jacobian(P, X, obs_mask)
-        Jf = J.reshape(J.shape[0], -1, 3)
-        rf = res.reshape(res.shape[0], -1)
-        JtJ = torch.einsum("nki,nkj->nij", Jf, Jf) + lam * eye
-        Jte = torch.einsum("nki,nk->ni", Jf, rf)
-        delta = torch.einsum("nij,nj->ni", inv3x3(JtJ), Jte)
-        if lanes <= 1:
-            X = X - delta
-            if X.shape[0] == 0 or not float((delta * delta).sum(-1).max()) > 1e-14:
-                break
-            continue
-        if X.shape[0] == 0:
-            break
-        delta = delta * active.repeat_interleave(X.shape[0] // lanes)[:, None].to(delta.dtype)
-        X = X - delta
-        active = active & ((delta * delta).sum(-1).reshape(lanes, -1).amax(1) > 1e-14)
-        if not bool(active.any()):
-            break
+    if X.shape[0]:
+        carried = (torch.zeros((), dtype=torch.long, device=X.device), X,
+                   torch.ones(max(lanes, 1), dtype=torch.bool, device=X.device))
+        _, X, _ = loop(lambda i, X, active, *_: (i < config.iterations) & active.any(),
+                       functools.partial(_lm_body, lam=config.damping), carried, P, uv, obs_mask)
     return torch.cat([X, torch.ones_like(X[..., :1])], dim=-1)
 
 

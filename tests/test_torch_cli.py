@@ -169,13 +169,19 @@ def _reconstruct(images, out, K, *extra):
         "--device", "cpu", "--max-kp", "256", "--no-upsample", *extra])
 
 
-def test_reconstruct_on_the_cpu_writes_everything_and_resumes(bmp_frames, tmp_path, capsys):
+def test_reconstruct_on_the_cpu_writes_everything_and_resumes(bmp_frames, tmp_path, capsys,
+                                                             monkeypatch):
+    from structure_from_motion_tpu_torch import kernels
+
+    monkeypatch.setattr(kernels, "BUILD_DIR", kernels.BUILD_DIR)  # restored after the test
     root, K, _ = bmp_frames
     out = tmp_path / "out"
     rc = _reconstruct(root / "first4", out, K, "--export-tum", "--export-ply",
-                      "--export-colmap", "--checkpoint-every", "2", "--compile-cache", "unused")
+                      "--export-colmap", "--checkpoint-every", "2", "--compile-cache",
+                      str(tmp_path / "kernel_cache"))
     captured = capsys.readouterr()
-    assert rc == 0 and "--compile-cache is ignored" in captured.err
+    # the kernels' build (none on the CPU) now lies under the cache directory
+    assert rc == 0 and kernels.library_path().parent == (tmp_path / "kernel_cache").resolve()
     assert "4 frames in" in captured.out and "frames/s" in captured.out
     for name in ("config.json", "state.npz", "reconstruction.npz", "trajectory.tum",
                  "reconstruction.ply", "colmap/cameras.txt", "colmap/images.txt",
