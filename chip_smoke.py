@@ -102,6 +102,18 @@ the script exits non-zero without printing the final result line:
    spawned process with ``ops.pnp.estimate_pnp`` and the frame step made to
    raise; export, save, load, draw and frame times.
 
+12. loops (after phase 10): the LM and PCG loops stop on the device
+   (``utils/control.masked_loop``: a stop mask read once every k steps,
+   each chunk of k steps one CUDA graph replay). Every loop call of one
+   steady slice frame (frame ``LOOP_FRAME``: PnP's LO rounds, prior,
+   polish and refinement, the triangulation) and of one batched frame at
+   B = 8 through the graph path against the plain per-step loop
+   (``masked_loop_reference``) on the same inputs, bit for bit, with the
+   steps each call took; the 500-camera solve again with the plain PCG
+   loop: CG counts, costs and poses equal to phase 5's, and both wall
+   times; k, captures, replays, stop-mask reads, the graph pool's memory,
+   and host synchronisations a frame of the slice and at B = 8 and B = 1.
+
 Phase 6 also decodes its BMP files through the native loader
 (``io/native_loader.PrefetchingLoader``, ``native/sfm_loader.cpp`` built by
 ``make``), which must build here, against ``io/datasets``' decode (atol
@@ -116,14 +128,18 @@ and B4 at the Harris run's shapes (per octave the sigma 1.0 and 2.0
 one-level blurs and the three structure-tensor lanes of the sigma 1.5
 blur; its last BA stream), and B4, B5 and B6 at the sharded runs' shapes
 (rank 0's last inputs: a shard's hybrid ELL + tail stream of the global
-solve, a shard of the per-frame BA). Each entry's launches are read from
+solve, a shard of the per-frame BA; B5 and B6 there held entry by entry to
+the sum of their products' magnitudes, as the last CG direction of a
+sharded solve can be large enough for its products to cancel). Each entry's launches are read from
 the run that launches it at that shape. The
 slice, CLI and batched phases end with ``utils/debug.validate_state`` on
 their states and fail on any finding. The frames render in worker
 processes, joined at the end.
 
 Every phase's launch counts are set to 0 just before it and read just
-after. Last, ``torch.library.opcheck`` holds every ``sfm::`` operator with
+after; a loop graph's replay counts the kernels the graph holds (B5 and B6
+in the PCG chunk), and the phases print captures and replays beside the
+counts. Last, ``torch.library.opcheck`` holds every ``sfm::`` operator with
 CUDA inputs at one small shape. The last two lines are a JSON object of the kernels' numbers and
 ``{"ok": true, "device": {...}}``.
 """
@@ -170,6 +186,10 @@ SHARED_BANDS = dict(ate=5.0 * JAX_SHARED["ate"], reproj=1.25 * JAX_SHARED["repro
 SHARDS = 2
 SHARDED_FRAMES = 8
 REPROJ_BOUND_PX = 2.0
+# phase 12: the steady frame of the slice (and of the batched run) whose
+# loop calls are held to the plain loop
+LOOP_FRAME = 12
+BATCHED_LOOP_FRAME = 5
 ARTIFACT = Path(__file__).resolve().parent / "artifacts" / "longrun500_pre_globalba.ckpt.npz"
 # final cost of the JAX package's f32 solve of the artifact on the CPU
 # (solve_global(iterations=20), BAConfig(huber_delta=0.01))
@@ -328,16 +348,18 @@ def _span_ate(locs, C_gt) -> float:
     return _umeyama_ate(locs, C_gt) / float(np.linalg.norm(C_gt.max(0) - C_gt.min(0)))
 
 
-def batched_phase(dev, seqs, small_seqs, map_seq, cfg, counted, sync, card: str) -> dict:
+def batched_phase(dev, seqs, small_seqs, map_seq, cfg, counted, sync, card: str,
+                  loops: LoopRecorder) -> dict:
     """``BatchedIncrementalSfM`` on B lanes: the CLI's default config at full
     width (every lane held to the slice's bounds, two lanes against single
     runs, launches and host synchronisations a frame at B and at 1), then
     ``bench.py``'s small config, then the map kernel's lane path. Returns
     the launch counts (all, by shape) of the full-width B-lane run, of the
     small batch and of the map run, under "batched", "small batch" and
-    "batched map", and the small batch's last B4 inputs."""
+    "batched map", and the small batch's last B4 inputs. ``loops`` keeps
+    the loop calls of frame ``BATCHED_LOOP_FRAME`` of the full-width run
+    and the host synchronisations a frame at B and at 1."""
     import dataclasses
-    import warnings
 
     import numpy as np
     import torch
@@ -349,9 +371,10 @@ def batched_phase(dev, seqs, small_seqs, map_seq, cfg, counted, sync, card: str)
     B = len(seqs)
     seeds = list(range(B))
 
-    def lockstep(config, lanes, K, label, lane_seeds):
+    def lockstep(config, lanes, K, label, lane_seeds, record=None):
         """Every frame of ``lanes`` (each (imgs, ...)) through one engine:
-        (engine, wall s a frame, host synchronisations a frame, launches)."""
+        (engine, wall s a frame, host synchronisations a frame, launches);
+        ``record`` names the run whose loop calls ``loops`` keeps."""
         n = len(lanes[0][0])
         frames = [torch.as_tensor(np.stack([np.asarray(s[0][t]) for s in lanes])).to(dev)
                   for t in range(n)]
@@ -360,25 +383,24 @@ def batched_phase(dev, seqs, small_seqs, map_seq, cfg, counted, sync, card: str)
         _reset(counted)
         times, syncs = [], []
         for t in range(n):
-            with warnings.catch_warnings(record=True) as caught:
-                warnings.simplefilter("always")
-                torch.cuda.set_sync_debug_mode("warn")
+            loops.on = record if t == BATCHED_LOOP_FRAME else None
+            with _counting_syncs(syncs, dev):
                 t0 = time.perf_counter()
                 info = eng.process_images(frames[t])
                 sync()
                 times.append(time.perf_counter() - t0)
-                torch.cuda.set_sync_debug_mode(0)
-            syncs.append(sum("synchroniz" in str(w.message) for w in caught))
             print(f"{label} frame {t}: {times[-1]:.3f} s, host synchronisations {syncs[-1]}, "
                   f"matches {info['matches'].tolist()}, reprojection "
                   f"{np.round(info['reprojection_px'], 4).tolist()} px ({card})")
+        loops.on = None
         return eng, times, syncs, _read(counted)
 
     K = seqs[0][1]
     if not all(np.allclose(s[1], K) for s in seqs):
         raise AssertionError("the lanes' renders do not share K")
     n = len(seqs[0][0])
-    eng, times, syncs, (launches, by_shape) = lockstep(cfg, seqs, K, f"batched B={B}", seeds)
+    eng, times, syncs, (launches, by_shape) = lockstep(cfg, seqs, K, f"batched B={B}", seeds,
+                                                       record=f"batched B={B}")
     locs, rots = eng.poses()
     reproj = eng.reprojection_error()
     ates = [_span_ate(locs[b], seqs[b][2]) for b in range(B)]
@@ -390,7 +412,7 @@ def batched_phase(dev, seqs, small_seqs, map_seq, cfg, counted, sync, card: str)
     print(f"batched B={B} quality: ATE of span {np.round(ates, 5).tolist()} (bound {ATE_BOUND}), "
           f"reprojection {np.round(reproj, 4).tolist()} px (bound {REPROJ_BOUND_PX}), map points "
           f"{[len(eng.map_points(b)) for b in range(B)]}")
-    print(f"batched B={B} launches: {launches}; by shape {by_shape}")
+    print(f"batched B={B} launches: {launches}; by shape {by_shape}; {_loop_stats()}")
     if not (locs.shape == (B, n, 3) and np.isfinite(locs).all() and np.isfinite(rots).all()):
         raise AssertionError("batched poses missing or not finite")
     if not (max(ates) < ATE_BOUND and float(reproj.max()) < REPROJ_BOUND_PX):
@@ -402,6 +424,7 @@ def batched_phase(dev, seqs, small_seqs, map_seq, cfg, counted, sync, card: str)
 
     # lane 0 alone through the same engine: launches and synchronisations
     _, times1, syncs1, (launches1, _) = lockstep(cfg, seqs[:1], K, "batched B=1", seeds[:1])
+    loops.syncs[f"batched B={B}"], loops.syncs["batched B=1"] = syncs, syncs1
     per = {k: round(v / n, 1) for k, v in launches.items()}
     per1 = {k: round(v / n, 1) for k, v in launches1.items()}
     print(f"batched launches a frame of the counted kernels: B={B} {per}, B=1 {per1}; host "
@@ -638,6 +661,9 @@ def _clock(name: str):
 
 
 def _reset(counted) -> None:
+    from structure_from_motion_tpu_torch.utils import control
+
+    control.reset_stats()
     for fn in counted.values():
         fn.launches = 0
         getattr(fn, "by_shape", {}).clear()
@@ -646,6 +672,72 @@ def _reset(counted) -> None:
 def _read(counted):
     return ({name: fn.launches for name, fn in counted.items()},
             {name: dict(fn.by_shape) for name, fn in counted.items() if hasattr(fn, "by_shape")})
+
+
+@contextlib.contextmanager
+def _counting_syncs(out: list, dev):
+    """Append the host synchronisations torch reports in the block to
+    ``out`` (none counted off the card)."""
+    import warnings
+
+    import torch
+
+    if not str(dev).startswith("cuda"):
+        yield
+        out.append(0)
+        return
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            yield
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    out.append(sum("synchroniz" in str(w.message) for w in caught))
+
+
+def _loop_stats() -> str:
+    """What the loop graphs did since the last :func:`_reset`."""
+    from structure_from_motion_tpu_torch.utils import control
+
+    s = control.stats
+    return (f"loop graphs {s.captures} captures ({s.capture_s:.3f} s), {s.replays} replays, "
+            f"{s.reads} stop-mask reads, pool +{s.pool_bytes / 2**20:.1f} MiB, buffers "
+            f"{s.static_bytes / 2**20:.2f} MiB")
+
+
+class LoopRecorder:
+    """Keeps a copy of the arguments of every ``control.masked_loop`` call
+    the ops modules make while ``on`` names a run (phase 12 replays them),
+    and the host synchronisations a frame of the runs that count them."""
+
+    def __init__(self):
+        self.on, self.calls, self.syncs = None, {}, {}
+
+    @contextlib.contextmanager
+    def installed(self):
+        import torch
+        from torch.utils import _pytree as pytree
+
+        from structure_from_motion_tpu_torch.ops import linalg, pnp, triangulation
+        from structure_from_motion_tpu_torch.utils import control
+
+        def spy(n, k, step_fn, carried, *operands, capture=True):
+            if self.on is not None:
+                copy = lambda t: t.clone() if torch.is_tensor(t) else t  # noqa: E731
+                self.calls.setdefault(self.on, []).append(
+                    (n, k, step_fn, pytree.tree_map(copy, tuple(carried)),
+                     pytree.tree_map(copy, operands), capture))
+            return control.masked_loop(n, k, step_fn, carried, *operands, capture=capture)
+
+        modules = (pnp, triangulation, linalg)
+        for m in modules:
+            m.masked_loop = spy
+        try:
+            yield self
+        finally:
+            for m in modules:
+                m.masked_loop = control.masked_loop
 
 
 def _run_cli(argv) -> tuple:
@@ -822,11 +914,14 @@ def cli_phase(dev, imgs, small_imgs, K, small_K, C_gt, small_C_gt, cfg, counted,
     return map_launches, map_by_shape
 
 
-def slice_phase(dev, imgs, K, C_gt, cfg, counted, sync, card: str) -> dict:
+def slice_phase(dev, imgs, K, C_gt, cfg, counted, sync, card: str,
+                loops: LoopRecorder | None = None) -> dict:
     """Frames through the engine in slide mode, then ``finalize_global``;
     raises when a bound fails. Returns the launch counts of the phase and,
-    for the wrappers that tally them, the counts by shape.
-    ``card`` (name and power limit) is printed beside every time."""
+    for the wrappers that tally them, the counts by shape. ``loops``, when
+    given, keeps frame ``LOOP_FRAME``'s loop calls and the host
+    synchronisations a frame. ``card`` (name and power limit) is printed
+    beside every time."""
     import numpy as np
 
     from structure_from_motion_tpu_torch.models.incremental import IncrementalSfM
@@ -835,15 +930,22 @@ def slice_phase(dev, imgs, K, C_gt, cfg, counted, sync, card: str) -> dict:
     window = cfg.window_size
     _reset(counted)
     engine = IncrementalSfM(cfg, K, frontend="native", seed=0, device=dev)
-    frame_s = []
-    for im in imgs:
-        t0 = time.perf_counter()
-        info = engine.process_image(im)
-        sync()
-        frame_s.append(time.perf_counter() - t0)
+    frame_s, syncs = [], []
+    for t, im in enumerate(imgs):
+        if loops is not None:
+            loops.on = "slice" if t == LOOP_FRAME else None
+        with _counting_syncs(syncs, dev):
+            t0 = time.perf_counter()
+            info = engine.process_image(im)
+            sync()
+            frame_s.append(time.perf_counter() - t0)
         print(f"slice frame {info['frame']}: {frame_s[-1]:.3f} s, matches {int(info['matches'])}, "
               f"pnp_inliers {int(info['pnp_inliers'])}, new_points {int(info['new_points'])}, "
-              f"reprojection {info['reprojection_px']:.4f} px ({card})")
+              f"reprojection {info['reprojection_px']:.4f} px, host synchronisations "
+              f"{syncs[-1]} ({card})")
+    if loops is not None:
+        loops.on = None
+        loops.syncs["slice"] = syncs
     locs, _ = engine.poses()
     span = float(np.linalg.norm(C_gt.max(0) - C_gt.min(0)))
     ate_before = _umeyama_ate(locs, C_gt)
@@ -853,12 +955,14 @@ def slice_phase(dev, imgs, K, C_gt, cfg, counted, sync, card: str) -> dict:
     sync()
     global_s = time.perf_counter() - t0
     launches, by_shape = _read(counted)
-    print(f"slice launches: {launches}")
+    print(f"slice launches: {launches}; {_loop_stats()}")
     print(f"slice launches by shape: {by_shape}")
     print(f"slice frame time: first (frame 0) {frame_s[0]:.3f} s, bootstrap (frame 1) "
           f"{frame_s[1]:.3f} s, frames 2-{window - 1} median "
           f"{float(np.median(frame_s[2:window])):.3f} s, frames {window}-{n - 1} (evicting) "
-          f"median {float(np.median(frame_s[window:])):.3f} s, total {sum(frame_s):.3f} s ({card})")
+          f"median {float(np.median(frame_s[window:])):.3f} s, total {sum(frame_s):.3f} s "
+          f"({card}); host synchronisations a frame, frames 2-{n - 1} median "
+          f"{float(np.median(syncs[2:]))}")
     locs, rots = engine.poses()
     ate_after = _umeyama_ate(locs, C_gt)
     reproj = engine.reprojection_error()
@@ -1076,7 +1180,7 @@ def global_phase(dev, counted, sync, card: str) -> dict:
     print(f"global costs: {[round(c, 6) for c in costs]}")
     print(f"global wall time (synchronised, 20 LM iterations, assembly included): {wall:.3f} s "
           f"({card})")
-    print(f"global launches: {launches}")
+    print(f"global launches: {launches}; {_loop_stats()}")
     locs, rots = engine.poses()
     orth = float(np.abs(np.einsum("fij,fkj->fik", rots, rots) - np.eye(3)).max())
     print(f"global quality: final cost {costs[-1]:.6f} (bound 1.05 x {JAX_GLOBAL_COST} = "
@@ -1095,6 +1199,85 @@ def global_phase(dev, counted, sync, card: str) -> dict:
         if launches[name] < 1:
             raise AssertionError(f"{name} never launched in the global solve: {launches}")
     return launches, dict(costs=costs, locs=locs, rots=rots, wall=wall, cg=cg)
+
+
+def _loop_site(call) -> str:
+    """A loop call's site: the step's module, its cap and its constants."""
+    n, _, step, _, operands, _ = call
+    fn = step.func
+    consts = "".join(f", {name} {v}" for name, v in step.keywords.items() if not callable(v))
+    huber = ", Huber" if fn.__module__.endswith(".pnp") and operands[-1] is not None else ""
+    return f"{fn.__module__.rsplit('.', 1)[-1]} (n {n}{consts}{huber})"
+
+
+def loops_phase(dev, loops: LoopRecorder, single_global: dict, sync, card: str) -> None:
+    """Phase 12: every recorded loop call through the graph path against the
+    plain per-step loop, bit for bit, with its steps; the 500-camera solve
+    with the plain PCG loop against phase 5's (CG counts, costs and poses
+    equal); the graph numbers and host synchronisations a frame. Raises on
+    a difference."""
+    import numpy as np
+    import torch
+
+    from structure_from_motion_tpu_torch.models.incremental import IncrementalSfM
+    from structure_from_motion_tpu_torch.ops import linalg, pnp
+    from structure_from_motion_tpu_torch.utils import control
+
+    control.reset_stats()
+    differ = []
+    for run, calls in loops.calls.items():
+        sites: dict = {}
+        for call in calls:
+            n, k, step, carried, operands, capture = call
+            got = control.masked_loop(n, k, step, carried, *operands, capture=capture)
+            steps = [0]
+
+            def counted(*args, step=step):
+                steps[0] += 1
+                return step(*args)
+
+            want = control.masked_loop_reference(n, k, counted, carried, *operands)
+            site = _loop_site(call)
+            sites.setdefault(site, []).append(steps[0])
+            # the state, not the mask: at the cap the plain loop stops with
+            # problems still active, where the masked steps have cleared them
+            if not all(torch.equal(a, b) for a, b in zip(got[1:], want[1:])):
+                differ.append(f"{run}: {site}")
+        for site, steps in sites.items():
+            print(f"loops {run}: {site}: {len(steps)} calls, steps of the plain loop {steps}")
+        if not calls:
+            raise AssertionError(f"no loop call was recorded in the {run} run")
+    print(f"loops graph against plain: {sum(map(len, loops.calls.values()))} calls, bits "
+          f"differ in {differ or 'none'}")
+    if differ:
+        raise AssertionError(f"the graph path's bits differ from the plain loop's: {differ}")
+
+    # the 500-camera solve with the plain PCG loop against phase 5's
+    engine = IncrementalSfM(long_sequence_config(), np.eye(3), frontend="precomputed", device=dev)
+    engine.load_checkpoint(str(ARTIFACT))
+    linalg.masked_loop = control.masked_loop_reference
+    try:
+        sync()
+        t0 = time.perf_counter()
+        info = engine.finalize_global(iterations=20)
+        sync()
+        wall = time.perf_counter() - t0
+    finally:
+        linalg.masked_loop = control.masked_loop
+    locs, rots = engine.poses()
+    costs = [float(c) for c in info["costs"]]
+    same = (list(info["cg_iterations"]) == single_global["cg"] and costs == single_global["costs"]
+            and np.array_equal(locs, single_global["locs"])
+            and np.array_equal(rots, single_global["rots"]))
+    print(f"loops global: plain PCG loop {wall:.3f} s against the graphs' "
+          f"{single_global['wall']:.3f} s (phase 5) ({card}); CG iterations {info['cg_iterations']}, final cost "
+          f"{costs[-1]!r}; counts, costs and poses equal to phase 5's: {same}")
+    if not same:
+        raise AssertionError("the plain PCG loop's solve differs from the graph path's")
+    syncs = {run: float(np.median(v[2:])) for run, v in loops.syncs.items()}
+    print(f"loops: k {pnp.LM_CHUNK} LM steps, {linalg.CG_CHUNK} CG iterations a chunk; "
+          f"{len(control._GRAPHS)} graphs held; this phase's {_loop_stats()}; host "
+          f"synchronisations a steady frame (median) {syncs} ({card})")
 
 
 def _cpu_args(args) -> tuple:
@@ -1729,33 +1912,52 @@ def kernel_phase(dev, imgs, small_img, cfg, smi: str, lane_imgs, map_lane_imgs,
     fb4 = on_card(shard_in["frame_b4"])
     b4_case(f"B4 ba_blocks (sharded frames, a shard, O = {fb4[0].shape[0]}, V = {fb4[6]})", fb4,
             "sharded frames")
+    # These inputs are the last CG direction of a sharded solve, whose size
+    # differs from run to run by orders of magnitude (the tail sums in no
+    # fixed order; tools/sharded_matvec_inputs.py prints the spread) and
+    # whose products cancel when it is large: each sum is held, entry by
+    # entry, to its conditioning (the sum of the products' magnitudes, a
+    # sum's forward error bound), and both sums' distances to the float64
+    # one are printed.
     scam, sw21, sx = on_card(shard_in["b5"])
     t, t_ref = ba_matvec.expand_cam(scam, sw21, sx), ba_matvec.expand_cam_reference(scam, sw21, sx)
+    t64 = ba_matvec.expand_cam_reference(scam, sw21.double(), sx.double())
+    mag = ba_matvec.expand_cam_reference(scam, sw21.abs().double(), sx.abs().double())
     err = float((t - t_ref).abs().max())
-    bound = 1e-5 * max(1.0, float(t_ref.abs().max()))
+    ok = bool(((t - t_ref).abs() <= 1e-5 * mag.clamp_min(1.0)).all())
     record(f"B5 expand_cam (sharded global, a shard, O = {scam.shape[0]})", "ba_matvec.cu",
            "structure_from_motion_tpu/ops/ba_matvec_pallas.py:91", err,
-           f"1e-5 x max(1, |t|) = {bound:.3e}",
+           f"1e-5 x max(1, sum |W||x|) entry by entry, max |t| {float(t_ref.abs().max()):.3e}, "
+           f"max sum |W||x| {float(mag.max()):.3e}, max |x| {float(sx.abs().max()):.3e}; to "
+           f"float64: kernel {float((t - t64).abs().max()):.3e}, plain "
+           f"{float((t_ref - t64).abs().max()):.3e}",
            lambda: ba_matvec.expand_cam(scam, sw21, sx),
-           lambda: ba_matvec.expand_cam_reference(scam, sw21, sx), err <= bound,
+           lambda: ba_matvec.expand_cam_reference(scam, sw21, sx), ok,
            moved=nbytes(scam, sw21, sx, t), flops=2 * 21 * scam.shape[0], path="sharded global")
     rw21, ry, rperm, rmask, rV = on_card(shard_in["b6"])
     c1 = ba_matvec.reduce_cam(rw21, ry, rperm, rmask, rV)
     c2 = ba_matvec.reduce_cam(rw21, ry, rperm, rmask, rV)
     c_ref = ba_matvec.reduce_cam_reference(rw21, ry, rperm, rmask, rV)
+    c64 = ba_matvec.reduce_cam_reference(rw21.double(), ry.double(), rperm, rmask, rV)
+    cmag = ba_matvec.reduce_cam_reference(rw21.abs().double(), ry.abs().double(), rperm, rmask,
+                                          rV)
     err = float((c1 - c_ref).abs().max())
-    bound = 1e-4 * max(1.0, float(c_ref.abs().max()))
+    ok = bool(((c1 - c_ref).abs() <= 1e-4 * cmag.clamp_min(1.0)).all())
     n_filled = int(rmask.sum())
     record(f"B6 reduce_cam (sharded global, a shard, {rV} cameras x {rperm.shape[0] // rV} slots, "
            f"{n_filled} filled)", "ba_matvec.cu",
            "structure_from_motion_tpu/ops/ba_matvec_pallas.py:125", err,
-           f"1e-4 x max(1, |coup|) = {bound:.3e}; two launches same bits: {torch.equal(c1, c2)}",
+           f"1e-4 x max(1, sum |W||y|) entry by entry, max |coup| "
+           f"{float(c_ref.abs().max()):.3e}, max sum |W||y| {float(cmag.max()):.3e}; to float64: "
+           f"kernel {float((c1 - c64).abs().max()):.3e}, plain "
+           f"{float((c_ref - c64).abs().max()):.3e}; two launches same bits: {torch.equal(c1, c2)}",
            lambda: ba_matvec.reduce_cam(rw21, ry, rperm, rmask, rV),
            lambda: ba_matvec.reduce_cam_reference(rw21, ry, rperm, rmask, rV),
-           err <= bound and torch.equal(c1, c2),
+           ok and torch.equal(c1, c2),
            moved=n_filled * (84 + 12) + nbytes(rperm, rmask, c1), flops=2 * 21 * n_filled,
            path="sharded global")
-    del sb4, fb4, scam, sw21, sx, t, t_ref, rw21, ry, rperm, rmask, c1, c2, c_ref
+    del sb4, fb4, scam, sw21, sx, t, t_ref, t64, mag, rw21, ry, rperm, rmask, c1, c2, c_ref
+    del c64, cmag
     torch.cuda.empty_cache()
 
     # -- the lane axis: B lanes in one launch, at the batched phases' shapes
@@ -2074,8 +2276,10 @@ def _smoke(torch, dev, smi: str, pool) -> None:
     counted = dict(slice_kernels, **{"B2 candidate_response": features_cuda.candidate_response,
                                      "B5 expand_cam": ba_matvec.expand_cam,
                                      "B6 reduce_cam": ba_matvec.reduce_cam})
-    with _clock("slice"):
-        runs = {"slice": slice_phase(dev, imgs, K, C_gt, cfg, counted, torch.cuda.synchronize, smi)}
+    loops = LoopRecorder()
+    with _clock("slice"), loops.installed():
+        runs = {"slice": slice_phase(dev, imgs, K, C_gt, cfg, counted, torch.cuda.synchronize, smi,
+                                     loops)}
     launches = runs["slice"][0]
     missing = [name for name in slice_kernels if launches[name] < 1]
     if missing:
@@ -2105,9 +2309,9 @@ def _smoke(torch, dev, smi: str, pool) -> None:
                                     counted, torch.cuda.synchronize, smi)
 
     # -- 7. the batched engine ---------------------------------------------------
-    with _clock("batched"):
+    with _clock("batched"), loops.installed():
         batched_runs, small_b4 = batched_phase(dev, lanes, small_lanes, map_lanes, cfg, counted,
-                                               torch.cuda.synchronize, smi)
+                                               torch.cuda.synchronize, smi, loops)
     runs.update(batched_runs)
 
     # -- 8. the Harris frontend through the command line -------------------------
@@ -2119,6 +2323,10 @@ def _smoke(torch, dev, smi: str, pool) -> None:
     # -- 10. the shared sample grid: the CLI on the same frames, then 2 lanes
     with _clock("shared"):
         shared_phase(dev, harris, small_lanes, counted, torch.cuda.synchronize, smi)
+
+    # -- 12. the loops: graph replays against the plain per-step loop ---------
+    with _clock("loops"):
+        loops_phase(dev, loops, single_global, torch.cuda.synchronize, smi)
 
     # -- 3. every kernel against its plain version at its paths' shapes (after
     # the runs, whose last B4 inputs it takes) ----------------------------------

@@ -31,6 +31,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import hashlib
+import importlib
 import os
 import shutil
 import subprocess
@@ -73,10 +74,20 @@ _SIGNATURES = {
 def register_ops() -> None:
     """Register every ``sfm::*`` operator (import its wrapper module); a
     program exported with them loads only after this. Builds nothing."""
-    import importlib
-
     for name in OPS:
         importlib.import_module(f"structure_from_motion_tpu_torch.ops.{name}")
+
+
+def counters() -> list:
+    """Every kernel wrapper that counts its launches: ``fn.launches``, and
+    for B1 and B2 ``fn.by_shape`` (a ``Counter``)."""
+    register_ops()
+    found = {}
+    for name in OPS:
+        module = importlib.import_module(f"structure_from_motion_tpu_torch.ops.{name}")
+        found.update((id(f), f) for f in vars(module).values()
+                     if callable(f) and hasattr(f, "launches"))
+    return list(found.values())
 
 
 def _sources() -> list[Path]:

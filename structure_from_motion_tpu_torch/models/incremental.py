@@ -23,10 +23,11 @@ lane, ``models/batched.py`` on B sequences in lockstep (the JAX package
   a lane of the JAX package does); in an exported program (``serve.py``)
   a ``cond`` node;
 * the LM loops of PnP and triangulation stop lane by lane
-  (``utils/control.loop``): a finished lane takes no step and keeps its
-  iterate, and the loop ends when no lane moves (the vmapped
-  ``while_loop``); the fixed-count loops (BA iterations, LO rounds, the
-  essential-manifold refinement) are ``utils/control.fori``;
+  (``utils/control.masked_loop``): a finished lane takes no step and keeps
+  its iterate, and the loop ends when no lane moves (the vmapped
+  ``while_loop``), read once every chunk of steps; the fixed-count loops
+  (BA iterations, LO rounds, the essential-manifold refinement) are
+  ``utils/control.fori``;
 * the ``lax.map`` over prior views in the match stage is one batched call
   with a leading view axis; the small pure pieces of the bootstrap (pose
   from E, cheirality, the essential-manifold refinement step) go through

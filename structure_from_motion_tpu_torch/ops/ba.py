@@ -291,18 +291,38 @@ def _solve_dense(U, Dinv, W, b_red, obs, pin, lam, lay: ObsLayout, psum=None):
     return solve_psd(S, b).reshape(lead + (V, 7))
 
 
+def _schur_matvec(x, Pinv, U_hat, Dinv, pin, cam, w21, lay: ObsLayout, *, psum=None):
+    """One product of the reduced camera system with ``x``: B5 expands x to
+    the slots, a point reduction and D^-1 give y, B6 reduces W y back onto
+    the cameras over the camera-major view (and ``psum`` sums it over
+    ranks); S is never formed. Pinned cameras are identity rows."""
+    xz = x.masked_fill(pin[:, None], 0.0)
+    t = expand_cam(cam, w21, xz.contiguous())  # G^T x per slot
+    y = torch.einsum("mcd,md->mc", Dinv, _point_sum(t, Dinv.shape[0], lay))  # D^-1 G^T x
+    coup = reduce_cam(w21, _point_gather(y, lay).contiguous(), lay.cam_perm, lay.cam_mask,
+                      U_hat.shape[0])
+    if psum is not None:
+        coup = psum(coup)
+    # the U_hat x term reads the already summed U_hat: outside the sum
+    out = torch.einsum("vij,vj->vi", U_hat, xz) - coup
+    return torch.where(pin[:, None], x, out)
+
+
+def _block_jacobi(r, Pinv, *_):
+    return torch.einsum("vij,vj->vi", Pinv, r)
+
+
 def _solve_pcg(U, Dinv, W, b_red, obs, pin, lam, config: BAConfig, lay: ObsLayout,
                cg_iters: list | None, psum=None):
-    """Matrix-free block-Jacobi PCG on the reduced camera system. One
-    matvec: B5 expands x to the slots, a point reduction and D^-1 give y,
-    B6 reduces W y back onto the cameras over the camera-major view (and
-    ``psum`` sums it over ranks); S is never formed. The preconditioner
-    inverts the exact 7x7 diagonal blocks of S."""
-    V, M = U.shape[0], Dinv.shape[0]
+    """Matrix-free block-Jacobi PCG on the reduced camera system
+    (:func:`_schur_matvec`). The preconditioner inverts the exact 7x7
+    diagonal blocks of S. On one device each chunk of CG iterations is one
+    CUDA graph replay on the card; the sharded solve (``psum``) runs them
+    eagerly, as its all-reduce cannot be captured."""
+    V = U.shape[0]
     dt = U.dtype
     eye7 = torch.eye(7, dtype=dt, device=U.device)
     U_hat = (psum(U) if psum is not None else U) + lam * eye7
-    cam = obs.cam.contiguous()
     w21 = W.reshape(-1, 21)
     # exact diagonal blocks: sum over each camera's observations of
     # W_o Dinv_pt(o) W_o^T (at most one observation per (camera, point))
@@ -312,24 +332,11 @@ def _solve_pcg(U, Dinv, W, b_red, obs, pin, lam, config: BAConfig, lay: ObsLayou
         S_diag = psum(S_diag)
     P = torch.where(pin[:, None, None], eye7, U_hat - S_diag)
     Pinv, _ = torch.linalg.inv_ex(P)
-    zero = torch.zeros((), dtype=dt, device=U.device)
-
-    def matvec(x):
-        xz = torch.where(pin[:, None], zero, x)
-        t = expand_cam(cam, w21, xz.contiguous())  # G^T x per slot
-        y = torch.einsum("mcd,md->mc", Dinv, _point_sum(t, M, lay))  # D^-1 G^T x
-        coup = reduce_cam(w21, _point_gather(y, lay).contiguous(), lay.cam_perm, lay.cam_mask, V)
-        if psum is not None:
-            coup = psum(coup)
-        # the U_hat x term reads the already summed U_hat: outside the sum
-        out = torch.einsum("vij,vj->vi", U_hat, xz) - coup
-        return torch.where(pin[:, None], x, out)
-
-    def precond(r):
-        return torch.einsum("vij,vj->vi", Pinv, r)
-
-    b = torch.where(pin[:, None], zero, b_red)
-    return pcg_solve(matvec, b, config.pcg_iterations, precond=precond, cg_iters=cg_iters)
+    b = b_red.masked_fill(pin[:, None], 0.0)
+    return pcg_solve(functools.partial(_schur_matvec, psum=psum), b, config.pcg_iterations,
+                     precond=_block_jacobi, cg_iters=cg_iters,
+                     operands=(Pinv, U_hat, Dinv, pin, obs.cam.contiguous(), w21, lay),
+                     capture=psum is None)
 
 
 def _reduce_and_solve(U, D, W, b_c, b_p, state: BAState, obs, config: BAConfig, lam,

@@ -13,7 +13,11 @@ check for a singular matrix.
 
 from __future__ import annotations
 
+import functools
+
 import torch
+
+from structure_from_motion_tpu_torch.utils.control import masked_loop
 
 
 def floor_abs(x: torch.Tensor, eps: float) -> torch.Tensor:
@@ -73,37 +77,57 @@ def solve_psd(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.cholesky_solve(b[..., None], L)[..., 0]
 
 
+# CG iterations between two host reads of the stop test, at most (the
+# 500-camera solve takes 6 to 64, the cap, a call: PERF.md)
+CG_CHUNK = 8
+
+
+def _identity(r, *_):
+    return r
+
+
+def _pcg_step(active, x, r, p, rz, count, stop, *operands, matvec, precond):
+    """One CG iteration where ``active``; a stopped solve keeps its state."""
+    Ap = matvec(p, *operands)
+    denom = (p * Ap).sum()
+    alpha = torch.where(denom.abs() > 0, rz / denom, 0.0)
+    x_new = x + alpha * p
+    r_new = r - alpha * Ap
+    z = precond(r_new, *operands)
+    rz_new = (r_new * z).sum()
+    beta = torch.where(rz.abs() > 0, rz_new / rz, 0.0)
+    p_new = z + beta * p
+    rz = torch.where(active, rz_new, rz)
+    return (active & (rz.abs() > stop), torch.where(active, x_new, x),
+            torch.where(active, r_new, r), torch.where(active, p_new, p), rz, count + active)
+
+
 def pcg_solve(matvec, b: torch.Tensor, iterations: int, rtol: float = 1e-6, precond=None,
-              cg_iters: list | None = None) -> torch.Tensor:
+              cg_iters: list | None = None, operands: tuple = (),
+              capture: bool = True) -> torch.Tensor:
     """Matrix-free preconditioned conjugate gradients with early exit.
 
-    ``matvec`` maps ``x -> A x``; ``precond`` applies an approximate inverse
-    to a residual (e.g. block-Jacobi 7x7 inverses). The loop stops when
-    ``|r.z| <= rtol**2 |r0.z0|`` or after ``iterations`` steps, and returns
-    the iterate the JAX package's ``while_loop`` returns. The stop test is
-    one host read per iteration. ``cg_iters``, when given, receives the
-    number of iterations run.
+    ``matvec(x, *operands)`` maps ``x -> A x``; ``precond(r, *operands)``
+    applies an approximate inverse to a residual (e.g. block-Jacobi 7x7
+    inverses). The loop stops when ``|r.z| <= rtol**2 |r0.z0|`` or after
+    ``iterations`` steps, and returns the iterate the JAX package's
+    ``while_loop`` returns. The stop test runs on the device
+    (:func:`~..utils.control.masked_loop`): one host read every
+    :data:`CG_CHUNK` iterations, each chunk one CUDA graph replay on the
+    card, so ``matvec`` and ``precond`` read no tensor but their
+    arguments there. ``capture=False`` runs the chunks eagerly (a matvec
+    that all-reduces through gloo cannot be captured). ``cg_iters``, when
+    given, receives the number of iterations run (one host read).
     """
-    apply_m = precond if precond is not None else (lambda r: r)
-    x = torch.zeros_like(b)
-    r = b
-    z = apply_m(b)
-    p = z
+    apply_m = precond if precond is not None else _identity
+    z = apply_m(b, *operands)
     rz = (b * z).sum()
     stop = rtol**2 * rz.abs()
-    i = 0
-    while i < iterations and bool(rz.abs() > stop):
-        Ap = matvec(p)
-        denom = (p * Ap).sum()
-        alpha = torch.where(denom.abs() > 0, rz / denom, 0.0)
-        x = x + alpha * p
-        r = r - alpha * Ap
-        z = apply_m(r)
-        rz_new = (r * z).sum()
-        beta = torch.where(rz.abs() > 0, rz_new / rz, 0.0)
-        p = z + beta * p
-        rz = rz_new
-        i += 1
+    count = torch.zeros((), dtype=torch.long, device=b.device)
+    step = functools.partial(_pcg_step, matvec=matvec, precond=apply_m)
+    _, x, _, _, _, count = masked_loop(iterations, CG_CHUNK, step,
+                                       (rz.abs() > stop, torch.zeros_like(b), b, z, rz, count),
+                                       stop, *operands, capture=capture)
     if cg_iters is not None:
-        cg_iters.append(i)
+        cg_iters.append(int(count))
     return x

@@ -6,7 +6,9 @@ The DLT takes its null vector and rotation from the SVD on every device
 faster and more accurate than its accelerator path, gram inverse iteration
 plus a Newton polar factor). RANSAC samples are inputs of :func:`linear_pnp_ransac` (see :func:`sample_pnp`);
 the LM loops keep the JAX package's early exit once the squared step
-falls below 1e-14 (``utils/control.loop``).
+falls below 1e-14, stopped on the device (``utils/control.masked_loop``:
+one host read every :data:`LM_CHUNK` steps, each chunk one CUDA graph
+replay on the card).
 """
 
 from __future__ import annotations
@@ -24,13 +26,18 @@ from structure_from_motion_tpu_torch.ops.linalg import (
 )
 from structure_from_motion_tpu_torch.ops.ransac import draw_uniform, ransac, sample_index_sets
 from structure_from_motion_tpu_torch.ops.reproj import batched_residual_jacobians, pixel_residuals
-from structure_from_motion_tpu_torch.utils.control import fori, loop
+from structure_from_motion_tpu_torch.utils.control import fori, masked_loop
 from structure_from_motion_tpu_torch.utils.geometry import normalized_camera_coords
 from structure_from_motion_tpu_torch.utils.rotations import (
     quat_normalize,
     quat_to_rotation,
     rotation_to_quat,
 )
+
+# LM steps between two host reads of the stop mask, at most: float32 LM
+# calls mostly run to their caps (10, 25, 50 and 100 at the CLI default),
+# and 10 divides three of them (PERF.md)
+LM_CHUNK = 10
 
 
 class PnPResult(NamedTuple):
@@ -70,10 +77,10 @@ def solve_pnp_dlt(X, meas_norm, weights=None):
     return R, -torch.einsum("...ij,...j->...i", R, t)
 
 
-def _lm_body(i, q, C, active, X, meas_norm, m, delta_h, damping: float):
-    """One LM step of every still active problem: a finished problem keeps
-    its iterate (``torch.where``, so a singular system of a converged
-    problem cannot reach it) and stays finished."""
+def _lm_body(active, q, C, X, meas_norm, m, delta_h, damping: float):
+    """One LM step of every active problem: any other keeps its iterate
+    (``torch.where``, so a singular system of a converged problem cannot
+    reach it) and stays inactive."""
     lead = q.shape[:-1]
     n = X.shape[-2]
     res, J_cam, _ = batched_residual_jacobians(
@@ -96,7 +103,7 @@ def _lm_body(i, q, C, active, X, meas_norm, m, delta_h, damping: float):
     on = active[..., None]
     C = torch.where(on, C + delta[..., :3], C)
     q = torch.where(on, quat_normalize(q + delta[..., 3:]), q)
-    return i + 1, q, C, active & ((delta * delta).sum(-1) > 1e-14)
+    return active & ((delta * delta).sum(-1) > 1e-14), q, C
 
 
 def _lm_steps(q, C, X, meas_norm, mask, iterations: int, damping: float, huber_delta=0.0):
@@ -107,20 +114,17 @@ def _lm_steps(q, C, X, meas_norm, mask, iterations: int, damping: float, huber_d
     Leading axes in front of the pose ((B, 4), (B, 3) over (B, N, 3) points)
     are independent problems, one a lane of the batched engine: a problem
     whose step has fallen below the threshold takes no more steps and
-    keeps its iterate, and the loop (:func:`~..utils.control.loop`: one
-    host read an iteration, a ``while_loop`` in an exported program) ends
+    keeps its iterate, and the loop (:func:`~..utils.control.masked_loop`:
+    a device-side stop mask, read once every :data:`LM_CHUNK` steps) ends
     when every problem has stopped, so each gets what a call on it alone
     gives. ``huber_delta`` may then hold one value a problem."""
     lead = q.shape[:-1]
     robust = not (isinstance(huber_delta, (int, float)) and huber_delta <= 0.0)
     delta_h = (torch.as_tensor(huber_delta, dtype=X.dtype, device=X.device)[..., None]
                if robust else None)
-    carried = (torch.zeros((), dtype=torch.long, device=X.device), q, C,
-               torch.ones(lead, dtype=torch.bool, device=X.device))
-    _, q, C, _ = loop(
-        lambda i, q, C, active, *_: (i < iterations) & active.any(),
-        functools.partial(_lm_body, damping=damping),
-        carried, X, meas_norm, mask.to(X.dtype), delta_h)
+    _, q, C = masked_loop(iterations, LM_CHUNK, functools.partial(_lm_body, damping=damping),
+                          (torch.ones(lead, dtype=torch.bool, device=X.device), q, C),
+                          X, meas_norm, mask.to(X.dtype), delta_h)
     return q, C
 
 

@@ -3,8 +3,9 @@
 
 The DLT null vector comes from the SVD on every device (the JAX package's
 CPU path; see ``ops/pnp.py`` for why the card takes it too); the LM loop
-(``utils/control.loop``) has the JAX package's early exit once the largest
-squared step falls below 1e-14.
+has the JAX package's early exit once the largest squared step falls below
+1e-14, stopped on the device (``utils/control.masked_loop``, one host read
+every ``pnp.LM_CHUNK`` steps, each chunk one CUDA graph replay on the card).
 """
 
 from __future__ import annotations
@@ -19,7 +20,8 @@ from structure_from_motion_tpu_torch.ops.linalg import (
     inv3x3,
     nullspace,
 )
-from structure_from_motion_tpu_torch.utils.control import loop
+from structure_from_motion_tpu_torch.ops.pnp import LM_CHUNK
+from structure_from_motion_tpu_torch.utils.control import masked_loop
 
 
 def linear_triangulate(P: torch.Tensor, uv: torch.Tensor, obs_mask: torch.Tensor) -> torch.Tensor:
@@ -67,8 +69,8 @@ def _projection_jacobian(P, X, obs_mask):
     return J * obs_mask[..., None, None].to(X.dtype)
 
 
-def _lm_body(i, X, active, P, uv, obs_mask, lam: float):
-    """One LM step of every point of a still active lane; a finished lane's
+def _lm_body(active, X, P, uv, obs_mask, lam: float):
+    """One LM step of every point of an active lane; any other lane's
     points keep their iterate."""
     res, _ = reprojection_residuals(P, X, uv, obs_mask)
     J = _projection_jacobian(P, X, obs_mask)
@@ -81,7 +83,7 @@ def _lm_body(i, X, active, P, uv, obs_mask, lam: float):
     lanes = active.shape[0]
     Xl = X.view(lanes, -1, 3)
     X = torch.where(active[:, None, None], Xl - delta.reshape(lanes, -1, 3), Xl).view(X.shape)
-    return i + 1, X, active & ((delta * delta).sum(-1).view(lanes, -1).amax(1) > 1e-14)
+    return active & ((delta * delta).sum(-1).view(lanes, -1).amax(1) > 1e-14), X
 
 
 def refine_triangulate(P, uv, obs_mask, X0_h, config: LMConfig, lanes: int = 0) -> torch.Tensor:
@@ -89,15 +91,15 @@ def refine_triangulate(P, uv, obs_mask, X0_h, config: LMConfig, lanes: int = 0) 
 
     The points are ``max(lanes, 1)`` equal runs, one a lane of the batched
     engine, each stopping on its own (its largest squared step <= 1e-14)
-    and then keeping its iterate; the loop (:func:`~..utils.control.loop`)
-    ends when every lane has stopped, so each lane gets what a call on its
-    run alone gives."""
+    and then keeping its iterate; the loop
+    (:func:`~..utils.control.masked_loop`) ends when every lane has
+    stopped, so each lane gets what a call on its run alone gives."""
     X = X0_h[..., :3] / _safe(X0_h[..., 3:4])
     if X.shape[0]:
-        carried = (torch.zeros((), dtype=torch.long, device=X.device), X,
-                   torch.ones(max(lanes, 1), dtype=torch.bool, device=X.device))
-        _, X, _ = loop(lambda i, X, active, *_: (i < config.iterations) & active.any(),
-                       functools.partial(_lm_body, lam=config.damping), carried, P, uv, obs_mask)
+        active = torch.ones(max(lanes, 1), dtype=torch.bool, device=X.device)
+        _, X = masked_loop(config.iterations, LM_CHUNK,
+                           functools.partial(_lm_body, lam=config.damping), (active, X),
+                           P, uv, obs_mask)
     return torch.cat([X, torch.ones_like(X[..., :1])], dim=-1)
 
 

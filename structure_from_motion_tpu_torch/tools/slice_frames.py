@@ -1,25 +1,44 @@
 """Wall time a frame of the single-sequence engine at the CLI's default
-reconstruct configuration, on rendered 960x1280 frames.
+reconstruct configuration, on rendered 960x1280 frames, and of the
+500-camera global solve.
 
     python3 -m structure_from_motion_tpu_torch.tools.slice_frames [--frames 16] [--repeat 1]
+        [--stages] [--profile] [--global-solve N]
 
 Each repeat builds a fresh ``IncrementalSfM`` (seed 0) and times every
-frame between two ``torch.cuda.synchronize()`` calls; prints one JSON line
-a repeat with the median of frames 2 onward. To compare two versions on
-one card, unpack the other version's package under ``build/`` (git
-ignores it), copy this file over its copy, and run both from one command,
-in the order parent, change, change, parent.
+frame between two ``torch.cuda.synchronize()`` calls, with the host
+synchronisations torch reports a frame (``torch.cuda.set_sync_debug_mode``)
+and, where the package has them, the loop graphs' replays and stop-mask
+reads a frame (``utils/control.stats``); prints one JSON line a repeat with
+the median of frames 2 onward. ``--profile`` runs one more frame under
+``torch.profiler``: kernels launched, device time, and the busy share (the
+union of the device's activity over the frame's wall time). ``--stages``
+runs the frames again with the engine's stages and the PnP and
+triangulation steps each timed between two synchronisations (the medians
+of frames 2 onward; the synchronisations slow the frame). ``--global-solve
+N`` loads ``artifacts/longrun500_pre_globalba.ckpt.npz`` and times
+``finalize_global(20)`` N times after one warm-up solve.
+
+To compare two versions on one card, unpack the other version's package
+under ``build/`` (git ignores it), copy this file over its copy, and run
+both from one command, in the order parent, change, change, parent.
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
+import functools
 import json
 import subprocess
 import time
+import warnings
+from pathlib import Path
 
 import numpy as np
 import torch
+
+ARTIFACT = Path(__file__).resolve().parents[2] / "artifacts" / "longrun500_pre_globalba.ckpt.npz"
 
 
 def cli_default_config():
@@ -35,34 +54,184 @@ def cli_default_config():
     return _build_config(parser_defaults)
 
 
-def run(frames: int, repeat: int) -> list:
+def _loop_counts() -> tuple:
+    """(replays, stop-mask reads) so far; (0, 0) in a version without loop
+    graphs."""
+    from structure_from_motion_tpu_torch.utils import control
+
+    stats = getattr(control, "stats", None)
+    return (stats.replays, stats.reads) if stats is not None else (0, 0)
+
+
+def _timed(fn) -> tuple:
+    """(result, wall s, host synchronisations) of ``fn()``, synchronised."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return out, wall, sum("synchroniz" in str(w.message) for w in caught)
+
+
+def _busy(prof, wall_s: float) -> dict:
+    """Kernels, device time and busy share of one profiled frame."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy, end = 0.0, -1.0
+    for a, b in spans:  # the union of the device's activity, in us
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return dict(device_events=len(spans), busy_ms=round(busy / 1e3, 3),
+                busy_share=round(busy / 1e6 / wall_s, 4))
+
+
+class _StageTimer:
+    """Wraps module functions so that each call is timed between two
+    synchronisations; nested stages count inside their parent."""
+
+    SITES = (("models.incremental", "_match_stage"), ("models.incremental", "_bootstrap_stage"),
+             ("models.incremental", "_localize_stage"), ("models.incremental", "_ba_stage"),
+             ("models.incremental", "_triangulate_new_flat"), ("models.incremental", "_admit_new"),
+             ("models.incremental", "detect_and_describe"), ("ops.pnp", "linear_pnp_ransac"),
+             ("ops.pnp", "_lm_steps"), ("ops.triangulation", "refine_triangulate"))
+
+    def __init__(self):
+        import importlib
+
+        self.frame: collections.Counter = collections.Counter()
+        self.saved = []
+        for mod, name in self.SITES:
+            m = importlib.import_module(f"structure_from_motion_tpu_torch.{mod}")
+            if hasattr(m, name):
+                self.saved.append((m, name, getattr(m, name)))
+                setattr(m, name, self._wrap(name, getattr(m, name)))
+
+    def _wrap(self, name, fn):
+        @functools.wraps(fn)
+        def timed(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            self.frame[name] += time.perf_counter() - t0
+            return out
+        return timed
+
+    def close(self):
+        for m, name, fn in self.saved:
+            setattr(m, name, fn)
+
+
+def run(frames: int, repeat: int, stages: bool = False, profile: bool = False,
+        global_solve: int = 0) -> list:
     from structure_from_motion_tpu_torch.io.synthetic import synthetic_scene_sequence
     from structure_from_motion_tpu_torch.models.incremental import IncrementalSfM
 
-    imgs, K, _, _ = synthetic_scene_sequence(n_frames=frames, size=(960, 1280), seed=3,
-                                             loops=0.07 * frames)
+    imgs, K, _, _ = synthetic_scene_sequence(n_frames=frames + 1, size=(960, 1280), seed=3,
+                                             loops=0.07 * (frames + 1))
     cfg = cli_default_config()
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
     out = []
     for _ in range(repeat):
         eng = IncrementalSfM(cfg, K, frontend="native", seed=0, device="cuda")
-        times = []
-        for im in imgs:
-            t0 = time.perf_counter()
-            eng.process_image(im)
+        times, syncs, replays, reads = [], [], [], []
+        for im in imgs[:frames]:
+            r0 = _loop_counts()
+            _, wall, n_sync = _timed(lambda: eng.process_image(im))
+            r1 = _loop_counts()
+            times.append(wall)
+            syncs.append(n_sync)
+            replays.append(r1[0] - r0[0])
+            reads.append(r1[1] - r0[1])
+        res = dict(median_s=float(np.median(times[2:])), times_s=[round(t, 4) for t in times],
+                   syncs=syncs, median_syncs=float(np.median(syncs[2:])), replays=replays,
+                   reads=reads, card=card)
+        if profile:
+            acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
             torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
-        out.append(dict(median_s=float(np.median(times[2:])),
-                         times_s=[round(t, 4) for t in times],
-                         card=card))
-        print(json.dumps(out[-1]))
+            with torch.profiler.profile(activities=acts) as prof:
+                _, wall, _ = _timed(lambda: eng.process_image(imgs[frames]))
+            res["profiled_frame"] = dict(wall_s=round(wall, 4), **_busy(prof, wall))
+        out.append(res)
+        print(json.dumps(res), flush=True)
+    if stages:
+        timer = _StageTimer()
+        try:
+            eng = IncrementalSfM(cfg, K, frontend="native", seed=0, device="cuda")
+            per_frame = []
+            for im in imgs[:frames]:
+                timer.frame.clear()
+                _, wall, _ = _timed(lambda: eng.process_image(im))
+                per_frame.append(dict(timer.frame, frame=wall))
+        finally:
+            timer.close()
+        names = sorted({k for f in per_frame for k in f})
+        med = {k: round(1e3 * float(np.median([f.get(k, 0.0) for f in per_frame[2:]])), 2)
+               for k in names}
+        print(json.dumps(dict(stages_ms_median=med, card=card)), flush=True)
+    if global_solve:
+        eng = IncrementalSfM(_long_sequence_config(), np.eye(3), frontend="precomputed",
+                             device="cuda")
+        walls, syncs = [], []
+        for i in range(global_solve + 1):
+            eng.load_checkpoint(str(ARTIFACT))
+            torch.cuda.synchronize()
+            r0 = _loop_counts()
+            info, wall, n_sync = _timed(lambda: eng.finalize_global(iterations=20))
+            if i:  # the first solve warms up
+                walls.append(wall)
+                syncs.append(n_sync)
+        res = dict(global_wall_s=[round(w, 4) for w in walls],
+                   global_median_s=float(np.median(walls)), syncs=syncs,
+                   cg=list(info["cg_iterations"]), final_cost=float(info["costs"][-1]),
+                   replays_reads_last=[a - b for a, b in zip(_loop_counts(), r0)], card=card)
+        print(json.dumps(res), flush=True)
+        out.append(res)
     return out
+
+
+def _long_sequence_config():
+    """``examples/run_long_sequence.py``'s engine configuration, which the
+    500-camera checkpoint was written with (``chip_smoke.py``'s)."""
+    from structure_from_motion_tpu_torch.config import (
+        BAConfig,
+        CapacityConfig,
+        FrontendConfig,
+        LMConfig,
+        MatcherConfig,
+        PipelineConfig,
+        RansacConfig,
+    )
+
+    return PipelineConfig(
+        frontend=FrontendConfig(max_keypoints=1024, upsample_first_octave=False),
+        matcher=MatcherConfig(ratio=0.9),
+        fundamental_ransac=RansacConfig(inlier_threshold=2.0, iteration=256),
+        pnp_ransac=RansacConfig(inlier_threshold=8.0, sample_num=6, iteration=512),
+        pnp_lm=LMConfig(damping=5.0, iterations=100),
+        triangulation_lm=LMConfig(damping=5.0, iterations=50),
+        ba=BAConfig(iterations=3, damping=5.0, huber_delta=0.01),
+        capacity=CapacityConfig(max_views=8, max_keypoints=1024, max_points=8192,
+                                max_observations=32768),
+        window_size=8,
+        window_mode="slide",
+    )
 
 
 if __name__ == "__main__":
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--frames", type=int, default=16)
     p.add_argument("--repeat", type=int, default=1)
+    p.add_argument("--stages", action="store_true", help="time the stages, synchronised")
+    p.add_argument("--profile", action="store_true", help="profile one more frame")
+    p.add_argument("--global-solve", type=int, default=0, metavar="N",
+                   help="time finalize_global(20) on the 500-camera checkpoint N times")
     a = p.parse_args()
-    run(a.frames, a.repeat)
+    run(a.frames, a.repeat, a.stages, a.profile, a.global_solve)

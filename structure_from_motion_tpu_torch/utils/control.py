@@ -18,6 +18,13 @@ one compiled program. Here:
   while exporting a ``while_loop`` node whose body is traced once, not
   once an iteration. An exported program's size, and its export, save and
   load times, follow the number of traced operators.
+* :func:`masked_loop` is the JAX package's convergence ``while_loop`` (the
+  LM and PCG loops): a step that updates only the problems its device-side
+  mask leaves active, the mask read on the host once every ``k`` steps. On
+  the card each chunk of ``k`` steps is one CUDA graph replay; on the CPU
+  the chunk runs eagerly; while exporting it is a ``while_loop`` of masked
+  steps. :func:`masked_loop_reference`, one step and one host read at a
+  time, is its plain version.
 
 :func:`take` and :func:`put` index one position of an axis by a Python int
 or by a 0-dim tensor (no host read), for code that both paths run;
@@ -27,7 +34,12 @@ on the lane itself (an exported program holds no ``vmap``).
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import dataclasses
+import functools
+import math
+import time
 
 import torch
 from torch.utils import _pytree as pytree
@@ -203,3 +215,238 @@ def fori(n: int, body_fn, carried: tuple, *operands) -> tuple:
     out = loop(lambda i, *_: i < n, lambda i, *rest: (i + 1, *body_fn(i, *rest)),
                (i0, *carried), *operands)
     return out[1:]
+
+
+# -- convergence loops: a device-side stop mask read once every k steps -------
+
+
+@dataclasses.dataclass
+class LoopStats:
+    """What :func:`masked_loop` did since :func:`reset_stats`: host reads of
+    the stop mask, CUDA graph captures (and their seconds), replays, the
+    reserved memory the captures added to the shared graph pool, and the
+    bytes of the graphs' static input buffers."""
+
+    reads: int = 0
+    captures: int = 0
+    capture_s: float = 0.0
+    replays: int = 0
+    pool_bytes: int = 0
+    static_bytes: int = 0
+
+
+stats = LoopStats()
+_GRAPHS: dict = {}  # key of a call site and its shapes -> _Graph
+_POOLS: dict = {}  # device -> the graph memory pool every capture shares
+
+
+def reset_stats() -> None:
+    """Set every field of :data:`stats` to 0 (the graphs stay)."""
+    for f in dataclasses.fields(stats):
+        setattr(stats, f.name, f.default)
+
+
+def _read(flag: torch.Tensor) -> bool:
+    stats.reads += 1
+    return bool(flag)
+
+
+def _masked_step(n: int, step_fn, i, carried: tuple, operands: tuple):
+    """Step ``i`` of a masked loop: the problems still active and below the
+    cap take it, every other keeps its iterate (``step_fn``'s contract)."""
+    active = carried[0] & (i < n)
+    return i + 1, tuple(step_fn(active, *carried[1:], *operands))
+
+
+def _loop_step(n: int, step_fn, m: int, i, *xs):
+    """:func:`_masked_step` as a :func:`loop` body (``xs``: ``m`` carried,
+    then the operands)."""
+    i, carried = _masked_step(n, step_fn, i, xs[:m], xs[m:])
+    return (i, *carried)
+
+
+def masked_loop(n: int, k: int, step_fn, carried: tuple, *operands, capture: bool = True) -> tuple:
+    """The convergence loop of the JAX package's LM and PCG ``while_loop``s,
+    stopped on the device: ``carried`` is ``(active, *state)`` with
+    ``active`` a bool tensor, one entry a problem (or 0-dim);
+    ``step_fn(active, *state, *operands)`` returns ``(active', *state')``,
+    changing only the problems where ``active`` is true (``torch.where``:
+    the others keep their iterate bit for bit) and with ``active'`` false
+    wherever ``active`` is. A step is given ``active & (i < n)``, so no step
+    past ``n`` applies, and the result is the iterate and stop point of the
+    per-step loop (:func:`masked_loop_reference`; only ``active`` differs:
+    false for the problems the cap stopped, where the per-step loop stops
+    with them still set). ``operands`` (any structure of tensors and
+    constants) are read, never changed.
+
+    The steps run in ``ceil(n / k)`` chunks of ``ceil(n / ceil(n / k))``
+    steps (at most ``k``; a loop that runs to its cap runs fewer steps past
+    it), with one host read of ``any(active)`` after each chunk that leaves
+    steps below ``n``:
+
+    * on CUDA tensors each chunk is one replay of a CUDA graph, captured at
+      the first call of this ``step_fn`` (its code and constants), ``n``,
+      the chunk and these shapes and dtypes, after one warm-up chunk on a side
+      stream; every graph shares one memory pool, and the inputs are
+      copied into its buffers at each call. A replay adds the launches of
+      the kernels its graph holds to their wrappers' counts. ``step_fn``
+      reads no tensor but its arguments, and makes no host read (the
+      capture runs under ``torch.cuda.set_sync_debug_mode("error")``); a
+      capture or replay that fails raises;
+    * with ``capture=False`` (an all-reduce through gloo in the step cannot
+      be captured: the sharded PCG), and on the CPU, the chunks run
+      eagerly;
+    * while ``torch.export`` traces: one :func:`loop` of masked steps, its
+      predicate read once a step when the program runs, as before the
+      chunks (an exported ``while_loop`` reads its predicate on the host
+      every iteration, so a nested :func:`fori` of ``k`` steps would read
+      ``k + 1`` times a chunk: a served frame made 307-319 host reads with
+      it against 230 with one read a step on an H100; PERF.md).
+    """
+    carried = tuple(carried)
+    if n <= 0:
+        return carried
+    if exporting():
+        i0 = torch.zeros((), dtype=torch.long, device=carried[0].device)
+        return loop(lambda i, active, *_: (i < n) & active.any(),
+                    functools.partial(_loop_step, n, step_fn, len(carried)), (i0, *carried),
+                    *operands)[1:]
+    k = -(-n // -(-n // k))
+    if capture and carried[0].is_cuda:
+        return _replay_chunks(n, k, step_fn, carried, operands)
+    i = 0
+    while True:
+        for _ in range(k):
+            i, carried = _masked_step(n, step_fn, i, carried, operands)
+        if i >= n or not _read(carried[0].any()):
+            return carried
+
+
+def masked_loop_reference(n: int, k: int, step_fn, carried: tuple, *operands,
+                          capture: bool = True) -> tuple:
+    """Plain version of :func:`masked_loop` (same arguments; ``k`` and
+    ``capture`` are not read): one step at a time while a problem is active
+    and fewer than ``n`` steps ran, one host read a step."""
+    carried = tuple(carried)
+    i = 0
+    while i < n and bool(carried[0].any()):
+        carried = tuple(step_fn(carried[0], *carried[1:], *operands))
+        i += 1
+    return carried
+
+
+def _const_key(x):
+    """A hashable key of a constant a captured step reads (a function's
+    code and what it closes over, a partial's arguments); a tensor there is
+    refused: the graph would hold its address."""
+    if torch.is_tensor(x):
+        raise ValueError("a captured step closes over a tensor: pass it as an operand")
+    if isinstance(x, functools.partial):
+        return (_const_key(x.func), _const_key(x.args),
+                tuple(sorted((name, _const_key(v)) for name, v in x.keywords.items())))
+    code = getattr(x, "__code__", None)
+    if code is not None:
+        cells = tuple(_const_key(c.cell_contents) for c in x.__closure__ or ())
+        return (code, cells, _const_key(x.__defaults__ or ()))
+    if isinstance(x, (tuple, list)):
+        return tuple(_const_key(v) for v in x)
+    hash(x)
+    return x
+
+
+@dataclasses.dataclass
+class _Graph:
+    graph: torch.cuda.CUDAGraph
+    i: torch.Tensor  # the step counter
+    carried: list  # the carried buffers: a replay leaves its result there
+    operands: list  # the operand buffers
+    flag: torch.Tensor  # any problem active after the chunk (an output of the graph)
+    launches: list  # (wrapper, launches, by shape) of the kernels a replay runs
+
+
+@contextlib.contextmanager
+def _sync_errors():
+    """A host synchronisation raises inside the block."""
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+
+
+def _launch_counts(wrappers) -> list:
+    return [(f, f.launches, collections.Counter(getattr(f, "by_shape", {}))) for f in wrappers]
+
+
+def _capture(n: int, k: int, step_fn, carried: tuple, tensors: list, rebuild) -> _Graph:
+    """Warm one chunk up on a side stream, then capture it into a graph of
+    the shared pool; the launches the capture counted become the graph's."""
+    from structure_from_motion_tpu_torch import kernels
+
+    dev = carried[0].device
+    i = torch.zeros((), dtype=torch.long, device=dev)
+    static_c = [t.clone() for t in carried]
+    static_o = [t.clone() for t in tensors]
+
+    def chunk():
+        j, c, ops = i, tuple(static_c), rebuild(static_o)
+        for _ in range(k):
+            j, c = _masked_step(n, step_fn, j, c, ops)
+        i.copy_(j)
+        for s, t in zip(static_c, c):
+            s.copy_(t)
+        return c[0].any()
+
+    t0 = time.perf_counter()
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side), _sync_errors():
+        chunk()  # creates the library handles and workspaces a capture cannot
+    torch.cuda.current_stream(dev).wait_stream(side)
+    wrappers = kernels.counters()
+    before = _launch_counts(wrappers)
+    if dev not in _POOLS:
+        _POOLS[dev] = torch.cuda.graph_pool_handle()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, pool=_POOLS[dev], capture_error_mode="thread_local"):
+        reserved = torch.cuda.memory_reserved(dev)
+        with _sync_errors():
+            flag = chunk()
+        stats.pool_bytes += torch.cuda.memory_reserved(dev) - reserved
+    launches = []
+    for (f, n0, s0), (_, n1, s1) in zip(before, _launch_counts(wrappers)):
+        launches.append((f, n1 - n0, s1 - s0))
+        f.launches = n0  # nothing ran: the counts go back, the graph keeps them
+        if hasattr(f, "by_shape"):
+            f.by_shape.clear()
+            f.by_shape.update(s0)
+    stats.captures += 1
+    stats.capture_s += time.perf_counter() - t0
+    stats.static_bytes += sum(t.nbytes for t in (i, *static_c, *static_o))
+    return _Graph(graph, i, static_c, static_o, flag,
+                  [x for x in launches if x[1] or x[2]])
+
+
+def _replay_chunks(n: int, k: int, step_fn, carried: tuple, operands: tuple) -> tuple:
+    tensors, rebuild = _split(operands)
+    leaves, spec = pytree.tree_flatten((carried, operands))
+    key = (_const_key(step_fn), n, k, spec,
+           tuple((tuple(x.shape), x.dtype, x.device) if torch.is_tensor(x) else _const_key(x)
+                 for x in leaves))
+    g = _GRAPHS.get(key)
+    if g is None:
+        g = _GRAPHS[key] = _capture(n, k, step_fn, carried, tensors, rebuild)
+    g.i.zero_()
+    for s, t in zip((*g.carried, *g.operands), (*carried, *tensors)):
+        s.copy_(t)
+    for c in range(math.ceil(n / k)):
+        g.graph.replay()
+        stats.replays += 1
+        for f, dn, ds in g.launches:
+            f.launches += dn
+            if ds:
+                f.by_shape.update(ds)
+        if (c + 1) * k >= n or not _read(g.flag):
+            break
+    return tuple(t.clone() for t in g.carried)
