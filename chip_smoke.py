@@ -1033,15 +1033,18 @@ def serve_phase(dev, imgs, K, C_gt, cfg, counted, sync, card: str) -> dict:
     """The slice's frames through an exported artifact: (a) export a fresh
     engine's programs, (b) live and served engines over every frame, bit
     for bit (every state field, the eviction archive, the reprojection),
-    within the slice's bounds, (c) the same launches of B1, B2f, B3 and B4,
-    (d) the served 10-iteration ``finalize``, (e) a spawned process serving
-    with the geometry stack made to raise, (f) the times. Returns the
-    served run's launch counts (and counts by shape)."""
+    within the slice's bounds, (c) the same launches of B1, B2f, B3 and B4
+    and, every frame, the same loop stop-mask reads (the served loops run
+    as the live ones: CUDA graph replays), (d) the served 10-iteration
+    ``finalize``, bit for bit the live ``finalize(10)``, (e) a spawned
+    process serving with the geometry stack made to raise, (f) the times.
+    Returns the served run's launch counts (and counts by shape)."""
     import numpy as np
     import torch
 
     from structure_from_motion_tpu_torch import serve
     from structure_from_motion_tpu_torch.models.incremental import IncrementalSfM, LazyDraws
+    from structure_from_motion_tpu_torch.utils import control
 
     n = len(imgs)
     span = float(np.linalg.norm(C_gt.max(0) - C_gt.min(0)))
@@ -1071,22 +1074,30 @@ def serve_phase(dev, imgs, K, C_gt, cfg, counted, sync, card: str) -> dict:
     # (b), (c): the live run, then the served run, each with its own counts
     def run(engine, label):
         _reset(counted)
-        times, first = [], None
+        times, syncs, reads, first = [], [], [], None
         for i, im in enumerate(imgs):
-            t0 = time.perf_counter()
-            engine.process_image(im)
-            sync()
-            times.append(time.perf_counter() - t0)
+            before = control.stats.reads
+            with _counting_syncs(syncs, dev):
+                t0 = time.perf_counter()
+                engine.process_image(im)
+                sync()
+                times.append(time.perf_counter() - t0)
+            reads.append(control.stats.reads - before)
             if i + 1 == SERVE_CHILD_FRAMES:
                 first = engine.poses()[0]
         launches, by_shape = _read(counted)
         print(f"serve {label}: frame 0 {times[0]:.3f} s, frames 2-{n - 1} median "
-              f"{float(np.median(times[2:])):.3f} s, total {sum(times):.3f} s ({card})")
-        return times, launches, by_shape, first
+              f"{float(np.median(times[2:])):.3f} s, total {sum(times):.3f} s ({card}); host "
+              f"synchronisations a frame, frames 2-{n - 1} median {float(np.median(syncs[2:]))}; "
+              f"{_loop_stats()}; stop-mask reads a frame {reads}")
+        return times, launches, by_shape, first, reads
 
     live = IncrementalSfM(cfg, K, frontend="native", seed=0, device=dev)
-    live_t, live_launches, _, live_first = run(live, "live")
-    served_t, served_launches, served_by_shape, _ = run(served, "served")
+    live_t, live_launches, _, live_first, live_reads = run(live, "live")
+    served_t, served_launches, served_by_shape, _, served_reads = run(served, "served")
+    if served_reads != live_reads:
+        raise AssertionError(f"served stop-mask reads a frame {served_reads} differ from live "
+                             f"{live_reads}")
     fields = type(live.state)._fields
     differ = [f for f, a, b in zip(fields, live.state, served.state) if not torch.equal(a, b)]
     arch = all(np.array_equal(a, b) for ra, rb in zip(live._archive, served._archive)
@@ -1110,13 +1121,18 @@ def serve_phase(dev, imgs, K, C_gt, cfg, counted, sync, card: str) -> dict:
     if any(served_launches[k] != live_launches[k] or live_launches[k] < 1 for k in kernels_of):
         raise AssertionError(f"served launches {served_launches} differ from live {live_launches}")
 
-    # (d) the exported finalize
+    # (d) the exported finalize against the live one on the equal end states
     costs = served.finalize()
+    live_costs = live.finalize(10)
     after = served.reprojection_error()
+    differ = [f for f, a, b in zip(fields, live.state, served.state) if not torch.equal(a, b)]
     print(f"serve finalize: costs {costs.shape} {costs[0]:.6g} -> {costs[-1]:.6g}, "
-          f"reprojection {reproj_served:.4f} -> {after:.4f} px")
+          f"reprojection {reproj_served:.4f} -> {after:.4f} px; against live finalize(10): "
+          f"costs equal {np.array_equal(costs, live_costs)}, state fields that differ {differ}")
     if not (costs.shape == (10,) and np.isfinite(costs).all() and after <= reproj_live + 1e-5):
         raise AssertionError("the served finalize failed its bounds")
+    if differ or not np.array_equal(costs, live_costs):
+        raise AssertionError(f"the served finalize differs from live finalize(10): {differ}")
 
     # (e) a fresh process that cannot enter the geometry stack
     ctx = multiprocessing.get_context("spawn")

@@ -11,9 +11,11 @@ never re-enters the Python geometry stack.
 
 What an exported program holds: the ATen operators the stages run, the
 hand-written kernels as ``sfm::*`` operators (``kernels.register_ops``),
-the stage and bucket choices as ``cond`` nodes and the LM loops as
-``while_loop`` nodes (``utils/control.py``). Each such node makes the one
-host read the live engine makes there. An exported program takes its
+the stage and bucket choices as ``cond`` nodes and the loops as tagged
+``while_loop`` nodes (``utils/control.py``). A ``cond`` node makes the one
+host read the live engine makes there; at load, :func:`retarget_loops`
+points each loop node at the live engine's loop (a fixed loop with no read,
+a masked loop in chunks of CUDA graph replays). An exported program takes its
 random draws as inputs (``models.incremental.FrameDraws``): the served
 engine draws them from the live engine's generators, every rung of the PnP
 ladder a frame, so a served run repeats the live run's bits.
@@ -37,7 +39,7 @@ import torch
 
 from structure_from_motion_tpu_torch import kernels
 from structure_from_motion_tpu_torch.config import PipelineConfig
-from structure_from_motion_tpu_torch.utils.control import export_tracing
+from structure_from_motion_tpu_torch.utils import control
 
 _FORMAT_VERSION = 1
 
@@ -153,6 +155,29 @@ def _example_args(engine, draws) -> dict:
     }
 
 
+def export_program(module: torch.nn.Module, args: tuple) -> tuple:
+    """``torch.export`` (non-strict) of ``module`` on ``args`` as an
+    artifact holds it: every ``while_loop`` node tagged and no other node's
+    ``meta["custom"]`` kept (the tracing context gives every node one; it
+    would cost bytes and load time), no example inputs (a frame's draws
+    alone are hundreds of MB at full width). Returns (serialized bytes,
+    trace s, save s)."""
+    t0 = time.perf_counter()
+    with torch.no_grad(), control.export_tracing():
+        ep = torch.export.export(module, args, strict=False)
+    ep.example_inputs = None
+    for _, gm in ep.graph_module.named_modules():
+        if isinstance(gm, torch.fx.GraphModule):
+            for node in gm.graph.nodes:
+                tag = control.loop_tag(node.meta.pop("custom", None))
+                if tag and node.target is torch.ops.higher_order.while_loop:
+                    node.meta["custom"] = tag
+    t1 = time.perf_counter()
+    buf = io.BytesIO()
+    torch.export.save(ep, buf)
+    return buf.getvalue(), t1 - t0, time.perf_counter() - t1
+
+
 def export_engine(engine, path: str, programs=None, stats: dict | None = None) -> dict:
     """Export ``engine``'s device programs and config to ``path``.
 
@@ -191,19 +216,11 @@ def export_engine(engine, path: str, programs=None, stats: dict | None = None) -
     blobs, sizes = {}, {}
     for name in programs:
         prog = _Program(name, cfg, draws_like if name.startswith("frame_step") else None)
-        t0 = time.perf_counter()
-        with torch.no_grad(), export_tracing():
-            ep = torch.export.export(prog, examples[name], strict=False)
-        # the artifact keeps no example inputs (a frame's draws alone are
-        # hundreds of MB at full width)
-        ep.example_inputs = None
-        t1 = time.perf_counter()
-        buf = io.BytesIO()
-        torch.export.save(ep, buf)
+        blob, trace_s, save_s = export_program(prog, examples[name])
         if stats is not None:
-            stats[name] = (t1 - t0, time.perf_counter() - t1)
-        blobs[name] = np.frombuffer(buf.getvalue(), np.uint8)
-        sizes[name] = len(buf.getvalue())
+            stats[name] = (trace_s, save_s)
+        blobs[name] = np.frombuffer(blob, np.uint8)
+        sizes[name] = len(blob)
 
     meta = {
         "format_version": _FORMAT_VERSION,
@@ -226,6 +243,39 @@ def export_engine(engine, path: str, programs=None, stats: dict | None = None) -
         f.write(buf.getvalue())
     os.replace(tmp, path)
     return sizes
+
+
+def retarget_loops(module: torch.nn.Module, name: str = "program") -> int:
+    """Run every ``while_loop`` node of a loaded program (``module`` and
+    every graph under it: ``cond`` branches, loop bodies) as the live
+    engine runs the loop its tag names (``utils/control.py``): a ``fori``
+    node calls its body ``n`` times with no host read, a ``masked`` node
+    runs its body in the live loop's chunks, one CUDA graph replay a chunk
+    on the card. Raises ``ValueError`` on an untagged node (an artifact of
+    an older export). Returns the number of nodes retargeted."""
+    count = 0
+    for path, gm in module.named_modules():
+        if not isinstance(gm, torch.fx.GraphModule):
+            continue
+        found = False
+        for node in gm.graph.nodes:
+            if node.op != "call_function" or node.target is not torch.ops.higher_order.while_loop:
+                continue
+            tag = control.loop_tag(node.meta.get("custom")) or {}
+            if tag.get("sfm_loop") == "masked":
+                node.target, node.args = control.served_masked_loop, (*node.args, tag["n"],
+                                                                       tag["k"])
+            elif tag.get("sfm_loop") == "fori":
+                node.target, node.args = control.served_fori, (*node.args, tag["n"])
+            else:
+                raise ValueError(f"{name}: the while_loop node {path or '<root>'}.{node.name} "
+                                 "carries no loop tag: export the artifact again with this "
+                                 "version's export_engine")
+            found = True
+            count += 1
+        if found:
+            gm.recompile()
+    return count
 
 
 class ServedSfM:
@@ -259,6 +309,8 @@ class ServedSfM:
         with _cached_type_hints():
             self._modules = {name: torch.export.load(io.BytesIO(b)).module()
                              for name, b in blobs.items()}
+        for name, module in self._modules.items():
+            retarget_loops(module, name)
         inner = IncrementalSfM(cfg, K, frontend=meta["frontend"], seed=seed,
                                collect_metrics=False, device=dev)
         inner.image_shape = tuple(meta["image_shape"])

@@ -1,8 +1,8 @@
-"""Device time of variants of B1, B2 and B6 that are NOT in the tree.
+"""Device time of variants of B1, B2, B4 and B6 that are NOT in the tree.
 
 Run on a machine with an NVIDIA card, from the repository root:
 
-    python3 -m structure_from_motion_tpu_torch.tools.kernel_variants [--only b1,ablate,b2,b6,ffma]
+    python3 -m structure_from_motion_tpu_torch.tools.kernel_variants [--only b4,b6]
 
 The notes at the head of ``csrc/blur.cu`` and ``csrc/cand.cu`` and at B6 in
 ``csrc/ba_matvec.cu`` say what else was tried; this script is where those times come from. It
@@ -10,7 +10,8 @@ builds each variant from the source in the tree with one constant or
 statement substituted (a substitution that no longer finds its text
 raises), compiles all of a group together with the library's flags into
 ``build/kernel_variants/``, holds the result against the plain version and
-prints the median device time of the kernel under ``torch.profiler``:
+prints the median device time of the kernel under ``torch.profiler``
+(``--only``: some of the groups below, by default all):
 
 * ``b1``: B1 with another tile (threads, tile width, tile height, outputs
   a thread in the H- and V-pass, blocks an SM), with or without one block a
@@ -23,6 +24,9 @@ prints the median device time of the kernel under ``torch.profiler``:
   frame, and the tree's tile with a part taken out or changed
   (threads a block, blocks an SM, the Hessian test, the prefetch of the row
   after next, the loads of the row loop);
+* ``b4``: B4 with a change to its camera reduction (``ba_reduce_rows``)
+  at (O, V) = (262144, 16) and (233984, 500), the device time of each of
+  its two kernels;
 * ``b6``: B6 with other block sizes and rows in flight, and the variant
   ``variant_sources/reduce_slot_per_thread.cu``, over the 500-camera stream;
 * ``ffma``: the FMA rate of B1's inner code alone
@@ -45,9 +49,10 @@ import torch
 
 from structure_from_motion_tpu_torch import kernels
 from structure_from_motion_tpu_torch.config import FrontendConfig
-from structure_from_motion_tpu_torch.ops import ba_matvec, blur_cuda, features_cuda
+from structure_from_motion_tpu_torch.ops import ba_cuda, ba_matvec, blur_cuda, features_cuda
 from structure_from_motion_tpu_torch.tools.profile_kernels import (
     ARTIFACT,
+    b4_inputs,
     frame_dog_stacks,
     frame_kernels,
     frame_shapes,
@@ -140,6 +145,23 @@ B2_CHANGES = {
 # B6: (threads a camera, rows in flight a warp); "slot:T,K" is the variant file
 B6_VARIANTS = ["512,16", "256,16", "128,16", "1024,16", "512,8", "512,32",
                "slot:128,4", "slot:256,2", "slot:128,2"]
+
+
+# B4: changes to csrc/ba_blocks.cu's camera reduction
+_B4_LANE_OFFSETS = """  // blockIdx.y is the lane: its own scratch and its own V output rows
+  rows += (size_t)blockIdx.y * nb * rmax * kP;
+  slot += (size_t)blockIdx.y * nb * V;
+  out += (size_t)blockIdx.y * V * kOutP;
+"""
+B4_CHANGES = {
+    "as in the tree": [],
+    "ba_reduce_rows without its lane offsets (right for one lane only)": [
+        (_B4_LANE_OFFSETS, "")],
+    "ba_reduce_rows held to two blocks an SM": [
+        ("__global__ void __launch_bounds__(kP * kGroups)\n",
+         "__global__ void __launch_bounds__(kP * kGroups, 2)\n")],
+}
+BA_BLOCKS_ARGS = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P, _P, _P, _P, _P, _P, _P]
 
 
 def _substitute(src: str, pairs) -> str:
@@ -310,6 +332,41 @@ def b2_variants(dev, card) -> None:
     _time_block_max(libs, stacks, dev, card, lambda name: "wrong result" not in name)
 
 
+def b4_source(pairs) -> str:
+    return _substitute((kernels.CSRC / "ba_blocks.cu").read_text(), pairs)
+
+
+def b4_variants(dev, rng, card) -> None:
+    """Each variant on one lane, its outputs bit for bit the tree's."""
+    libs = build("b4", {n: b4_source(p) for n, p in B4_CHANGES.items()}, "sfm_ba_blocks_lanes",
+                 BA_BLOCKS_ARGS)
+    stream = kernels.stream_ptr(dev)
+    for O, V in ((262144, 16), (233984, 500)):
+        bargs = b4_inputs(dev, rng, O, V)
+        want = ba_cuda.ba_blocks(*bargs)
+        nb = -(-O // ba_cuda._BLOCK)
+        n_rows = nb * min(ba_cuda._BLOCK, V) * ba_cuda._ROW
+        f32 = lambda *s: torch.empty(s, dtype=torch.float32, device=dev)  # noqa: E731
+        dtd, wblk, bp, acc = f32(O, 9), f32(O, 21), f32(O, 3), f32(V, ba_cuda._PAYLOAD)
+        scratch = f32(n_rows + -(-V * nb // 4))
+        for name, lib in libs.items():
+            def call():
+                return lib.sfm_ba_blocks_lanes(
+                    *(t.data_ptr() for t in bargs[:6]), 1, O, V, bargs[7], dtd.data_ptr(),
+                    wblk.data_ptr(), bp.data_ptr(), scratch.data_ptr(),
+                    scratch.data_ptr() + 4 * n_rows, acc.data_ptr(), stream)
+            kernels.check(call(), f"variant {name}")
+            torch.cuda.synchronize()
+            got = (acc[:, :49].reshape(V, 7, 7), acc[:, 49:56], dtd.view(O, 3, 3),
+                   wblk.view(O, 7, 3), bp)
+            same = all(torch.equal(g, w) for g, w in zip(got, want))
+            if not same:
+                raise AssertionError(f"B4 variant {name} differs from the tree's kernel")
+            print(f"B4 O = {O}, V = {V} [{name}]: ba_assemble "
+                  f"{device_us(call, 'ba_assemble'):.2f} us, ba_reduce_rows "
+                  f"{device_us(call, 'ba_reduce_rows'):.2f} us, the tree's bits ({card})")
+
+
 def b6_variants(dev, rng, card, artifact: str) -> None:
     libs = build("b6", {v: reduce_source(v) for v in B6_VARIANTS}, "sfm_reduce_cam", REDUCE_ARGS)
     w21, y, perm, mask, O, V, cam_rows, _ = global_stream(dev, rng, artifact)
@@ -358,7 +415,7 @@ def ffma_rate(dev, card) -> None:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--only", default="b1,ablate,b2,b6,ffma")
+    ap.add_argument("--only", default="b1,ablate,b2,b4,b6,ffma")
     ap.add_argument("--artifact", default=str(ARTIFACT), help="checkpoint whose stream B6 walks")
     args = ap.parse_args()
     only = set(args.only.split(","))
@@ -375,6 +432,8 @@ def main() -> None:
         b1_ablations(dev, rng, card)
     if "b2" in only:
         b2_variants(dev, card)
+    if "b4" in only:
+        b4_variants(dev, rng, card)
     if "b6" in only:
         b6_variants(dev, rng, card, args.artifact)
     if "ffma" in only:

@@ -23,8 +23,11 @@ by default ``artifacts/longrun500_pre_globalba.ckpt.npz``), it prints what
 device time over the repeats, so the stages of a wrapper show apart and
 launch overhead is left out), the wrapper's CUDA-event time with a warm L2
 and after 64 MB of other traffic, and the achieved rates against the bytes
-and operations the function needs. Every line carries the card's name and
-power limit.
+and operations the function needs. For B4 it also splits the wrapper's
+event time: the host's enqueue time of a call (and of the ``sfm::``
+operator alone), the event time after a spin ten times as long, and the
+device time of every kernel the call launches. Every line carries the
+card's name and power limit.
 
 It calls only the wrappers, so the same file runs against another version
 of the kernels: copy it over that version's ``tools/profile_kernels.py``
@@ -36,6 +39,7 @@ from __future__ import annotations
 import argparse
 import math
 import subprocess
+import time
 from pathlib import Path
 
 import numpy as np
@@ -53,16 +57,17 @@ ARTIFACT = Path(__file__).resolve().parents[2] / "artifacts" / "longrun500_pre_g
 _KERNEL_NAMES = ("ba_", "match_top2", "blur_", "reduce_cam", "expand_cam", "candidate_")
 
 
-def _event_ms(fn, flush=None) -> float:
+def _event_ms(fn, flush=None, spin: int = 500_000) -> float:
     """Median time between two CUDA events around one wrapper call. The card
-    first spins ~0.3 ms (after the optional flush) so that the host has
-    enqueued the call before the first event fires: device time, not the
-    host's enqueue time."""
+    first spins ``spin`` cycles (~0.3 ms by default; after the optional
+    flush) so that the host has enqueued the call before the first event
+    fires: device time, not the host's enqueue time, as long as the
+    enqueue takes less than the spin."""
     times = []
     for _ in range(REPS):
         if flush is not None:
             flush.add_(1.0)
-        torch.cuda._sleep(500_000)
+        torch.cuda._sleep(spin)
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         fn()
@@ -72,8 +77,9 @@ def _event_ms(fn, flush=None) -> float:
     return float(np.median(times))
 
 
-def _device_times(fn) -> dict:
-    """Mean device microseconds per launch, by kernel name."""
+def _device_times(fn, every: bool = False) -> dict:
+    """Mean device microseconds a call, by kernel name: the kernels of B1-B6
+    (``every``: every kernel the call launches)."""
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                             torch.profiler.ProfilerActivity.CUDA]) as prof:
         for _ in range(REPS):
@@ -82,9 +88,13 @@ def _device_times(fn) -> dict:
     out = {}
     for ev in prof.key_averages():
         dev_us = getattr(ev, "device_time_total", 0.0) or getattr(ev, "cuda_time_total", 0.0)
-        if dev_us > 0 and any(k in ev.key for k in _KERNEL_NAMES):
+        # kernels only: the sfm:: operator's host event carries its kernels'
+        # device time as well
+        kernel = ev.device_type == torch.autograd.DeviceType.CUDA and (
+            every or any(k in ev.key for k in _KERNEL_NAMES))
+        if dev_us > 0 and kernel:
             name = ev.key.replace("(anonymous namespace)::", "").removeprefix("void ")
-            out[name.split("(")[0]] = dev_us / ev.count
+            out[name.split("(")[0][:60]] = dev_us / (ev.count if not every else REPS)
     return out
 
 
@@ -101,6 +111,47 @@ def _report(name, fn, moved, flops, flush, card):
           + f"; sum {total_us:.2f} us = {moved / total_us / 1e6:.3f} TB/s of the {moved / 1e6:.2f} "
           f"MB it must move, {flops / total_us / 1e6:.2f} TFLOP/s of its {flops / 1e9:.3f} GFLOP "
           f"({card})")
+
+
+def _host_us(fn) -> float:
+    """Mean host microseconds to enqueue one call (no synchronisation)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(REPS):
+        fn()
+    host = (time.perf_counter() - t0) / REPS * 1e6
+    torch.cuda.synchronize()
+    return host
+
+
+def _wrapper_split(name, fn, op, card) -> None:
+    """Where a wrapper's event time goes: the host's enqueue time of the
+    wrapper and of its ``sfm::`` operator alone, the event time with the
+    usual spin and with a spin ten times as long, and the device time of
+    every kernel the call launches (the copies and reductions around the
+    kernel included)."""
+    for _ in range(3):
+        fn()
+    host, op_host = _host_us(fn), _host_us(op)
+    short, long_ = _event_ms(fn), _event_ms(fn, spin=5_000_000)
+    parts = _device_times(fn, every=True)
+    print(f"{name} wrapper: host enqueue {host:.1f} us a call ({op_host:.1f} us through the "
+          f"operator alone); event time {short:.4f} ms after a 0.3 ms spin, {long_:.4f} ms after "
+          f"a 3 ms spin; device time of every kernel of the call (us): "
+          + ", ".join(f"{k} {v:.2f}" for k, v in parts.items())
+          + f"; sum {sum(parts.values()):.2f} us ({card})")
+
+
+def b4_inputs(dev, rng, O: int, V: int) -> tuple:
+    """B4's arguments: O observations with random camera ids in [0, V)."""
+    cam = torch.as_tensor(rng.integers(0, V, O).astype(np.int32)).to(dev)
+    f = lambda *s: torch.as_tensor(rng.normal(size=s).astype(np.float32)).to(dev)  # noqa: E731
+    q = f(O, 4) * 0.05
+    q[:, 0] += 1.0
+    X = f(O, 3)
+    X[:, 2] += 10.0
+    return (cam, f(O, 3), q, X, f(O, 2) * 0.1,
+            torch.as_tensor((rng.random(O) < 0.3).astype(np.float32)).to(dev), V, 0.01)
 
 
 def frame_kernels():
@@ -241,16 +292,12 @@ def main() -> None:
         _b5_b6_cases(dev, rng, card, flush, args.artifact, only)
 
     for O, V in ((262144, 16), (233984, 16), (233984, 500)) if "B4" in only else ():
-        cam = torch.as_tensor(rng.integers(0, V, O).astype(np.int32)).to(dev)
-        f = lambda *s: torch.as_tensor(rng.normal(size=s).astype(np.float32)).to(dev)  # noqa: E731
-        q = f(O, 4) * 0.05
-        q[:, 0] += 1.0
-        X = f(O, 3)
-        X[:, 2] += 10.0
-        bargs = (cam, f(O, 3), q, X, f(O, 2) * 0.1,
-                 torch.as_tensor((rng.random(O) < 0.3).astype(np.float32)).to(dev), V, 0.01)
+        bargs = b4_inputs(dev, rng, O, V)
         _report(f"B4 ba_blocks O = {O}, V = {V}", lambda: ba_cuda.ba_blocks(*bargs),
                 188 * O + 228 * V, 400 * O, flush, card)
+        if hasattr(ba_cuda, "_ba_blocks_op"):  # the sfm:: operator (a version without skips)
+            _wrapper_split(f"B4 ba_blocks O = {O}, V = {V}", lambda: ba_cuda.ba_blocks(*bargs),
+                           lambda: torch.ops.sfm.ba_blocks.default(*bargs), card)
 
     if "B3" not in only:
         return

@@ -10,8 +10,11 @@ between two synchronisations, the host synchronisations a frame
 (``torch.cuda.set_sync_debug_mode``; on the card only), and for the last
 frame of each the operators that took the most host time, and on the card
 the kernels that took the most device time, under ``torch.profiler``
-(``--python-profile``: one more frame under ``cProfile``).
-Prints one JSON line a run, then the profiles.
+(``--python-profile``: one more frame, and the export's save, under
+``cProfile``). Also each frame's loop-mask reads, CUDA graph captures and
+replays (``utils/control.stats``), the export's trace and save seconds,
+the program's and artifact's bytes and the load seconds. Prints one JSON
+line a run, then the profiles.
 """
 
 from __future__ import annotations
@@ -43,11 +46,19 @@ def _config(device: str):
                                 max_observations=8192)), (240, 320)
 
 
+def _top(prof, sort: str, n: int) -> str:
+    """The ``n`` first functions of a ``cProfile`` profile by ``sort``."""
+    import io
+    import pstats
+
+    out = io.StringIO()
+    pstats.Stats(prof, stream=out).sort_stats(sort).print_stats(n)
+    return out.getvalue()
+
+
 def _python_profile(engine, im, device: str) -> str:
     """The Python functions that took the most time in one more frame."""
     import cProfile
-    import io
-    import pstats
 
     prof = cProfile.Profile()
     prof.enable()
@@ -55,14 +66,30 @@ def _python_profile(engine, im, device: str) -> str:
     if device == "cuda":
         torch.cuda.synchronize()
     prof.disable()
-    out = io.StringIO()
-    pstats.Stats(prof, stream=out).sort_stats("tottime").print_stats(25)
-    return out.getvalue()
+    return _top(prof, "tottime", 25)
+
+
+def _profiled(fn, sink: list):
+    """``fn`` run under ``cProfile``; each call's profile appended to ``sink``."""
+    import cProfile
+
+    def run(*args, **kwargs):
+        prof = cProfile.Profile()
+        prof.enable()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            prof.disable()
+            sink.append(prof)
+    return run
 
 
 def _frames(engine, imgs, device: str, profile_last: bool):
-    """(wall s a frame, host synchronisations a frame, profile of the last)."""
-    times, syncs, table = [], [], ""
+    """(wall s a frame, host synchronisations a frame, loop stats a frame,
+    profile of the last)."""
+    from structure_from_motion_tpu_torch.utils import control
+
+    times, syncs, loops, table = [], [], [], ""
     sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
     for i, im in enumerate(imgs):
         sync()
@@ -75,6 +102,7 @@ def _frames(engine, imgs, device: str, profile_last: bool):
             warnings.simplefilter("always")
             if device == "cuda":
                 torch.cuda.set_sync_debug_mode("warn")
+            control.reset_stats()
             t0 = time.perf_counter()
             if prof is not None:
                 prof.__enter__()
@@ -83,6 +111,9 @@ def _frames(engine, imgs, device: str, profile_last: bool):
             if prof is not None:
                 prof.__exit__(None, None, None)
             times.append(time.perf_counter() - t0)
+            st = control.stats
+            loops.append(dict(reads=st.reads, replays=st.replays, captures=st.captures,
+                              pool_bytes=st.pool_bytes))
             if device == "cuda":
                 torch.cuda.set_sync_debug_mode(0)
         syncs.append(sum("synchroniz" in str(w.message) for w in caught))
@@ -93,7 +124,7 @@ def _frames(engine, imgs, device: str, profile_last: bool):
                 dev_us = sum(e.self_device_time_total for e in avg)
                 table += (f"\ndevice time {dev_us / 1e3:.3f} ms in all; by device time:\n"
                           + avg.table(sort_by="self_cuda_time_total", row_limit=12))
-    return times, syncs, table
+    return times, syncs, loops, table
 
 
 def run(frames: int, device: str, python_profile: bool = False) -> dict:
@@ -109,27 +140,45 @@ def run(frames: int, device: str, python_profile: bool = False) -> dict:
                            check=True).stdout.strip() if device == "cuda" else "cpu")
     fresh = IncrementalSfM(cfg, K, frontend="native", seed=0, device=device)
     fresh.image_shape, fresh.image_dtype = size, imgs[0].dtype
+    stats: dict = {}
+    saves: list = []
+    save = torch.export.save
+    if python_profile:  # the save step alone under cProfile
+        torch.export.save = _profiled(save, saves)
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "frame.sfm.npz")
         t0 = time.perf_counter()
-        serve.export_engine(fresh, path, programs=["frame_step_native"])
+        try:
+            sizes = serve.export_engine(fresh, path, programs=["frame_step_native"],
+                                        stats=stats)
+        finally:
+            torch.export.save = save
         export_s = time.perf_counter() - t0
+        artifact_bytes = os.path.getsize(path)
         t0 = time.perf_counter()
         served = serve.load_engine(path, seed=0, device=device)
         load_s = time.perf_counter() - t0
     live = IncrementalSfM(cfg, K, frontend="native", seed=0, device=device)
-    out = dict(card=card, export_s=round(export_s, 2), load_s=round(load_s, 2))
+    trace_s, save_s = stats["frame_step_native"]
+    out = dict(card=card, export_s=export_s, trace_s=trace_s, save_s=save_s,
+               program_bytes=sizes["frame_step_native"], artifact_bytes=artifact_bytes,
+               load_s=load_s)
     tables = {}
     for name, engine in (("live", live), ("served", served)):
-        times, syncs, tables[name] = _frames(engine, imgs[:-1], device, profile_last=True)
-        out[name] = dict(median_s=float(np.median(times[2:-1])),
-                         times_s=[round(t, 4) for t in times], syncs=syncs)
+        times, syncs, loops, tables[name] = _frames(engine, imgs[:-1], device, profile_last=True)
+        out[name] = dict(median_s=float(np.median(times[2:-1])), times_s=times, syncs=syncs,
+                         loops=loops)
         if python_profile:
             tables[name] += "\n" + _python_profile(engine, imgs[-1], device)
     out["same_bits"] = all(torch.equal(a, b) for a, b in zip(live.state, served.state))
+    out["same_reads"] = ([f["reads"] for f in out["live"]["loops"]]
+                         == [f["reads"] for f in out["served"]["loops"]])
     print(json.dumps(out))
     for name, table in tables.items():
         print(f"{name}, last frame, by host time:\n{table}")
+    for prof in saves:
+        print("the export's save (profiled, so slower than save_s), by cumulative time:\n"
+              + _top(prof, "cumulative", 30))
     return out
 
 
@@ -138,6 +187,6 @@ if __name__ == "__main__":
     p.add_argument("--frames", type=int, default=8)
     p.add_argument("--device", default="cuda")
     p.add_argument("--python-profile", action="store_true",
-                   help="also run one more frame of each under cProfile")
+                   help="also run one more frame of each, and the save, under cProfile")
     a = p.parse_args()
     run(a.frames, a.device, a.python_profile)

@@ -26,6 +26,13 @@ one compiled program. Here:
   steps. :func:`masked_loop_reference`, one step and one host read at a
   time, is its plain version.
 
+An exported ``while_loop`` node of :func:`fori` or :func:`masked_loop`
+carries its kind, ``n`` and ``k`` in ``meta["custom"]`` (a plain
+:func:`loop` carries none); ``serve.py`` points each node at
+:func:`served_fori` or :func:`served_masked_loop`, so a served program
+runs its loops as the live engine does: a fixed loop with no host read, a
+masked one in the same chunks, reads and CUDA graphs as live.
+
 :func:`take` and :func:`put` index one position of an axis by a Python int
 or by a 0-dim tensor (no host read), for code that both paths run;
 :func:`lane_map` is ``vmap`` over a lane axis, but runs a stack of one lane
@@ -177,7 +184,27 @@ def loop(cond_fn, body_fn, carried: tuple, *operands) -> tuple:
     *operands)``, then ``carried``. ``carried`` is a tuple of tensors whose
     shapes and dtypes the body keeps; ``cond_fn`` returns a one-element
     bool tensor; ``operands`` (any structure of tensors and constants) are
-    read, never changed."""
+    read, never changed. Exported, its ``while_loop`` node carries no loop
+    tag (:func:`fori` and :func:`masked_loop` tag theirs), so a served
+    engine refuses it."""
+    return _loop(None, cond_fn, body_fn, carried, operands)
+
+
+def loop_tag(custom) -> dict | None:
+    """The loop tag in a node's ``meta["custom"]`` (its kind, ``n`` and,
+    for a masked loop, ``k``), or None."""
+    if not custom or not custom.get("sfm_loop"):
+        return None
+    keys = ("sfm_loop", "n", "k") if custom["sfm_loop"] == "masked" else ("sfm_loop", "n")
+    return {key: custom[key] for key in keys}
+
+
+def _loop(tag, cond_fn, body_fn, carried, operands) -> tuple:
+    """:func:`loop`; while exporting, the ``while_loop`` node's
+    ``meta["custom"]`` holds ``tag`` (``{"sfm_loop": kind, "n": .., "k":
+    ..}``: how ``serve.py`` runs it). Node metadata is kept
+    (``preserve_node_meta``) for the loop's own nodes alone: on every node
+    of a program it slowed the save by half on the card."""
     carried = tuple(carried)
     if not exporting():
         while bool(cond_fn(*carried, *operands)):
@@ -188,14 +215,18 @@ def loop(cond_fn, body_fn, carried: tuple, *operands) -> tuple:
     _no_tensor_closure(body_fn)
     tensors, rebuild = _split(operands)
     n = len(carried)
+    meta = torch.fx.traceback
 
     def cond(*xs):
-        return cond_fn(*xs[:n], *rebuild(xs[n:])).reshape(())
+        with meta.preserve_node_meta(False):
+            return cond_fn(*xs[:n], *rebuild(xs[n:])).reshape(())
 
     def body(*xs):
-        return tuple(_fresh(x) for x in body_fn(*xs[:n], *rebuild(xs[n:])))
+        with meta.preserve_node_meta(False):
+            return tuple(_fresh(x) for x in body_fn(*xs[:n], *rebuild(xs[n:])))
 
-    return tuple(while_loop_op(cond, body, carried, tuple(tensors)))
+    with meta.preserve_node_meta(), meta.annotate(tag or {"sfm_loop": None}):
+        return tuple(while_loop_op(cond, body, carried, tuple(tensors)))
 
 
 def fori(n: int, body_fn, carried: tuple, *operands) -> tuple:
@@ -212,8 +243,8 @@ def fori(n: int, body_fn, carried: tuple, *operands) -> tuple:
         return carried
     _no_tensor_closure(body_fn)
     i0 = torch.zeros((), dtype=torch.long, device=carried[0].device)
-    out = loop(lambda i, *_: i < n, lambda i, *rest: (i + 1, *body_fn(i, *rest)),
-               (i0, *carried), *operands)
+    out = _loop({"sfm_loop": "fori", "n": n}, lambda i, *_: i < n,
+                lambda i, *rest: (i + 1, *body_fn(i, *rest)), (i0, *carried), operands)
     return out[1:]
 
 
@@ -265,6 +296,18 @@ def _loop_step(n: int, step_fn, m: int, i, *xs):
     return (i, *carried)
 
 
+def _live_step(n: int, step_fn, rebuild, i, carried: tuple, tensors):
+    """:func:`_masked_step` over the operands' tensor leaves."""
+    return _masked_step(n, step_fn, i, carried, rebuild(tensors))
+
+
+def _body_step(body, i, carried: tuple, tensors):
+    """One call of an exported masked loop's body ``(i, *carried,
+    *operands) -> (i + 1, *carried')``: a masked step."""
+    out = body(i, *carried, *tensors)
+    return out[0], tuple(out[1:])
+
+
 def masked_loop(n: int, k: int, step_fn, carried: tuple, *operands, capture: bool = True) -> tuple:
     """The convergence loop of the JAX package's LM and PCG ``while_loop``s,
     stopped on the device: ``carried`` is ``(active, *state)`` with
@@ -296,30 +339,66 @@ def masked_loop(n: int, k: int, step_fn, carried: tuple, *operands, capture: boo
     * with ``capture=False`` (an all-reduce through gloo in the step cannot
       be captured: the sharded PCG), and on the CPU, the chunks run
       eagerly;
-    * while ``torch.export`` traces: one :func:`loop` of masked steps, its
-      predicate read once a step when the program runs, as before the
-      chunks (an exported ``while_loop`` reads its predicate on the host
-      every iteration, so a nested :func:`fori` of ``k`` steps would read
-      ``k + 1`` times a chunk: a served frame made 307-319 host reads with
-      it against 230 with one read a step on an H100; PERF.md).
+    * while ``torch.export`` traces: one :func:`loop` of masked steps
+      tagged ``{"sfm_loop": "masked", "n": n, "k": k}``. Run as it is, its
+      predicate is read once a step; ``serve.py`` runs the node with
+      :func:`served_masked_loop` instead, the same chunks as here.
     """
     carried = tuple(carried)
     if n <= 0:
         return carried
     if exporting():
         i0 = torch.zeros((), dtype=torch.long, device=carried[0].device)
-        return loop(lambda i, active, *_: (i < n) & active.any(),
-                    functools.partial(_loop_step, n, step_fn, len(carried)), (i0, *carried),
-                    *operands)[1:]
+        return _loop({"sfm_loop": "masked", "n": n, "k": k},
+                     lambda i, active, *_: (i < n) & active.any(),
+                     functools.partial(_loop_step, n, step_fn, len(carried)), (i0, *carried),
+                     operands)[1:]
+    tensors, rebuild = _split(operands)
+
+    def graph_key():
+        leaves, spec = pytree.tree_flatten(operands)
+        return (_const_key(step_fn), spec,
+                tuple(_const_key(x) for x in leaves if not torch.is_tensor(x)))
+
+    return _chunks(n, k, functools.partial(_live_step, n, step_fn, rebuild), 0, carried,
+                   tensors, graph_key if capture else None)[1]
+
+
+def served_masked_loop(cond, body, carried, operands, n: int, k: int) -> tuple:
+    """An exported :func:`masked_loop` node run as the live loop runs:
+    ``cond`` and ``body`` are the ``while_loop`` node's graphs, ``carried``
+    ``(i, active, *state)``; ``body`` is one masked step. The same chunks,
+    host reads, graphs (one a body and its shapes) and stats as
+    :func:`masked_loop`; ``cond`` is not run. Returns the node's outputs."""
+    i, out = _chunks(n, k, functools.partial(_body_step, body), carried[0], tuple(carried[1:]),
+                     tuple(operands), lambda: body)
+    return (i.clone(), *out)
+
+
+def served_fori(cond, body, carried, operands, n: int) -> tuple:
+    """An exported :func:`fori` node run as the live loop runs: ``body``
+    called ``n`` times, no host read (``cond`` is not run)."""
+    carried = tuple(carried)
+    for _ in range(n):
+        carried = tuple(body(*carried, *operands))
+    return carried
+
+
+def _chunks(n: int, k: int, step, i, carried: tuple, tensors, graph_key=None):
+    """``(i, carried)`` after the masked steps ``step(i, carried, tensors)
+    -> (i + 1, carried')`` run in :func:`masked_loop`'s chunks: on CUDA
+    tensors, one graph replay a chunk when ``graph_key`` (a function
+    returning the step's key) is given, else eagerly."""
     k = -(-n // -(-n // k))
-    if capture and carried[0].is_cuda:
-        return _replay_chunks(n, k, step_fn, carried, operands)
-    i = 0
+    if graph_key is not None and carried[0].is_cuda:
+        return _replay_chunks(graph_key(), n, k, step, carried, list(tensors))
+    done = 0
     while True:
         for _ in range(k):
-            i, carried = _masked_step(n, step_fn, i, carried, operands)
-        if i >= n or not _read(carried[0].any()):
-            return carried
+            i, carried = step(i, carried, tensors)
+        done += k
+        if done >= n or not _read(carried[0].any()):
+            return i, carried
 
 
 def masked_loop_reference(n: int, k: int, step_fn, carried: tuple, *operands,
@@ -379,9 +458,10 @@ def _launch_counts(wrappers) -> list:
     return [(f, f.launches, collections.Counter(getattr(f, "by_shape", {}))) for f in wrappers]
 
 
-def _capture(n: int, k: int, step_fn, carried: tuple, tensors: list, rebuild) -> _Graph:
-    """Warm one chunk up on a side stream, then capture it into a graph of
-    the shared pool; the launches the capture counted become the graph's."""
+def _capture(n: int, k: int, step, carried: tuple, tensors: list) -> _Graph:
+    """Warm one chunk of ``step`` up on a side stream, then capture it into
+    a graph of the shared pool; the launches the capture counted become the
+    graph's."""
     from structure_from_motion_tpu_torch import kernels
 
     dev = carried[0].device
@@ -390,9 +470,9 @@ def _capture(n: int, k: int, step_fn, carried: tuple, tensors: list, rebuild) ->
     static_o = [t.clone() for t in tensors]
 
     def chunk():
-        j, c, ops = i, tuple(static_c), rebuild(static_o)
+        j, c = i, tuple(static_c)
         for _ in range(k):
-            j, c = _masked_step(n, step_fn, j, c, ops)
+            j, c = step(j, c, static_o)
         i.copy_(j)
         for s, t in zip(static_c, c):
             s.copy_(t)
@@ -428,15 +508,15 @@ def _capture(n: int, k: int, step_fn, carried: tuple, tensors: list, rebuild) ->
                   [x for x in launches if x[1] or x[2]])
 
 
-def _replay_chunks(n: int, k: int, step_fn, carried: tuple, operands: tuple) -> tuple:
-    tensors, rebuild = _split(operands)
-    leaves, spec = pytree.tree_flatten((carried, operands))
-    key = (_const_key(step_fn), n, k, spec,
-           tuple((tuple(x.shape), x.dtype, x.device) if torch.is_tensor(x) else _const_key(x)
-                 for x in leaves))
+def _replay_chunks(key, n: int, k: int, step, carried: tuple, tensors: list):
+    """:func:`_chunks` on the card: the graph of ``key``, ``n``, ``k`` and
+    the inputs' shapes, captured at its first call; returns ``(i,
+    carried)``, ``i`` the graph's own counter (the next replay overwrites
+    it)."""
+    key = (key, n, k, tuple((tuple(x.shape), x.dtype, x.device) for x in (*carried, *tensors)))
     g = _GRAPHS.get(key)
     if g is None:
-        g = _GRAPHS[key] = _capture(n, k, step_fn, carried, tensors, rebuild)
+        g = _GRAPHS[key] = _capture(n, k, step, carried, tensors)
     g.i.zero_()
     for s, t in zip((*g.carried, *g.operands), (*carried, *tensors)):
         s.copy_(t)
@@ -449,4 +529,4 @@ def _replay_chunks(n: int, k: int, step_fn, carried: tuple, operands: tuple) -> 
                 f.by_shape.update(ds)
         if (c + 1) * k >= n or not _read(g.flag):
             break
-    return tuple(t.clone() for t in g.carried)
+    return g.i, tuple(t.clone() for t in g.carried)

@@ -79,3 +79,6 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: long-running test (multi-process runtime spin-up)"
     )
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU (skips without one; run on the card)"
+    )

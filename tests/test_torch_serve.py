@@ -130,6 +130,30 @@ def test_artifact_meta_matches_the_jax_one(small_artifact, tmp_path):
     assert meta["config"] == jmeta["config"]
 
 
+class _PlainLoop(torch.nn.Module):
+    def forward(self, x):
+        i0 = torch.zeros((), dtype=torch.long)
+        return control.loop(lambda i, x: i < 5, lambda i, x: (i + 1, x * 0.5), (i0, x))[1]
+
+
+def test_served_engine_refuses_an_untagged_loop(small_artifact, tmp_path):
+    """An artifact whose program holds a ``while_loop`` with no loop tag (a
+    plain ``control.loop``, or an export from before the tags) is refused
+    at load, naming the re-export: it is never served a read a step."""
+    _, path, _ = small_artifact
+    with control.export_tracing():
+        ep = torch.export.export(_PlainLoop(), (torch.ones(3),), strict=False)
+    buf = io.BytesIO()
+    torch.export.save(ep, buf)
+    with np.load(path) as data:
+        files = {k: data[k] for k in data.files}
+    files["prog_reproj"] = np.frombuffer(buf.getvalue(), np.uint8)
+    bad = str(tmp_path / "untagged.sfm.npz")
+    np.savez(bad, **files)
+    with pytest.raises(ValueError, match="reproj: the while_loop node .* artifact again"):
+        serve.load_engine(bad, device="cpu")
+
+
 def test_served_engine_refuses_what_it_cannot_serve(small_artifact):
     _, path, _ = small_artifact
     with pytest.raises(ValueError, match=r"exported for \['cpu'\]"):
@@ -159,24 +183,33 @@ def test_compilation_cache_points_the_kernel_build(tmp_path, monkeypatch):
 @pytest.mark.slow
 def test_export_load_reproduces_live_engine(artifact):
     """Twin of ``tests/test_serve.py:40``: live and served over 4 frames give
-    the same bits in every state field and the same reprojection; ATE <
-    0.03; the exported 10-iteration finalize runs and does not worsen the
-    reprojection."""
+    the same bits in every state field and the same reprojection, each
+    frame with the live engine's loop-mask reads; ATE < 0.03; the exported
+    10-iteration finalize gives ``live.finalize(10)``'s costs and state bits
+    and does not worsen the reprojection."""
     path, sizes = artifact
     assert set(sizes) == {"frame_step", "evict", "reproj", "finalize"}
     K, frames, C_gt, *_ = synthetic_sequence(n_views=4, n_points=300)
     live = _live(K=K)
     served = serve.load_engine(path, seed=0, device="cpu")
     for f in frames:
-        live.process_features(*f)
-        served.process_features(*f)
+        reads = []
+        for engine in (live, served):
+            control.reset_stats()
+            engine.process_features(*f)
+            reads.append(control.stats.reads)
+        assert reads[0] == reads[1], reads
     for name, a, b in zip(Ttr.SfMState._fields, live.state, served.state):
         assert torch.equal(a, b), name
     assert served.reprojection_error() == live.reprojection_error()
     assert umeyama_ate(served.poses()[0], C_gt) < 0.03
+    before = live.reprojection_error()
     costs = served.finalize()
     assert costs.shape == (10,)
-    assert served.reprojection_error() <= live.reprojection_error() + 1e-5
+    np.testing.assert_array_equal(costs, live.finalize(10))
+    for name, a, b in zip(Ttr.SfMState._fields, live.state, served.state):
+        assert torch.equal(a, b), name
+    assert served.reprojection_error() <= before + 1e-5
     with pytest.raises(ValueError, match="10 iterations"):
         served.finalize(iterations=3)
 
