@@ -28,7 +28,10 @@ the script exits non-zero without printing the final result line:
    x512 descriptors of rendered frames, with the matcher's decisions), then
    B4, B5 and B6 at the shape of the 500-camera global solve (the real
    stream of ``artifacts/longrun500_pre_globalba.ckpt.npz``) and B4 at the
-   same O with V = 16; B3, B4 and B6 must give the same bits twice;
+   same O with V = 16; B3, B4 and B6 must give the same bits twice; each
+   B4 entry also prints the device time of each of its kernels (the
+   one-lane ``ba_reduce_rows<false>`` or the lane ``<true>``) with the
+   registers ``ptxas`` gave it;
 4. slice: 24 rendered 960x1280 frames through the port's
    ``IncrementalSfM`` at the CLI's default reconstruct configuration
    (window 16 in slide mode, so frames 16-23 evict and archive a view),
@@ -94,13 +97,17 @@ the script exits non-zero without printing the final result line:
    ``serve.export_engine`` (the native frame step, eviction, reprojection,
    the 10-iteration finalize: the default programs but the
    precomputed-feature frame step, which the CPU tests serve) into
-   ``build/``; a live engine and the served one over the 24 frames, equal
+   ``build/``; a live engine and the served one over the 24 frames (the
+   two taking turns frame by frame, so both meet the same host), equal
    bit for bit in every state field, the eviction archive and the
    reprojection, within the slice's bounds; the same launches of B1, B2f,
    B3 and B4 in both runs (the exported programs run the kernels as
    ``sfm::`` operators); the served ``finalize``; the artifact served in a
    spawned process with ``ops.pnp.estimate_pnp`` and the frame step made to
-   raise; export, save, load, draw and frame times.
+   raise; export, save, load, draw and frame times, and the served/live
+   ratio of the steady frame split into device and host time (the last
+   frame of each under ``torch.profiler``; no time gate: the host is
+   shared).
 
 12. loops (after phase 10): the LM and PCG loops stop on the device
    (``utils/control.masked_loop``: a stop mask read once every k steps,
@@ -146,6 +153,7 @@ CUDA inputs at one small shape. The last two lines are a JSON object of the kern
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import io
 import json
@@ -706,6 +714,25 @@ def _loop_stats() -> str:
             f"{s.static_bytes / 2**20:.2f} MiB")
 
 
+def _b4_kernels(torch, fn, smi: str, label: str, bound_ms: float) -> None:
+    """Print the device time of each kernel of one B4 call (ba_assemble and
+    the instantiation of ba_reduce_rows it launches) with its registers a
+    thread, beside the function's bound."""
+    from structure_from_motion_tpu_torch import kernels
+    from structure_from_motion_tpu_torch.tools.profile_kernels import device_times
+
+    log = kernels.library_path().with_suffix(".log")
+    regs = kernels.ptxas_registers(log.read_text()) if log.exists() else {}
+    for _ in range(3):  # a trace now and then comes back without device records
+        parts = device_times(fn, every=True)
+        if any(k.startswith("ba_") for k in parts):
+            break
+    print(f"kernel {label} by kernel: "
+          + ", ".join(f"{k} {us:.2f} us ({regs.get(k, ('?',))[0]} registers)"
+                      for k, us in parts.items() if k.startswith("ba_"))
+          + f"; bound of the function {bound_ms:.4f} ms ({smi})")
+
+
 class LoopRecorder:
     """Keeps a copy of the arguments of every ``control.masked_loop`` call
     the ops modules make while ``on`` names a run (phase 12 replays them),
@@ -1031,8 +1058,9 @@ def _served_child(path: str, imgs, device: str, out) -> None:
 
 def serve_phase(dev, imgs, K, C_gt, cfg, counted, sync, card: str) -> dict:
     """The slice's frames through an exported artifact: (a) export a fresh
-    engine's programs, (b) live and served engines over every frame, bit
-    for bit (every state field, the eviction archive, the reprojection),
+    engine's programs, (b) live and served engines over every frame,
+    taking turns frame by frame, bit for bit (every state field, the
+    eviction archive, the reprojection),
     within the slice's bounds, (c) the same launches of B1, B2f, B3 and B4
     and, every frame, the same loop stop-mask reads (the served loops run
     as the live ones: CUDA graph replays), (d) the served 10-iteration
@@ -1071,30 +1099,84 @@ def serve_phase(dev, imgs, K, C_gt, cfg, counted, sync, card: str) -> dict:
     load_s = time.perf_counter() - t0
     print(f"serve load: {load_s:.2f} s ({card})")
 
-    # (b), (c): the live run, then the served run, each with its own counts
-    def run(engine, label):
-        _reset(counted)
-        times, syncs, reads, first = [], [], [], None
-        for i, im in enumerate(imgs):
-            before = control.stats.reads
-            with _counting_syncs(syncs, dev):
-                t0 = time.perf_counter()
-                engine.process_image(im)
-                sync()
-                times.append(time.perf_counter() - t0)
-            reads.append(control.stats.reads - before)
-            if i + 1 == SERVE_CHILD_FRAMES:
-                first = engine.poses()[0]
-        launches, by_shape = _read(counted)
-        print(f"serve {label}: frame 0 {times[0]:.3f} s, frames 2-{n - 1} median "
-              f"{float(np.median(times[2:])):.3f} s, total {sum(times):.3f} s ({card}); host "
-              f"synchronisations a frame, frames 2-{n - 1} median {float(np.median(syncs[2:]))}; "
-              f"{_loop_stats()}; stop-mask reads a frame {reads}")
-        return times, launches, by_shape, first, reads
+    # (b), (c): the live and the served engine over the frames, taking turns
+    # frame by frame (the live one first on even frames), each with its own
+    # counts; the last frame of each under torch.profiler (its device time)
+    class Run:
+        def __init__(self, engine, label):
+            self.engine, self.label = engine, label
+            self.times, self.syncs, self.reads, self.caps = [], [], [], []
+            self.first, self.device_ms, self.capture_s, self.replays = None, None, 0.0, 0
+            self.launches = dict.fromkeys(counted, 0)
+            self.by_shape = {name: collections.Counter() for name, fn in counted.items()
+                             if hasattr(fn, "by_shape")}
 
-    live = IncrementalSfM(cfg, K, frontend="native", seed=0, device=dev)
-    live_t, live_launches, _, live_first, live_reads = run(live, "live")
-    served_t, served_launches, served_by_shape, _, served_reads = run(served, "served")
+        def frame(self, i, im):
+            st = control.stats
+            before = (st.reads, st.captures, st.capture_s, st.replays, *_read(counted))
+            prof = torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]) \
+                if i == n - 1 else contextlib.nullcontext()
+            with prof:
+                with _counting_syncs(self.syncs, dev):
+                    t0 = time.perf_counter()
+                    self.engine.process_image(im)
+                    sync()
+                    self.times.append(time.perf_counter() - t0)
+            if i == n - 1:
+                self.device_ms = sum(e.self_device_time_total for e in prof.key_averages()) / 1e3
+            self.reads.append(st.reads - before[0])
+            self.caps.append(st.captures - before[1])
+            self.capture_s += st.capture_s - before[2]
+            self.replays += st.replays - before[3]
+            launches, by_shape = _read(counted)
+            for name in counted:
+                self.launches[name] += launches[name] - before[4][name]
+            for name in self.by_shape:
+                self.by_shape[name].update(by_shape[name])
+                self.by_shape[name].subtract(before[5][name])
+            if i + 1 == SERVE_CHILD_FRAMES:
+                self.first = self.engine.poses()[0]
+
+        def report(self):
+            t = self.times
+            print(f"serve {self.label}: frame 0 {t[0]:.3f} s, frames 2-{n - 2} median "
+                  f"{float(np.median(t[2:-1])):.4f} s, total {sum(t):.3f} s ({card}); host "
+                  f"synchronisations a frame, frames 2-{n - 1} median "
+                  f"{float(np.median(self.syncs[2:]))}; loop graphs {sum(self.caps)} captures "
+                  f"({self.capture_s:.3f} s), {self.replays} replays, {sum(self.reads)} stop-mask "
+                  f"reads; stop-mask reads a frame {self.reads}; frame {n - 1} profiled: "
+                  f"{t[-1]:.4f} s, device time {self.device_ms:.3f} ms")
+
+    _reset(counted)
+    live_run = Run(IncrementalSfM(cfg, K, frontend="native", seed=0, device=dev), "live")
+    served_run = Run(served, "served")
+    for i, im in enumerate(imgs):
+        for r in (live_run, served_run) if i % 2 == 0 else (served_run, live_run):
+            r.frame(i, im)
+    live_run.report()
+    served_run.report()
+    live = live_run.engine
+    live_t, live_launches, live_first, live_reads, live_dev, live_caps = (
+        live_run.times, live_run.launches, live_run.first, live_run.reads, live_run.device_ms,
+        live_run.caps)
+    served_t, served_launches, served_reads, served_dev, served_caps = (
+        served_run.times, served_run.launches, served_run.reads, served_run.device_ms,
+        served_run.caps)
+    served_by_shape = {name: dict(c) for name, c in served_run.by_shape.items()}
+    # no time gate: the host is shared with other machines' work. The live
+    # engine's loop graphs exist from the slice phase, the served engine
+    # captures its own: only frames in which neither engine captured compare
+    frames = [i for i in range(2, n - 1) if not live_caps[i] and not served_caps[i]] \
+        or list(range(2, n - 1))
+    steady = [float(np.mean([t[i] for i in frames])) for t in (live_t, served_t)]
+    extra_ms = 1e3 * (steady[1] - steady[0])
+    print(f"serve split: steady served/live {steady[1] / steady[0]:.4f} ({steady[1]:.4f} against "
+          f"{steady[0]:.4f} s, the mean of frames {frames}, no graph captured by either; the "
+          f"engines in turn); "
+          f"the served frame's extra {extra_ms:.3f} ms = "
+          f"device {served_dev - live_dev:.3f} ms (profiled frame {n - 1}: live {live_dev:.3f}, "
+          f"served {served_dev:.3f} ms) + host {extra_ms - (served_dev - live_dev):.3f} ms ({card})")
     if served_reads != live_reads:
         raise AssertionError(f"served stop-mask reads a frame {served_reads} differ from live "
                              f"{live_reads}")
@@ -1163,8 +1245,7 @@ def serve_phase(dev, imgs, K, C_gt, cfg, counted, sync, card: str) -> dict:
         draw_ms.append(1e3 * (time.perf_counter() - t0))
     print(f"serve draws a frame: median {float(np.median(draw_ms)):.3f} ms of {draw_ms} ({card})")
     print(f"serve frame time: first live {live_t[0]:.3f} s served {served_t[0]:.3f} s; steady "
-          f"median live {float(np.median(live_t[2:])):.3f} s served "
-          f"{float(np.median(served_t[2:])):.3f} s ({card})")
+          f"mean live {steady[0]:.4f} s served {steady[1]:.4f} s ({card})")
     SERVE_ARTIFACT.unlink()
     return served_launches, served_by_shape
 
@@ -1825,6 +1906,7 @@ def kernel_phase(dev, imgs, small_img, cfg, smi: str, lane_imgs, map_lane_imgs,
                lambda: ba_cuda.ba_blocks(*bargs), lambda: ba_cuda.ba_blocks_reference(*bargs),
                max(scaled) <= 1e-3 and same,
                moved=nbytes(*bargs[:6], *got[2:5]) + 4 * 57 * V, flops=400 * O, path=path)
+        _b4_kernels(torch, lambda: ba_cuda.ba_blocks(*bargs), smi, name, results[-1]["bound_ms"])
         return got
 
     def b4_random(O, V):
@@ -2127,6 +2209,8 @@ def kernel_phase(dev, imgs, small_img, cfg, smi: str, lane_imgs, map_lane_imgs,
                max(scaled) <= 1e-3 and bits,
                moved=nbytes(*largs[:6], *got[2:5]) + 4 * 57 * V * largs[0].shape[0],
                flops=400 * largs[0].numel(), path=path)
+        _b4_kernels(torch, lambda: ba_cuda.ba_blocks(*largs), smi, f"B4 ba_blocks lanes{label}",
+                    results[-1]["bound_ms"])
         torch.cuda.empty_cache()
 
     # B4: each lane's full ELL stream, 16384 points x 16 slots, V = 16; and

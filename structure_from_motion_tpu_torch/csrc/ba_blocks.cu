@@ -39,7 +39,15 @@
 // * Stage 2 (second kernel): one block per camera; 28 groups of 36 threads
 //   each walk a fixed contiguous range of blocks in order, reading the slot
 //   byte and, where the camera is present, its row; the 28 partial sums
-//   are added in group order and U is mirrored on the way out.
+//   are added in group order and U is mirrored on the way out, into U, b_c
+//   and the camera's cost, each an output of its own. The lane axis is a
+//   template parameter of this kernel: a lane shifts the range of blocks
+//   it walks (rows and slots are both indexed by lane * nb + block) and its
+//   camera's output row, two integer terms and no pointer bumps. Bumping
+//   the three pointers by blockIdx.y took ptxas from 32 to 64 registers a
+//   thread, so the 1008-thread block fitted once an SM, not twice, and the
+//   kernel ran at half speed; the one-lane instantiation has no lane term
+//   at all.
 //
 // No float atomics: every sum has one fixed order given the inputs, so two
 // launches give the same bits. A segment sum over a camera-major view of
@@ -55,9 +63,11 @@ namespace {
 constexpr int kBO = 128;     // observations per block
 constexpr int kP = 36;       // payload: 28 (upper U) + 7 (b_c) + 1 (cost)
 constexpr int kPS = 37;      // padded payload stride in shared memory
-constexpr int kOutP = 57;    // output row: U (49) | b_c (7) | cost (1)
 constexpr int kGroups = 28;  // stage-2 groups of kP threads
-constexpr int kInFlight = 8; // stage-2 row loads a thread keeps in flight
+// the per-camera costs lie kCostStride floats apart: torch sums a strided
+// vector in one order whatever V is (a contiguous one of more than 128
+// floats it vectorises, in another order)
+constexpr int kCostStride = 2;
 constexpr int kNoKey = 0x00ffffff;  // above every camera id; key * 128 fits an int
 constexpr int kNoSlot = 255;
 // per-observation output staging (words): DtD | W | b_p
@@ -268,22 +278,27 @@ ba_assemble(const int* __restrict__ cam, const float* __restrict__ Cg,
 
 // One block per camera: group g of kP threads walks blocks
 // [g * chunk, (g + 1) * chunk) in order; the groups' sums are added in
-// group order; the upper triangle of U is mirrored on the way out.
+// group order; the upper triangle of U is mirrored on the way out. With
+// kLanes, blockIdx.y is the lane: its blocks are lane * nb + [0, nb) of
+// the scratch, its cameras lane * V + [0, V) of the outputs.
+template <bool kLanes>
 __global__ void __launch_bounds__(kP * kGroups)
 ba_reduce_rows(const float* __restrict__ rows,
                const unsigned char* __restrict__ slot, int nb, int V,
-               int rmax, float* __restrict__ out) {
+               int rmax, float* __restrict__ U, float* __restrict__ bc,
+               float* __restrict__ cost) {
   __shared__ float part[kGroups * kP];
-  // blockIdx.y is the lane: its own scratch and its own V output rows
-  rows += (size_t)blockIdx.y * nb * rmax * kP;
-  slot += (size_t)blockIdx.y * nb * V;
-  out += (size_t)blockIdx.y * V * kOutP;
+  const int lb = kLanes ? blockIdx.y * nb : 0;  // the lane's first block
   const int v = blockIdx.x;
   const int c = threadIdx.x % kP, g = threadIdx.x / kP;
   const int chunk = (nb + kGroups - 1) / kGroups;
-  const int b0 = g * chunk, b1 = min(nb, b0 + chunk);
+  const int b0 = lb + g * chunk, b1 = lb + min(nb, g * chunk + chunk);
   const unsigned char* sv = slot + v;  // slot[b * V + v]
   float acc = 0.f;
+  // row loads a thread keeps in flight: the lane launch (128 blocks at B =
+  // 8, V = 16) gains from more, the one-lane launch at V = 500 from fewer
+  // (tools/kernel_variants.py --only b4); the sum's order is the same
+  constexpr int kInFlight = kLanes ? 16 : 4;
   for (int b = b0; b < b1; b += kInFlight) {
     int s[kInFlight];
     float x[kInFlight];
@@ -300,7 +315,7 @@ ba_reduce_rows(const float* __restrict__ rows,
   if (g != 0) return;
   float tot = 0.f;
   for (int gg = 0; gg < kGroups; ++gg) tot += part[gg * kP + c];
-  float* dst = out + (size_t)v * kOutP;
+  const size_t ov = kLanes ? (size_t)blockIdx.y * V + v : (size_t)v;  // the output row
   if (c < 28) {
     int i = 0, rem = c;
     while (rem >= 7 - i) {
@@ -308,10 +323,12 @@ ba_reduce_rows(const float* __restrict__ rows,
       ++i;
     }
     const int j = i + rem;
-    dst[7 * i + j] = tot;
-    dst[7 * j + i] = tot;
+    U[ov * 49 + 7 * i + j] = tot;
+    U[ov * 49 + 7 * j + i] = tot;
+  } else if (c < 35) {
+    bc[ov * 7 + (c - 28)] = tot;
   } else {
-    dst[49 + (c - 28)] = tot;  // b_c (7), then the cost
+    cost[ov * kCostStride] = tot;
   }
 }
 
@@ -319,23 +336,29 @@ ba_reduce_rows(const float* __restrict__ rows,
 
 // cam (lanes, O) int32; C (lanes, O, 3), q (lanes, O, 4), X (lanes, O, 3),
 // uv (lanes, O, 2), w (lanes, O) f32 -> dtd (lanes, O, 9), wblk (lanes, O,
-// 21), bp (lanes, O, 3), cam_out (lanes, V, 57): each lane as its own launch
-// (4 | O when lanes > 1, which keeps every lane's rows 16-byte aligned).
-// Scratch: rows holds lanes * ceil(O / 128) * rmax * 36 floats with rmax =
-// min(128, V); slot holds lanes * V * ceil(O / 128) bytes. Observations whose
-// camera id is outside [0, V) enter no camera sum.
+// 21), bp (lanes, O, 3), U (lanes, V, 7, 7), bc (lanes, V, 7), cost (lanes,
+// V, 2: each camera's share at [.., 0]): each lane as its own launch (4 | O when lanes > 1, which keeps every
+// lane's rows 16-byte aligned). Scratch: rows holds lanes * ceil(O / 128) *
+// rmax * 36 floats with rmax = min(128, V); slot holds lanes * V *
+// ceil(O / 128) bytes. Observations whose camera id is outside [0, V)
+// enter no camera sum.
 extern "C" int sfm_ba_blocks_lanes(const int* cam, const float* C, const float* q,
                                    const float* X, const float* uv, const float* w,
                                    int lanes, int O, int V, float huber, float* dtd,
                                    float* wblk, float* bp, float* rows, unsigned char* slot,
-                                   float* cam_out, void* stream) {
+                                   float* U, float* bc, float* cost, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int nb = (O + kBO - 1) / kBO;
   const int rmax = V < kBO ? V : kBO;
-  if (nb <= 0 || V <= 0 || V > kNoKey || lanes < 1 || lanes > 65535 || (lanes > 1 && O % 4))
+  if (nb <= 0 || V <= 0 || V > kNoKey || lanes < 1 || lanes > 65535 || (lanes > 1 && O % 4) ||
+      (long long)lanes * nb >= (1LL << 31) || (long long)lanes * V >= (1LL << 31))
     return static_cast<int>(cudaErrorInvalidValue);
   ba_assemble<<<dim3(nb, lanes), kBO, 0, s>>>(cam, C, q, X, uv, w, O, V, huber, dtd, wblk,
                                               bp, rows, slot, rmax);
-  ba_reduce_rows<<<dim3(V, lanes), kP * kGroups, 0, s>>>(rows, slot, nb, V, rmax, cam_out);
+  if (lanes == 1)
+    ba_reduce_rows<false><<<V, kP * kGroups, 0, s>>>(rows, slot, nb, V, rmax, U, bc, cost);
+  else
+    ba_reduce_rows<true><<<dim3(V, lanes), kP * kGroups, 0, s>>>(rows, slot, nb, V, rmax, U,
+                                                                 bc, cost);
   return static_cast<int>(cudaGetLastError());
 }

@@ -33,6 +33,7 @@ import functools
 import hashlib
 import importlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -61,9 +62,9 @@ _SIGNATURES = {
     "sfm_candidate_block_max_lanes": (_P, _I, _I, _I, _I, _F, _F, _F, _I, _P, _P, _P),
     # ref, que, sqq, mask_que, lanes, Nr, Nq, d1, d2, j1, stream
     "sfm_match_top2_lanes": (_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P),
-    # cam, C, q, X, uv, w, lanes, O, V, huber, dtd, wblk, bp, rows, slot, cam_out, stream
+    # cam, C, q, X, uv, w, lanes, O, V, huber, dtd, wblk, bp, rows, slot, U, bc, cost, stream
     "sfm_ba_blocks_lanes": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P, _P, _P, _P, _P, _P,
-                            _P),
+                            _P, _P, _P),
     # cam, w21, x, O, V, t, stream
     "sfm_expand_cam": (_P, _P, _P, _I, _I, _P, _P),
     # w21, y, perm, mask, O, V, rows, coup, stream
@@ -145,6 +146,23 @@ def library() -> ctypes.CDLL:
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int
     return lib
+
+
+def ptxas_registers(log: str) -> dict:
+    """``{kernel: (registers a thread, spill stores in bytes)}`` from what
+    ``ptxas -v`` said (the ``.log`` beside a build); a name demangled by
+    ``c++filt`` where it is installed (``ba_reduce_rows<false>``), else as
+    the compiler mangled it."""
+    found = re.findall(r"Compiling entry function '(\w+)'.*?(\d+) bytes spill stores.*?"
+                       r"Used (\d+) registers", log, re.S)
+    names = [f[0] for f in found]
+    cxxfilt = shutil.which("c++filt")
+    if cxxfilt and names:
+        out = subprocess.run([cxxfilt], input="\n".join(names), capture_output=True, text=True)
+        if out.returncode == 0 and len(out.stdout.splitlines()) == len(names):
+            names = [n.replace("(anonymous namespace)::", "").split("(")[0].removeprefix("void ")
+                     for n in out.stdout.splitlines()]
+    return {n: (int(regs), int(spill)) for n, (_, spill, regs) in zip(names, found)}
 
 
 def check(rc: int, name: str) -> None:

@@ -8,12 +8,13 @@ observation, as for the TPU kernel; any observation count O.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from structure_from_motion_tpu_torch import kernels
 from structure_from_motion_tpu_torch.ops.reproj import batched_residual_jacobians
 
-_PAYLOAD = 57  # [U (49) | b_c (7) | cost (1)] per camera
 _BLOCK = 128  # observations per block of csrc/ba_blocks.cu
 _ROW = 36  # the kernel's partial rows: upper U (28) | b_c (7) | cost (1)
 
@@ -104,29 +105,20 @@ def _(cam, C_o, q_o, X_o, uv, w, n_views, huber_delta):
     # scratch of the camera reduction: one 36-float row per (lane, block,
     # camera present in it), then one slot byte per (lane, camera, block)
     n_rows = n * nb * min(_BLOCK, n_views) * _ROW
-    dtd = torch.empty(lead + (O, 9), dtype=torch.float32, device=dev)
-    wblk = torch.empty(lead + (O, 21), dtype=torch.float32, device=dev)
-    bp = torch.empty(lead + (O, 3), dtype=torch.float32, device=dev)
-    scratch = torch.empty(n_rows + -(-n * n_views * nb // 4), dtype=torch.float32, device=dev)
-    acc = torch.empty(lead + (n_views, _PAYLOAD), dtype=torch.float32, device=dev)
-    ptrs = (cam.data_ptr(), C_o.data_ptr(), q_o.data_ptr(), X_o.data_ptr(), uv.data_ptr(),
-            w.data_ptr())
-    outs = (float(huber_delta), dtd.data_ptr(), wblk.data_ptr(), bp.data_ptr(),
-            scratch.data_ptr(), scratch.data_ptr() + 4 * n_rows, acc.data_ptr(),
-            kernels.stream_ptr(dev))
-    rc = kernels.library().sfm_ba_blocks_lanes(*ptrs, n, O, n_views, *outs)
+    f32 = functools.partial(torch.empty, dtype=torch.float32, device=dev)
+    dtd, wblk, bp = f32(lead + (O, 3, 3)), f32(lead + (O, 7, 3)), f32(lead + (O, 3))
+    # each camera's cost share at [..., 0]: torch sums a strided vector in one
+    # order whatever V is (a contiguous one over 128 floats it vectorises)
+    U, b_c, cost = f32(lead + (n_views, 7, 7)), f32(lead + (n_views, 7)), f32(lead + (n_views, 2))
+    scratch = f32(n_rows + -(-n * n_views * nb // 4))
+    rc = kernels.library().sfm_ba_blocks_lanes(
+        cam.data_ptr(), C_o.data_ptr(), q_o.data_ptr(), X_o.data_ptr(), uv.data_ptr(),
+        w.data_ptr(), n, O, n_views, float(huber_delta), dtd.data_ptr(), wblk.data_ptr(),
+        bp.data_ptr(), scratch.data_ptr(), scratch.data_ptr() + 4 * n_rows, U.data_ptr(),
+        b_c.data_ptr(), cost.data_ptr(), kernels.stream_ptr(dev))
     kernels.check(rc, "sfm_ba_blocks_lanes")
     ba_blocks.launches += 1
-    # an operator's outputs may not share storage: U and b_c leave the
-    # camera sums as copies (V x 56 floats)
-    return (
-        acc[..., :49].reshape(lead + (n_views, 7, 7)).clone(),
-        acc[..., 49:56].clone(),
-        dtd.view(lead + (O, 3, 3)),
-        wblk.view(lead + (O, 7, 3)),
-        bp,
-        acc[..., 56].sum(-1),
-    )
+    return U, b_c, dtd, wblk, bp, cost[..., 0].sum(-1)
 
 
 def ba_blocks(cam, C_o, q_o, X_o, uv, w, n_views: int, huber_delta: float):
@@ -140,8 +132,6 @@ def ba_blocks(cam, C_o, q_o, X_o, uv, w, n_views: int, huber_delta: float):
     every residual; the pipeline gives such an id no weight)."""
     if cam.device.type not in ("cpu", "cuda"):
         raise ValueError(f"ba_blocks: unsupported device {cam.device}")
-    if cam.device.type == "cuda":
-        _check(cam, C_o, q_o, X_o, uv, w, n_views)
     return torch.ops.sfm.ba_blocks(cam, C_o, q_o, X_o, uv, w, int(n_views), float(huber_delta))
 
 

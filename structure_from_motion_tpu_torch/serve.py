@@ -15,7 +15,8 @@ the stage and bucket choices as ``cond`` nodes and the loops as tagged
 ``while_loop`` nodes (``utils/control.py``). A ``cond`` node makes the one
 host read the live engine makes there; at load, :func:`retarget_loops`
 points each loop node at the live engine's loop (a fixed loop with no read,
-a masked loop in chunks of CUDA graph replays). An exported program takes its
+a masked loop in chunks of CUDA graph replays), and :func:`eager_calls`
+points each ATen node it can at the eager binding the live engine calls. An exported program takes its
 random draws as inputs (``models.incremental.FrameDraws``): the served
 engine draws them from the live engine's generators, every rung of the PnP
 ladder a frame, so a served run repeats the live run's bits.
@@ -28,6 +29,7 @@ says which, and :class:`ServedSfM` refuses another.
 from __future__ import annotations
 
 import contextlib
+import importlib
 import io
 import json
 import os
@@ -36,6 +38,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+from torch.utils import _pytree as pytree
 
 from structure_from_motion_tpu_torch import kernels
 from structure_from_motion_tpu_torch.config import PipelineConfig
@@ -278,6 +281,84 @@ def retarget_loops(module: torch.nn.Module, name: str = "program") -> int:
     return count
 
 
+def _eager_binding(op):
+    """The eager binding the live engine calls for the ATen overload ``op``
+    (``torch.<name>``, or the tensor method where the schema's first
+    argument is ``self``), or None: for an operator that writes to an input,
+    one without a binding of its name, or one whose name in the generated
+    code would reach another function (``torch.einsum`` is a Python wrapper
+    of the binding, with other arguments)."""
+    schema = op._schema
+    if op.namespace != "aten" or schema.is_mutable or op._opname.startswith("_"):
+        return None
+    fn = getattr(torch._C._VariableFunctions, op._opname, None)
+    if fn is None and schema.arguments and schema.arguments[0].name == "self":
+        fn = getattr(torch._C.TensorBase, op._opname, None)
+    if fn is None:
+        return None
+    try:  # the name the generated code calls it by must be this very function
+        module, _, attr = torch.fx.node._get_qualified_name(fn).rpartition(".")
+        owner = importlib.import_module(module.split(".")[0])
+        for part in module.split(".")[1:]:
+            owner = getattr(owner, part)
+        return fn if getattr(owner, attr) is fn else None
+    except (AttributeError, ImportError, RuntimeError):
+        return None
+
+
+def _same_meta(got, want) -> bool:
+    a, b = pytree.tree_leaves(got), pytree.tree_leaves(want)
+    return len(a) == len(b) and all(
+        torch.is_tensor(x) and torch.is_tensor(y) and x.shape == y.shape and x.dtype == y.dtype
+        and x.stride() == y.stride() and x.device == y.device for x, y in zip(a, b))
+
+
+def eager_calls(module: torch.nn.Module) -> int:
+    """Point every ATen node of a loaded program (``module`` and every graph
+    under it) at the operator's eager binding, the call the live engine
+    makes: a loaded graph calls each operator through its ``OpOverload``,
+    whose boxed call costs the host ~1-3 us more than the eager one
+    (``tools/serve_frames.py`` measures both), and a frame runs thousands.
+    The binding resolves the same overload from the same arguments, so the
+    bits are the node's. A node is pointed only where the binding, run on
+    the node's recorded fake inputs, gives its recorded output's shape,
+    dtype, strides and device; every other node (an operator that writes to
+    an input, one without a binding of its name, one whose binding gives
+    another layout, and a copy between the host and the card: through
+    ``Tensor.to`` it added a host synchronisation a frame on the card) keeps
+    its ``OpOverload``. Returns the number of nodes pointed."""
+    count = 0
+    for _, gm in module.named_modules():
+        if not isinstance(gm, torch.fx.GraphModule):
+            continue
+        changed = False
+        for node in gm.graph.nodes:
+            if node.op != "call_function" or not isinstance(node.target, torch._ops.OpOverload):
+                continue
+            fn = _eager_binding(node.target)
+            want = node.meta.get("val")
+            if fn is None or want is None:
+                continue
+            args, kwargs = torch.fx.node.map_arg((node.args, node.kwargs),
+                                                 lambda n: n.meta.get("val"))
+            tensors = [t for t in pytree.tree_leaves((want, args, kwargs)) if torch.is_tensor(t)]
+            fake = next((t.fake_mode for t in tensors if getattr(t, "fake_mode", None)), None)
+            if fake is None or len({t.device for t in tensors}) > 1:
+                continue
+            try:
+                with fake:
+                    got = fn(*args, **kwargs)
+            except Exception:  # the binding does not take this call: keep the node
+                continue
+            if _same_meta(got, want):
+                node.target = fn
+                changed = True
+                count += 1
+        if changed:
+            gm.recompile()
+    return count
+
+
 class ServedSfM:
     """Drop-in engine backed by an artifact: the feeding API of
     :class:`~structure_from_motion_tpu_torch.models.IncrementalSfM`
@@ -309,8 +390,10 @@ class ServedSfM:
         with _cached_type_hints():
             self._modules = {name: torch.export.load(io.BytesIO(b)).module()
                              for name, b in blobs.items()}
+        self.eager_nodes = {}  # program -> nodes pointed at their eager binding
         for name, module in self._modules.items():
             retarget_loops(module, name)
+            self.eager_nodes[name] = eager_calls(module)
         inner = IncrementalSfM(cfg, K, frontend=meta["frontend"], seed=seed,
                                collect_metrics=False, device=dev)
         inner.image_shape = tuple(meta["image_shape"])

@@ -24,9 +24,10 @@ prints the median device time of the kernel under ``torch.profiler``
   frame, and the tree's tile with a part taken out or changed
   (threads a block, blocks an SM, the Hessian test, the prefetch of the row
   after next, the loads of the row loop);
-* ``b4``: B4 with a change to its camera reduction (``ba_reduce_rows``)
-  at (O, V) = (262144, 16) and (233984, 500), the device time of each of
-  its two kernels;
+* ``b4``: B4 with a change to its camera reduction (``ba_reduce_rows``:
+  rows in flight, the lane offsets, blocks an SM) at (O, V) = (262144, 16)
+  and (233984, 500) and at B = 8 lanes of (262144, 16), the device time of
+  each of its two kernels;
 * ``b6``: B6 with other block sizes and rows in flight, and the variant
   ``variant_sources/reduce_slot_per_thread.cu``, over the 500-camera stream;
 * ``ffma``: the FMA rate of B1's inner code alone
@@ -39,7 +40,6 @@ from __future__ import annotations
 
 import argparse
 import ctypes
-import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -148,20 +148,34 @@ B6_VARIANTS = ["512,16", "256,16", "128,16", "1024,16", "512,8", "512,32",
 
 
 # B4: changes to csrc/ba_blocks.cu's camera reduction
-_B4_LANE_OFFSETS = """  // blockIdx.y is the lane: its own scratch and its own V output rows
-  rows += (size_t)blockIdx.y * nb * rmax * kP;
-  slot += (size_t)blockIdx.y * nb * V;
-  out += (size_t)blockIdx.y * V * kOutP;
-"""
+_B4_LANE = "  const int lb = kLanes ? blockIdx.y * nb : 0;  // the lane's first block\n"
+_B4_ROW = "  const size_t ov = kLanes ? (size_t)blockIdx.y * V + v : (size_t)v;  // the output row\n"
+_B4_FLIGHT = "  constexpr int kInFlight = kLanes ? 16 : 4;\n"
+
+
+def _b4_in_flight(lanes: int, one: int) -> list:
+    """The reduction's rows in flight: ``lanes`` in the lane
+    instantiation, ``one`` in the one-lane one."""
+    return [(_B4_FLIGHT, f"  constexpr int kInFlight = kLanes ? {lanes} : {one};\n")]
+
+
 B4_CHANGES = {
     "as in the tree": [],
-    "ba_reduce_rows without its lane offsets (right for one lane only)": [
-        (_B4_LANE_OFFSETS, "")],
+    "lane instantiation with pointer bumps by blockIdx.y": [
+        (_B4_LANE, "  const int lb = 0;\n  if (kLanes) {\n"
+                   "    rows += (size_t)blockIdx.y * nb * rmax * kP;\n"
+                   "    slot += (size_t)blockIdx.y * nb * V;\n"
+                   "    U += (size_t)blockIdx.y * V * 49;\n    bc += (size_t)blockIdx.y * V * 7;\n"
+                   "    cost += (size_t)blockIdx.y * V * kCostStride;\n  }\n"),
+        (_B4_ROW, "  const size_t ov = v;\n")],
+    "8 rows in flight in both instantiations": _b4_in_flight(8, 8),
+    "lane instantiation with 32 rows in flight": _b4_in_flight(32, 4),
+    "one-lane instantiation with 2 rows in flight": _b4_in_flight(16, 2),
     "ba_reduce_rows held to two blocks an SM": [
         ("__global__ void __launch_bounds__(kP * kGroups)\n",
          "__global__ void __launch_bounds__(kP * kGroups, 2)\n")],
 }
-BA_BLOCKS_ARGS = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P, _P, _P, _P, _P, _P, _P]
+BA_BLOCKS_ARGS = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P, _P, _P, _P, _P, _P, _P, _P, _P]
 
 
 def _substitute(src: str, pairs) -> str:
@@ -226,9 +240,9 @@ def build(group: str, sources: dict, entry: str, argtypes: list) -> dict:
         log = proc.communicate()[0]
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on variant {name}:\n{log[-3000:]}")
-        regs = [int(m) for m in re.findall(r"Used (\d+) registers", log)]
-        spills = len(re.findall(r"[1-9]\d* bytes spill", log))
-        print(f"built {group} [{name}]: registers {regs}, kernels that spill {spills}")
+        regs = kernels.ptxas_registers(log)
+        print(f"built {group} [{name}]: registers (spill stores, bytes) "
+              + ", ".join(f"{k} {r} ({sp})" for k, (r, sp) in regs.items()))
         lib = ctypes.CDLL(str(so))
         getattr(lib, entry).argtypes = argtypes
         getattr(lib, entry).restype = _I
@@ -337,34 +351,39 @@ def b4_source(pairs) -> str:
 
 
 def b4_variants(dev, rng, card) -> None:
-    """Each variant on one lane, its outputs bit for bit the tree's."""
+    """Each variant at one lane and at B = 8 lanes, its outputs bit for bit
+    the tree's; the device time of each kernel (the lane launch's
+    reduction is ``ba_reduce_rows<true>``)."""
     libs = build("b4", {n: b4_source(p) for n, p in B4_CHANGES.items()}, "sfm_ba_blocks_lanes",
                  BA_BLOCKS_ARGS)
     stream = kernels.stream_ptr(dev)
-    for O, V in ((262144, 16), (233984, 500)):
-        bargs = b4_inputs(dev, rng, O, V)
+    for B, O, V in ((0, 262144, 16), (0, 233984, 500), (8, 262144, 16)):
+        bargs = b4_inputs(dev, rng, O, V, B)
         want = ba_cuda.ba_blocks(*bargs)
+        n = max(B, 1)
+        lead = (B,) if B else ()
         nb = -(-O // ba_cuda._BLOCK)
-        n_rows = nb * min(ba_cuda._BLOCK, V) * ba_cuda._ROW
-        f32 = lambda *s: torch.empty(s, dtype=torch.float32, device=dev)  # noqa: E731
-        dtd, wblk, bp, acc = f32(O, 9), f32(O, 21), f32(O, 3), f32(V, ba_cuda._PAYLOAD)
-        scratch = f32(n_rows + -(-V * nb // 4))
+        n_rows = n * nb * min(ba_cuda._BLOCK, V) * ba_cuda._ROW
+        f32 = lambda *s: torch.empty(lead + s, dtype=torch.float32, device=dev)  # noqa: E731
+        outs = (f32(V, 7, 7), f32(V, 7), f32(O, 3, 3), f32(O, 7, 3), f32(O, 3))
+        cost = f32(V, 2)
+        scratch = torch.empty(n_rows + -(-n * V * nb // 4), dtype=torch.float32, device=dev)
         for name, lib in libs.items():
             def call():
+                U, bc, dtd, wblk, bp = (t.data_ptr() for t in outs)
                 return lib.sfm_ba_blocks_lanes(
-                    *(t.data_ptr() for t in bargs[:6]), 1, O, V, bargs[7], dtd.data_ptr(),
-                    wblk.data_ptr(), bp.data_ptr(), scratch.data_ptr(),
-                    scratch.data_ptr() + 4 * n_rows, acc.data_ptr(), stream)
+                    *(t.data_ptr() for t in bargs[:6]), n, O, V, bargs[7], dtd, wblk, bp,
+                    scratch.data_ptr(), scratch.data_ptr() + 4 * n_rows, U, bc,
+                    cost.data_ptr(), stream)
             kernels.check(call(), f"variant {name}")
             torch.cuda.synchronize()
-            got = (acc[:, :49].reshape(V, 7, 7), acc[:, 49:56], dtd.view(O, 3, 3),
-                   wblk.view(O, 7, 3), bp)
-            same = all(torch.equal(g, w) for g, w in zip(got, want))
+            same = all(torch.equal(g, w) for g, w in zip((*outs, cost[..., 0].sum(-1)), want))
             if not same:
                 raise AssertionError(f"B4 variant {name} differs from the tree's kernel")
-            print(f"B4 O = {O}, V = {V} [{name}]: ba_assemble "
-                  f"{device_us(call, 'ba_assemble'):.2f} us, ba_reduce_rows "
-                  f"{device_us(call, 'ba_reduce_rows'):.2f} us, the tree's bits ({card})")
+            reduce = "ba_reduce_rows<true>" if B else "ba_reduce_rows<false>"
+            print(f"B4 O = {O}, V = {V}{f', {B} lanes' if B else ''} [{name}]: ba_assemble "
+                  f"{device_us(call, 'ba_assemble'):.2f} us, {reduce} "
+                  f"{device_us(call, reduce):.2f} us, the tree's bits ({card})")
 
 
 def b6_variants(dev, rng, card, artifact: str) -> None:

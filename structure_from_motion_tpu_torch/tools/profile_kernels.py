@@ -9,7 +9,10 @@ For B1 (``blur_levels``) at the six shapes a 960x1280 frame launches it at
 of the default sigmas at the octaves from 1920x2560 down to 120x160) and
 the six of a 600x800 frame (1200x1600 down to 75x100); for
 B4 (``ba_blocks``) at (O, V) = (262144, 16), (233984, 16) and (233984, 500)
-with random camera ids; for B3 (``match_top2``) at 32768 x 2048 x 128; for
+with random camera ids, and at B = 8 lanes of (262144, 16) (each
+instantiation of its camera reduction shows apart, and the sha256 of each
+output is printed so that two versions' bits compare; lane b is held to
+its own one-lane launch); for B3 (``match_top2``) at 32768 x 2048 x 128; for
 B2 over the five DoG stacks of a rendered 960x1280 frame (the kernel that
 writes the response map, the fused ``candidate_block_max`` where the
 version under test has it; the map kernel also over the five stacks of a
@@ -37,6 +40,7 @@ and run it from that checkout, within one run on one card.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import math
 import subprocess
 import time
@@ -53,6 +57,9 @@ from structure_from_motion_tpu_torch.ops import features, features_cuda, matchin
 from structure_from_motion_tpu_torch.utils import checkpoint
 
 REPS = 30
+# B4's cases (lanes, O, V): the slice's per-frame BA, the global solve's O
+# at V = 16 and at V = 500, and the batched engine's B = 8 lanes
+B4_CASES = ((0, 262144, 16), (0, 233984, 16), (0, 233984, 500), (8, 262144, 16))
 ARTIFACT = Path(__file__).resolve().parents[2] / "artifacts" / "longrun500_pre_globalba.ckpt.npz"
 _KERNEL_NAMES = ("ba_", "match_top2", "blur_", "reduce_cam", "expand_cam", "candidate_")
 
@@ -77,7 +84,7 @@ def _event_ms(fn, flush=None, spin: int = 500_000) -> float:
     return float(np.median(times))
 
 
-def _device_times(fn, every: bool = False) -> dict:
+def device_times(fn, every: bool = False) -> dict:
     """Mean device microseconds a call, by kernel name: the kernels of B1-B6
     (``every``: every kernel the call launches)."""
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
@@ -103,7 +110,7 @@ def _report(name, fn, moved, flops, flush, card):
         fn()
     torch.cuda.synchronize()
     warm, cold = _event_ms(fn), _event_ms(fn, flush)
-    parts = _device_times(fn)
+    parts = device_times(fn)
     total_us = sum(parts.values())
     print(f"{name}: event time warm L2 {warm:.4f} ms, after a 64 MB flush {cold:.4f} ms; "
           f"device time by kernel (us): "
@@ -134,7 +141,7 @@ def _wrapper_split(name, fn, op, card) -> None:
         fn()
     host, op_host = _host_us(fn), _host_us(op)
     short, long_ = _event_ms(fn), _event_ms(fn, spin=5_000_000)
-    parts = _device_times(fn, every=True)
+    parts = device_times(fn, every=True)
     print(f"{name} wrapper: host enqueue {host:.1f} us a call ({op_host:.1f} us through the "
           f"operator alone); event time {short:.4f} ms after a 0.3 ms spin, {long_:.4f} ms after "
           f"a 3 ms spin; device time of every kernel of the call (us): "
@@ -142,16 +149,23 @@ def _wrapper_split(name, fn, op, card) -> None:
           + f"; sum {sum(parts.values()):.2f} us ({card})")
 
 
-def b4_inputs(dev, rng, O: int, V: int) -> tuple:
-    """B4's arguments: O observations with random camera ids in [0, V)."""
-    cam = torch.as_tensor(rng.integers(0, V, O).astype(np.int32)).to(dev)
-    f = lambda *s: torch.as_tensor(rng.normal(size=s).astype(np.float32)).to(dev)  # noqa: E731
+def b4_inputs(dev, rng, O: int, V: int, lanes: int = 0) -> tuple:
+    """B4's arguments: O observations with random camera ids in [0, V)
+    (``lanes``: that many stacked in front of each input)."""
+    lead = (lanes,) if lanes else ()
+    cam = torch.as_tensor(rng.integers(0, V, lead + (O,)).astype(np.int32)).to(dev)
+    f = lambda *s: torch.as_tensor(rng.normal(size=lead + s).astype(np.float32)).to(dev)  # noqa: E731
     q = f(O, 4) * 0.05
-    q[:, 0] += 1.0
+    q[..., 0] += 1.0
     X = f(O, 3)
-    X[:, 2] += 10.0
+    X[..., 2] += 10.0
     return (cam, f(O, 3), q, X, f(O, 2) * 0.1,
-            torch.as_tensor((rng.random(O) < 0.3).astype(np.float32)).to(dev), V, 0.01)
+            torch.as_tensor((rng.random(lead + (O,)) < 0.3).astype(np.float32)).to(dev), V, 0.01)
+
+
+def _sha(t: torch.Tensor) -> str:
+    """The first 12 hex digits of the sha256 of a tensor's bytes."""
+    return hashlib.sha256(t.contiguous().cpu().numpy().tobytes()).hexdigest()[:12]
 
 
 def frame_kernels():
@@ -291,13 +305,22 @@ def main() -> None:
     if only & {"B5", "B6"}:
         _b5_b6_cases(dev, rng, card, flush, args.artifact, only)
 
-    for O, V in ((262144, 16), (233984, 16), (233984, 500)) if "B4" in only else ():
-        bargs = b4_inputs(dev, rng, O, V)
-        _report(f"B4 ba_blocks O = {O}, V = {V}", lambda: ba_cuda.ba_blocks(*bargs),
-                188 * O + 228 * V, 400 * O, flush, card)
+    for B, O, V in B4_CASES if "B4" in only else ():
+        bargs = b4_inputs(dev, rng, O, V, B)
+        label = f"B4 ba_blocks O = {O}, V = {V}" + (f", {B} lanes" if B else "")
+        n = max(B, 1)
+        _report(label, lambda: ba_cuda.ba_blocks(*bargs), n * (188 * O + 228 * V), n * 400 * O,
+                flush, card)
         if hasattr(ba_cuda, "_ba_blocks_op"):  # the sfm:: operator (a version without skips)
-            _wrapper_split(f"B4 ba_blocks O = {O}, V = {V}", lambda: ba_cuda.ba_blocks(*bargs),
+            _wrapper_split(label, lambda: ba_cuda.ba_blocks(*bargs),
                            lambda: torch.ops.sfm.ba_blocks.default(*bargs), card)
+        print(f"{label}: sha256 of U, b_c, DtD, W, b_p, cost "
+              f"{' '.join(_sha(t) for t in ba_cuda.ba_blocks(*bargs))}")
+        if B:  # lane b against its own one-lane launch
+            one = [ba_cuda.ba_blocks(*(t[b] for t in bargs[:6]), *bargs[6:]) for b in range(B)]
+            same = all(torch.equal(x[b], o[i]) for b, o in enumerate(one)
+                       for i, x in enumerate(ba_cuda.ba_blocks(*bargs)))
+            print(f"{label}: every lane bit for bit its one-lane launch: {same}")
 
     if "B3" not in only:
         return

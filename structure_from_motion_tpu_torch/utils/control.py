@@ -49,6 +49,7 @@ import math
 import time
 
 import torch
+from torch.multiprocessing.reductions import StorageWeakRef
 from torch.utils import _pytree as pytree
 
 
@@ -117,12 +118,34 @@ def _no_tensor_closure(fn) -> None:
                          "operand, or the exported program bakes it in")
 
 
-def _fresh(x: torch.Tensor) -> torch.Tensor:
-    """A copy of ``x`` in row-major order: a cond branch or loop body must
-    return dense tensors that share no storage with its inputs (a store's
-    slice of its dump-row buffer is not dense, an unchanged state field is
-    the input itself). The data stay as they are."""
-    return x.clone(memory_format=torch.contiguous_format)
+def _dense_strides(shape) -> tuple:
+    """The strides of a row-major tensor of ``shape``, size-1 axes included
+    (``cond`` merges its branches' outputs by these; ``is_contiguous``
+    ignores the stride of a size-1 axis)."""
+    strides, step = [], 1
+    for n in reversed(shape):
+        strides.append(step)
+        step *= n
+    return tuple(reversed(strides))
+
+
+def _fresh(outputs, inputs) -> tuple:
+    """The outputs of a cond branch or loop body as an exported program
+    needs them: dense tensors that share no storage with its inputs or with
+    one another. An output that is so already is returned as it is; any
+    other is copied in row-major order (an unchanged state field is the
+    input itself, a store's slice of its dump-row buffer is not dense). The
+    data stay as they are. A copy costs its launch and its bytes at every
+    run of the branch or body (a loop body's copies sit in each CUDA graph
+    chunk of its loop), so none is made that the export does not need."""
+    seen = {StorageWeakRef(t.untyped_storage()) for t in inputs if torch.is_tensor(t)}
+    out = []
+    for x in outputs:
+        if StorageWeakRef(x.untyped_storage()) in seen or x.stride() != _dense_strides(x.shape):
+            x = x.clone(memory_format=torch.contiguous_format)
+        seen.add(StorageWeakRef(x.untyped_storage()))
+        out.append(x)
+    return tuple(out)
 
 
 def _split(tree):
@@ -163,7 +186,7 @@ def switch(index, branches, *operands):
             if not all(torch.is_tensor(x) for x in leaves):
                 raise TypeError("a switch branch must return tensors only")
             out_specs.append(spec)
-            return tuple(_fresh(x) for x in leaves)
+            return _fresh(leaves, (_index, *ts))
         return run
 
     def tree(lo, hi):  # branches [lo, hi) as a balanced tree of conds
@@ -223,7 +246,7 @@ def _loop(tag, cond_fn, body_fn, carried, operands) -> tuple:
 
     def body(*xs):
         with meta.preserve_node_meta(False):
-            return tuple(_fresh(x) for x in body_fn(*xs[:n], *rebuild(xs[n:])))
+            return _fresh(body_fn(*xs[:n], *rebuild(xs[n:])), xs)
 
     with meta.preserve_node_meta(), meta.annotate(tag or {"sfm_loop": None}):
         return tuple(while_loop_op(cond, body, carried, tuple(tensors)))

@@ -456,3 +456,31 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(kernels.os.path, "exists", lambda p: False)
     with pytest.raises(RuntimeError, match="nvcc"):
         kernels.build()
+
+
+def test_ptxas_registers_reads_each_kernel_of_a_build_log():
+    """``kernels.ptxas_registers`` pairs every entry function of a
+    ``ptxas -v`` log with its registers and spill stores (the B4 one-lane
+    and lane instantiations apart), demangled or as mangled."""
+    log = (
+        "ptxas info    : 0 bytes gmem\n"
+        "ptxas info    : Compiling entry function "
+        "'_ZN12_GLOBAL__N_114ba_reduce_rowsILb1EEEvPKfPKhiiiPfS5_S5_' for 'sm_90a'\n"
+        "ptxas info    : Function properties for "
+        "_ZN12_GLOBAL__N_114ba_reduce_rowsILb1EEEvPKfPKhiiiPfS5_S5_\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 40 registers, used 1 barriers, 4032 bytes smem\n"
+        "ptxas info    : Compiling entry function "
+        "'_ZN12_GLOBAL__N_114ba_reduce_rowsILb0EEEvPKfPKhiiiPfS5_S5_' for 'sm_90a'\n"
+        "ptxas info    : Function properties for "
+        "_ZN12_GLOBAL__N_114ba_reduce_rowsILb0EEEvPKfPKhiiiPfS5_S5_\n"
+        "    0 bytes stack frame, 16 bytes spill stores, 16 bytes spill loads\n"
+        "ptxas info    : Used 32 registers, used 1 barriers, 4032 bytes smem\n")
+    got = kernels.ptxas_registers(log)
+    assert sorted(got.values()) == [(32, 16), (40, 0)]
+    names = list(got)
+    assert all("ba_reduce_rows" in n for n in names) and len(set(names)) == 2
+    if any("<" in n for n in names):  # c++filt found
+        assert got["ba_reduce_rows<false>"] == (32, 16)
+        assert got["ba_reduce_rows<true>"] == (40, 0)
+    assert kernels.ptxas_registers("") == {}

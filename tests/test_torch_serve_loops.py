@@ -174,3 +174,91 @@ def test_served_loops_replay_cuda_graphs():
         pytest.skip("needs an NVIDIA GPU: the CUDA graph path runs only on the card")
     stats = _check("cuda")
     assert stats.captures == 3 and stats.replays >= stats.reads > 0
+
+
+def _keep_first(x, y, floor):  # x unchanged: an output aliasing an input
+    return x, y * 2.0
+
+
+def _keep_second(x, y, floor):  # y unchanged, and a slice that is not dense
+    return (x + 1.0)[:, :2].repeat(1, 2)[:, :3], y
+
+
+def _fresh_round(i, x, y, floor):  # a body whose outputs are all new tensors
+    return x * 0.5 + y + floor, y + 1.0
+
+
+def _pass_round(i, x, y, floor):  # a body handing one carried tensor on unchanged
+    return x * 0.5 + y + floor, y
+
+
+class _Copies(torch.nn.Module):
+    def forward(self, x, y, floor, index):
+        a, b = control.switch(index, [_keep_first, _keep_second], x, y, floor)
+        c, d = control.fori(2, _fresh_round, (x, y), floor)
+        e, f = control.fori(2, _pass_round, (x, y), floor)
+        return a, b, c, d, e, f
+
+
+def _clones(program) -> dict:
+    """``{graph path: aten.clone nodes}`` of a loaded program."""
+    return {path: sum(n.target is torch.ops.aten.clone.default for n in gm.graph.nodes)
+            for path, gm in program.named_modules() if isinstance(gm, torch.fx.GraphModule)}
+
+
+def test_exported_branches_and_bodies_copy_only_what_aliases():
+    """An exported ``switch`` branch or loop body copies an output only where
+    it aliases an input (an unchanged operand or carried tensor) or is not
+    row-major: each copy is a launch at every run of the branch, and in a
+    loop body a kernel in every step of each CUDA graph chunk, which made a
+    served frame slower than the live one. The program still gives the
+    eager bits for both branches."""
+    x, y, floor = _inputs()
+    module = _Copies()
+    program, _ = _served(module, (x, y, floor, torch.tensor(0)))
+    clones = _clones(program)
+    bodies = sorted(p for p in clones if "while_loop_body" in p)
+    branches = sorted(p for p in clones if p.startswith(("true_graph", "false_graph")))
+    assert len(bodies) == 2 and len(branches) == 2
+    # one body hands y on unchanged: one copy; the other copies nothing
+    assert sorted(clones[p] for p in bodies) == [0, 1]
+    # each branch copies its one unchanged input; the slice is made dense
+    assert all(clones[p] >= 1 for p in branches)
+    assert sum(clones[p] for p in branches) <= 3
+    assert clones[""] == 0
+    for index in (0, 1):
+        got = program(x, y, floor, torch.tensor(index))
+        want = module(x, y, floor, torch.tensor(index))
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def test_loaded_operators_call_their_eager_binding():
+    """``serve.eager_calls`` points a loaded program's ATen nodes at the
+    eager binding the live engine calls (the boxed ``OpOverload`` call costs
+    the host more a call), only where the generated code's name reaches
+    that binding and the binding reproduces the node's recorded layout; an
+    operator that writes to an input keeps its ``OpOverload``. The bits are
+    the eager call's."""
+    aten = torch.ops.aten
+    assert serve._eager_binding(aten.mul.Tensor) is torch.mul
+    assert serve._eager_binding(aten.view.default) is torch.Tensor.view
+    assert serve._eager_binding(aten.index_put_.default) is None  # writes to its input
+    assert serve._eager_binding(aten.einsum.default) is None  # torch.einsum: a wrapper
+    x, y, floor = _inputs()
+    module = _Loops()
+    args = (x, y, floor, torch.tensor(1))
+    program, _ = _served(module, args)
+    ops = lambda: [n.target for _, gm in program.named_modules()  # noqa: E731
+                   if isinstance(gm, torch.fx.GraphModule) for n in gm.graph.nodes
+                   if n.op == "call_function"]
+    before = ops()
+    boxed = sum(isinstance(t, torch._ops.OpOverload) for t in before)
+    mutating = [t for t in before if isinstance(t, torch._ops.OpOverload) and t._schema.is_mutable]
+    pointed = serve.eager_calls(program)
+    assert 0 < pointed <= boxed
+    assert sum(isinstance(t, torch._ops.OpOverload) for t in ops()) == boxed - pointed
+    assert all(t in ops() for t in mutating)  # an operator writing to an input stays boxed
+    for index in (0, 1):
+        got = program(x, y, floor, torch.tensor(index))
+        want = module(x, y, floor, torch.tensor(index))
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
