@@ -121,6 +121,25 @@ the script exits non-zero without printing the final result line:
    times; k, captures, replays, stop-mask reads, the graph pool's memory,
    and host synchronisations a frame of the slice and at B = 8 and B = 1.
 
+13. frame graph (right after phase 4): the slice's detect + match stretch
+   (``models/incremental._front_stage``, no host read from the image to
+   the recorded matches) is ONE CUDA graph (``utils/control.graphed``):
+   frame 0 eager, frame 1 captured, every later frame one replay. The 24
+   frames again with every frame eager, against phase 4's run: every state
+   field after every frame, every statistic and every archive record equal
+   bit for bit; the graph's captures and replays; the host
+   synchronisations of a steady and of an evicting frame by call site.
+
+Kernel B7 (``csrc/svd.cu``: the frame path's small SVDs, no host read;
+no Pallas kernel stands behind it) joins phase 3 at every shape the slice
+called it with eagerly: against ``torch.linalg.svd`` under the sign rule
+(null vectors to 1e-3 where the two smallest singular values are apart,
+everywhere a unit vector no worse in ``|A v|``; the 3 x 3 factors to 1e-3
+and rebuilding A), with no host synchronisation and the same bits twice,
+``torch.linalg.svd``'s time as its library call, and the minimal PnP
+margin of ``tests/test_torch_geometry.py`` on that test's 6-point samples
+(B7's median centre error < 1 and 5x below the f32 gram null vector's).
+
 Phase 6 also decodes its BMP files through the native loader
 (``io/native_loader.PrefetchingLoader``, ``native/sfm_loader.cpp`` built by
 ``make``), which must build here, against ``io/datasets``' decode (atol
@@ -661,6 +680,30 @@ def last_call(module, name: str):
 
 
 @contextlib.contextmanager
+def svd_inputs(seen: dict):
+    """Keep in ``seen`` a copy of the last input of every kernel B7 call
+    made eagerly in the block (a CUDA graph's replays call no wrapper), by
+    its ``by_shape`` key ``(batch, M, N, full)``."""
+    import torch
+
+    from structure_from_motion_tpu_torch.ops import small_svd as S
+
+    fn = S.small_svd
+
+    def spy(A, null_only=False):
+        if A.is_cuda and not torch.cuda.is_current_stream_capturing():
+            M, N = A.shape[-2:]
+            seen[(A.numel() // (M * N), M, N, not null_only)] = A.detach().clone()
+        return fn(A, null_only)
+
+    S.small_svd = spy
+    try:
+        yield seen
+    finally:
+        S.small_svd = fn
+
+
+@contextlib.contextmanager
 def _clock(name: str):
     """Print the wall time of one phase of the smoke."""
     t0 = time.perf_counter()
@@ -683,25 +726,23 @@ def _read(counted):
 
 
 @contextlib.contextmanager
-def _counting_syncs(out: list, dev):
+def _counting_syncs(out: list, dev, sites: list | None = None):
     """Append the host synchronisations torch reports in the block to
-    ``out`` (none counted off the card)."""
-    import warnings
-
-    import torch
-
+    ``out`` (none counted off the card), and their count by call site
+    (``tools/slice_frames.sync_site``) to ``sites`` when given."""
     if not str(dev).startswith("cuda"):
         yield
         out.append(0)
+        if sites is not None:
+            sites.append({})
         return
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            yield
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
-    out.append(sum("synchroniz" in str(w.message) for w in caught))
+    from structure_from_motion_tpu_torch.tools.slice_frames import host_syncs
+
+    with host_syncs() as found:
+        yield
+    out.append(sum(found.values()))
+    if sites is not None:
+        sites.append(dict(found.most_common()))
 
 
 def _loop_stats() -> str:
@@ -942,30 +983,37 @@ def cli_phase(dev, imgs, small_imgs, K, small_K, C_gt, small_C_gt, cfg, counted,
 
 
 def slice_phase(dev, imgs, K, C_gt, cfg, counted, sync, card: str,
-                loops: LoopRecorder | None = None) -> dict:
+                loops: LoopRecorder | None = None, keep: dict | None = None) -> dict:
     """Frames through the engine in slide mode, then ``finalize_global``;
     raises when a bound fails. Returns the launch counts of the phase and,
     for the wrappers that tally them, the counts by shape. ``loops``, when
     given, keeps frame ``LOOP_FRAME``'s loop calls and the host
-    synchronisations a frame. ``card`` (name and power limit) is printed
-    beside every time."""
+    synchronisations a frame. ``keep``, when given, receives every frame's
+    state (copies on the device), statistics and host synchronisations by
+    site, the archive and the frame graph's captures and replays, before
+    the global solve. ``card`` (name and power limit) is printed beside
+    every time."""
     import numpy as np
 
     from structure_from_motion_tpu_torch.models.incremental import IncrementalSfM
+    from structure_from_motion_tpu_torch.utils import control
 
     n = len(imgs)
     window = cfg.window_size
     _reset(counted)
     engine = IncrementalSfM(cfg, K, frontend="native", seed=0, device=dev)
-    frame_s, syncs = [], []
+    frame_s, syncs, sites, states, infos = [], [], [], [], []
     for t, im in enumerate(imgs):
         if loops is not None:
             loops.on = "slice" if t == LOOP_FRAME else None
-        with _counting_syncs(syncs, dev):
+        with _counting_syncs(syncs, dev, sites):
             t0 = time.perf_counter()
             info = engine.process_image(im)
             sync()
             frame_s.append(time.perf_counter() - t0)
+        if keep is not None:
+            states.append([x.clone() for x in engine.state])
+            infos.append(info)
         print(f"slice frame {info['frame']}: {frame_s[-1]:.3f} s, matches {int(info['matches'])}, "
               f"pnp_inliers {int(info['pnp_inliers'])}, new_points {int(info['new_points'])}, "
               f"reprojection {info['reprojection_px']:.4f} px, host synchronisations "
@@ -973,6 +1021,10 @@ def slice_phase(dev, imgs, K, C_gt, cfg, counted, sync, card: str,
     if loops is not None:
         loops.on = None
         loops.syncs["slice"] = syncs
+    if keep is not None:
+        keep.update(states=states, infos=infos, sites=sites, syncs=syncs,
+                    archive=list(engine._archive), graph=(control.stats.call_captures,
+                                                         control.stats.call_replays))
     locs, _ = engine.poses()
     span = float(np.linalg.norm(C_gt.max(0) - C_gt.min(0)))
     ate_before = _umeyama_ate(locs, C_gt)
@@ -1192,7 +1244,8 @@ def serve_phase(dev, imgs, K, C_gt, cfg, counted, sync, card: str) -> dict:
           f"({len(served._archive)} records), reprojection live {reproj_live!r} served "
           f"{reproj_served!r}; ATE {ate:.5f} of span (bound {ATE_BOUND}), map points "
           f"{len(served.map_points())}")
-    kernels_of = ("B1 blur_levels", "B2f candidate_block_max", "B3 match_top2", "B4 ba_blocks")
+    kernels_of = ("B1 blur_levels", "B2f candidate_block_max", "B3 match_top2", "B4 ba_blocks",
+                  "B7 small_svd")
     print(f"serve launches: live {[live_launches[k] for k in kernels_of]}, served "
           f"{[served_launches[k] for k in kernels_of]} ({', '.join(kernels_of)})")
     if differ or not arch or reproj_live != reproj_served:
@@ -1248,6 +1301,67 @@ def serve_phase(dev, imgs, K, C_gt, cfg, counted, sync, card: str) -> dict:
           f"mean live {steady[0]:.4f} s served {steady[1]:.4f} s ({card})")
     SERVE_ARTIFACT.unlink()
     return served_launches, served_by_shape
+
+
+def frame_graph_phase(dev, imgs, K, cfg, graphed_run: dict, sync, card: str) -> None:
+    """The slice's frames again with ``utils/control.graphed`` made a plain
+    call (every frame's detect + match eager), against the slice phase's
+    run (``graphed_run``: frame 0 eager, frame 1 captured, every later
+    frame one replay of the CUDA graph): every state field after every
+    frame, every statistic and every archive record equal, bit for bit; the
+    graph's captures and replays; the host synchronisations a steady frame
+    of the graphed run by call site. Raises on a difference."""
+    import numpy as np
+    import torch
+
+    from structure_from_motion_tpu_torch.models import incremental
+    from structure_from_motion_tpu_torch.models.incremental import IncrementalSfM
+    from structure_from_motion_tpu_torch.models.tracks import SfMState
+
+    captures, replays = graphed_run["graph"]
+    engine = IncrementalSfM(cfg, K, frontend="native", seed=0, device=dev)
+    graphed = incremental.graphed
+    incremental.graphed = lambda fn, *operands: fn(*operands)
+    differ, eager_s = [], []
+    try:
+        for t, im in enumerate(imgs):
+            sync()
+            t0 = time.perf_counter()
+            info = engine.process_image(im)
+            sync()
+            eager_s.append(time.perf_counter() - t0)
+            want = graphed_run["infos"][t]
+            for f, a, b in zip(SfMState._fields, graphed_run["states"][t], engine.state):
+                if not torch.equal(a, b):
+                    differ.append(f"frame {t} state.{f}")
+            for k in want:
+                if not np.array_equal(np.asarray(want[k]), np.asarray(info[k])):
+                    differ.append(f"frame {t} info[{k!r}]")
+    finally:
+        incremental.graphed = graphed
+    records = list(engine._archive)
+    if len(records) != len(graphed_run["archive"]) or not records:
+        differ.append(f"archive of {len(records)} records against {len(graphed_run['archive'])}")
+    for i, (a, b) in enumerate(zip(graphed_run["archive"], records)):
+        differ += [f"archive[{i}].{f}" for f, x, y in zip(a._fields, a, b)
+                   if not np.array_equal(x, y)]
+    n = len(imgs)
+    steady = [t for t in range(2, n) if t != cfg.window_size]
+    print(f"frame graph: detect + match of {n} slice frames ({n - cfg.window_size} evicting), "
+          f"{captures} capture and {replays} replays of the frame graph, against every frame "
+          f"eager: state fields, statistics and {len(records)} archive records that differ "
+          f"{differ[:8] or 'none'}; eager frames 2-{n - 1} median "
+          f"{float(np.median(eager_s[2:])):.4f} s ({card})")
+    sites = graphed_run["sites"]
+    t = LOOP_FRAME
+    print(f"frame graph: host synchronisations a frame {graphed_run['syncs']}; frame {t} "
+          f"(steady) by site {sites[t]}; frame {n - 1} (slide, evicts) by site {sites[n - 1]} "
+          f"({card})")
+    if differ:
+        raise AssertionError(f"graphed frames differ from eager ones: {differ[:8]}")
+    if captures != 1 or replays < n - 2:
+        raise AssertionError(f"the frame graph was captured {captures} times and replayed "
+                             f"{replays} times in {n} frames (want 1 and {n - 2})")
 
 
 def global_phase(dev, counted, sync, card: str) -> dict:
@@ -2264,6 +2378,142 @@ def kernel_phase(dev, imgs, small_img, cfg, smi: str, lane_imgs, map_lane_imgs,
     return results
 
 
+def _gram_nullspace(A):
+    """The null vector of the JAX package's accelerator path
+    (``structure_from_motion_tpu/ops/linalg.py:57``): shifted inverse
+    iteration on the f32 gram matrix, here in torch, as the yardstick that
+    the 6-point PnP margin is held against."""
+    import torch
+
+    n = A.shape[-1]
+    G = A.transpose(-1, -2) @ A
+    eps = (1e-5 * G.diagonal(dim1=-2, dim2=-1).sum(-1) + 1e-30)[..., None, None]
+    Gd = G + eps * torch.eye(n, dtype=A.dtype, device=A.device)
+    Ginv = torch.cholesky_inverse(torch.linalg.cholesky(Gd))
+    x = torch.take_along_dim(Ginv, Ginv.norm(dim=-2).argmax(-1)[..., None, None], dim=-1)[..., 0]
+    for _ in range(6):
+        x = torch.linalg.solve(Gd, x[..., None])[..., 0]
+        x = x / x.norm(dim=-1, keepdim=True)
+    return x
+
+
+def b7_phase(dev, calls: dict, smi: str) -> list:
+    """Kernel B7 against its plain version (``torch.linalg.svd`` under the
+    sign rule) at every shape the slice launched it with (``calls``: the
+    last input at each ``(batch, M, N, full)`` key, :func:`svd_inputs`),
+    with no host synchronisation and the same bits on two launches; then the
+    minimal PnP margin of ``tests/test_torch_geometry.py::
+    test_minimal_pnp_poses_under_noise`` on that test's 6-point samples.
+    Raises on a disagreement. Returns the kernel's entries."""
+    import numpy as np
+    import torch
+
+    from structure_from_motion_tpu_torch.ops import pnp
+    from structure_from_motion_tpu_torch.ops import small_svd as S
+    from structure_from_motion_tpu_torch.utils.rotations import so3_exp
+
+    if not calls:
+        raise AssertionError("kernel B7 was never called eagerly in the slice run")
+    results = []
+    for key in sorted(calls, key=lambda k: (k[3], k[1] * k[2], k[0])):
+        batch, M, N, full = key
+        A = calls[key]
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = S.small_svd(A, not full)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        again = S.small_svd(A, not full)
+        ref = S.small_svd_reference(A, not full)
+        same = all(torch.equal(x, y) for x, y in zip(got, again))
+        s = torch.linalg.svdvals(A.double())
+        top = s[..., :1].clamp_min(1e-30)
+        if full:
+            gap = ((s[..., :-1] - s[..., 1:]) > 1e-3 * top).all(-1)
+            err = max(float((g - r)[gap].abs().max()) if gap.any() else 0.0
+                      for g, r in zip(got, ref))
+            rebuilt = float(((got[0] * got[1][..., None, :]) @ got[2] - A).abs().max())
+            ok = err <= 1e-3 and rebuilt <= 1e-4 * float(top.max())
+            tol = (f"vectors and values atol 1e-3 where the singular values are 1e-3 of the "
+                   f"largest apart ({int(gap.sum())} of {batch}); U S Vh - A {rebuilt:.2e}")
+        else:
+            v, w = got[2][..., 0, :], ref[2][..., 0, :]
+            s_full = torch.cat([s, s.new_zeros(s.shape[:-1] + (N - s.shape[-1],))], -1)
+            gap = (s_full[..., -2] - s_full[..., -1]) > 1e-3 * top[..., 0]
+            err = float((v - w)[gap].abs().max()) if gap.any() else 0.0
+            Ad = A.double()
+            res_v = (Ad @ v.double()[..., None]).norm(dim=(-2, -1))
+            res_w = (Ad @ w.double()[..., None]).norm(dim=(-2, -1))
+            unit = float((v.norm(dim=-1) - 1).abs().max())
+            slack = float((res_v - res_w - 1e-4 * top[..., 0]).max())
+            ok = (err <= 1e-3 and unit <= 1e-5 and slack <= 0
+                  and bool(torch.isfinite(v).all()))
+            tol = (f"atol 1e-3 where the two smallest singular values are 1e-3 of the largest "
+                   f"apart ({int(gap.sum())} of {batch}); everywhere a unit vector (|1 - |v|| "
+                   f"{unit:.1e}) with |A v| <= the plain one's + 1e-4 s_max (slack {slack:.1e})")
+        ok = ok and same
+        full_m = M < N and not full
+        ms = _median_ms(torch, lambda: S.small_svd(A, not full))
+        plain_ms = _median_ms(torch, lambda: S.small_svd_reference(A, not full))
+        library_ms = _median_ms(torch, lambda: torch.linalg.svd(A, full_matrices=full_m))
+        moved = A.numel() * 4 + sum(t.numel() * 4 for t in got)
+        m, n = max(M, N), min(M, N)
+        flops = batch * (2 * m * n * n - 2 * n**3 / 3)  # one QR: the least an SVD does
+        t_bytes, t_ops = 1e3 * moved / PEAK_BYTES_PER_S, 1e3 * flops / PEAK_F32_FLOPS
+        bound_ms, bound_by = max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+        name = f"B7 small_svd ({batch} x {M} x {N}{', U S Vh' if full else ', null vector'})"
+        print(f"kernel {name}: max_abs_err={err:.3e} ({tol}; two launches same bits: {same}) "
+              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms by "
+              f"{bound_by} ({moved / 1e6:.3f} MB, {flops / 1e9:.4f} GFLOP), library "
+              f"torch.linalg.svd {library_ms:.4f} ms ({smi})")
+        if not ok:
+            raise AssertionError(f"{name} disagrees with its plain version")
+        results.append(dict(
+            name=name, route="cuda", source="structure_from_motion_tpu_torch/csrc/svd.cu",
+            replaces="structure_from_motion_tpu/ops/linalg.py:27 (jnp.linalg.svd; no Pallas "
+                     "kernel)", max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+            bound_by=bound_by, library_ms=library_ms, shape=key, path="slice"))
+
+    # the 6-point samples of test_minimal_pnp_poses_under_noise (seed 13,
+    # 240 points, 0.5 px noise), made here with numpy and the port
+    rng = np.random.default_rng(13)
+    X = rng.uniform([-4, -3, 8], [4, 3, 16], size=(240, 3))
+    R1 = so3_exp(torch.tensor([0.02, -0.15, 0.03])).double().numpy()
+    C1 = np.array([1.5, 0.1, 0.2])
+    x = (X - C1) @ R1
+    uv1 = (x[:, :2] / x[:, 2:]) * 500.0 + [320.0, 240.0]
+    rng.random(240)  # the test's outlier flags and shifts (none is applied)
+    rng.uniform(12, 60, 240)
+    rng.choice([-1.0, 1.0], 240)
+    rng.normal(size=(240, 2))  # view 0's noise
+    uv1 = uv1 + 0.5 * rng.normal(size=(240, 2))
+    rng.random(240)  # the test's mask
+    meas = ((uv1 - [320.0, 240.0]) / 500.0).astype(np.float32)
+    idx = np.stack([rng.permutation(240)[:6] for _ in range(256)])
+    Xs = torch.as_tensor(X[idx].astype(np.float32))
+    ms_ = torch.as_tensor(meas[idx])
+
+    def centre_err(device, null=None):
+        saved = pnp.nullspace
+        if null is not None:
+            pnp.nullspace = null
+        try:
+            _, C = pnp.solve_pnp_dlt(Xs.to(device), ms_.to(device))
+        finally:
+            pnp.nullspace = saved
+        return np.linalg.norm(C.cpu().numpy() - C1, axis=1)
+
+    err_b7, err_plain = centre_err(dev), centre_err("cpu")
+    err_gram = centre_err(dev, _gram_nullspace)
+    med = [float(np.median(e)) for e in (err_b7, err_plain, err_gram)]
+    print(f"kernel B7 minimal PnP (256 samples of 6 points, 0.5 px): median centre error B7 "
+          f"{med[0]:.4f}, the plain SVD (CPU) {med[1]:.4f}, the f32 gram null vector "
+          f"{med[2]:.4f} (bounds: B7 < 1.0 and 5 x B7 < gram, the CPU test's margin)")
+    if not (np.isfinite(err_b7).all() and med[0] < 1.0 and 5 * med[0] < med[2]):
+        raise AssertionError("B7's minimal PnP poses miss the test's margin")
+    return results
+
+
 def opcheck_phase(dev) -> None:
     """``torch.library.opcheck`` of every ``sfm::`` operator with CUDA
     inputs at one small shape: schema, fake implementation against the
@@ -2287,9 +2537,11 @@ def opcheck_phase(dev) -> None:
         "reduce_cam": (f32(8, 21), f32(8, 3),
                        torch.randint(0, 8, (12,), generator=g, device=dev, dtype=torch.int32),
                        torch.rand(12, generator=g, device=dev) < 0.7, 3),
+        "small_svd": (f32(4, 8, 9), True),
+        "small_svd full": (f32(4, 3, 3), False),
     }
     for name, args in cases.items():
-        torch.library.opcheck(getattr(torch.ops.sfm, name).default, args)
+        torch.library.opcheck(getattr(torch.ops.sfm, name.split()[0]).default, args)
         torch.cuda.synchronize()
     print(f"opcheck: {len(cases)} sfm operators pass on {dev} ({', '.join(cases)})")
 
@@ -2336,7 +2588,7 @@ def _smoke(torch, dev, smi: str, pool) -> None:
 
     from structure_from_motion_tpu_torch import kernels
     from structure_from_motion_tpu_torch.ops import ba_cuda, ba_matvec, blur_cuda
-    from structure_from_motion_tpu_torch.ops import features_cuda, matching
+    from structure_from_motion_tpu_torch.ops import features_cuda, matching, small_svd
 
     renders = render_all(pool)
 
@@ -2372,14 +2624,16 @@ def _smoke(torch, dev, smi: str, pool) -> None:
         "B2f candidate_block_max": features_cuda.candidate_block_max,
         "B3 match_top2": matching.match_top2,
         "B4 ba_blocks": ba_cuda.ba_blocks,
+        "B7 small_svd": small_svd.small_svd,
     }
     counted = dict(slice_kernels, **{"B2 candidate_response": features_cuda.candidate_response,
                                      "B5 expand_cam": ba_matvec.expand_cam,
                                      "B6 reduce_cam": ba_matvec.reduce_cam})
     loops = LoopRecorder()
-    with _clock("slice"), loops.installed():
+    graphed_run, b7_inputs = {}, {}
+    with _clock("slice"), loops.installed(), svd_inputs(b7_inputs):
         runs = {"slice": slice_phase(dev, imgs, K, C_gt, cfg, counted, torch.cuda.synchronize, smi,
-                                     loops)}
+                                     loops, graphed_run)}
     launches = runs["slice"][0]
     missing = [name for name in slice_kernels if launches[name] < 1]
     if missing:
@@ -2387,6 +2641,11 @@ def _smoke(torch, dev, smi: str, pool) -> None:
     if launches["B2f candidate_block_max"] != cfg.frontend.num_octaves * len(imgs) \
             or launches["B2 candidate_response"]:
         raise AssertionError(f"the slice's candidate stage is not the fused kernel's: {launches}")
+
+    # -- 13. the frame graph: detect + match replayed against every frame eager
+    with _clock("frame graph"):
+        frame_graph_phase(dev, imgs, K, cfg, graphed_run, torch.cuda.synchronize, smi)
+    del graphed_run
 
     # -- 11. the slice's frames through an exported artifact -------------------
     with _clock("serve"):
@@ -2434,6 +2693,7 @@ def _smoke(torch, dev, smi: str, pool) -> None:
         results = kernel_phase(dev, imgs, small_imgs[0], cfg, smi, [s[0][0] for s in lanes],
                                [s[0][0] for s in map_lanes], [s[0][0] for s in small_lanes],
                                harris[0][0], harris_fe, small_b4, harris_b4, shard_inputs)
+        results += b7_phase(dev, b7_inputs, smi)
     opcheck_phase(dev)
     for r in results:
         name = r["name"].split(" (")[0].removesuffix(" lanes")

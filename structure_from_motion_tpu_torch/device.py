@@ -19,6 +19,8 @@ Two JAX behaviours have no PyTorch default and get explicit helpers:
 
 from __future__ import annotations
 
+import collections
+
 import numpy as np
 import torch
 
@@ -50,6 +52,26 @@ def clamp_index(idx: torch.Tensor, n: int) -> torch.Tensor:
     return idx.clamp(0, max(n - 1, 0))
 
 
+_CONSTANTS: dict = {}  # (values, dtype, device) -> the uploaded tensor
+
+
+def constant(values, dtype: torch.dtype, device) -> torch.Tensor:
+    """``torch.tensor(values, dtype=dtype, device=device)``, uploaded once a
+    device and kept: the frame path reads small constant tables, and an
+    upload from pageable memory each frame would wait for the card (a host
+    synchronisation) and could not be captured in a CUDA graph. The tensor
+    is shared: never write into it. While ``torch.export`` traces, a fresh
+    tensor (the program keeps it as its constant)."""
+    if torch.compiler.is_exporting():
+        return torch.tensor(values, dtype=dtype, device=device)
+    arr = np.asarray(values)
+    key = (arr.dtype.str, arr.shape, arr.tobytes(), dtype, str(torch.device(device)))
+    t = _CONSTANTS.get(key)
+    if t is None:
+        t = _CONSTANTS[key] = torch.tensor(values, dtype=dtype, device=device)
+    return t
+
+
 def generator(device: torch.device, *keys: int) -> torch.Generator:
     """A ``torch.Generator`` on ``device`` seeded from integer ``keys``
     (e.g. ``(seed, frame, stream)``) — the counterpart of
@@ -58,3 +80,74 @@ def generator(device: torch.device, *keys: int) -> torch.Generator:
     g = torch.Generator(device=device)
     g.manual_seed(seed & 0x7FFF_FFFF_FFFF_FFFF)
     return g
+
+
+def to_device(a: torch.Tensor, device, dtype=None) -> torch.Tensor:
+    """``a.to(device, dtype)``; a host tensor bound for the card goes
+    through pinned memory with a non-blocking copy, so the upload does not
+    wait for the card (an upload from pageable memory does). The pinned
+    buffer is torch's caching host allocator's, which reuses it only after
+    the copy has completed."""
+    if dtype is not None:
+        a = a.to(dtype)
+    device = torch.device(device)
+    if a.device.type == "cpu" and device.type == "cuda":
+        return a.pin_memory().to(device, non_blocking=True)
+    return a.to(device)
+
+
+class HostCopy:
+    """Tensors copied to the host, started at once and waited for once, when
+    :meth:`arrays` is first called (the JAX package's
+    ``copy_to_host_async`` and grouped ``device_get``).
+
+    The tensors of one dtype are concatenated and copied into ONE host
+    buffer; on the card the buffer is pinned, the copy non-blocking, and an
+    event is recorded after the copies, which :meth:`arrays` waits for (the
+    one host wait, counted in :attr:`waits`). :meth:`arrays` gives numpy
+    views of the buffers with every tensor's dtype, shape and values, as
+    ``.cpu().numpy()`` gives them. The buffers belong to the copy and its
+    arrays alone, so none is reused while a copy into it is in flight."""
+
+    waits = 0  # host waits for a copy on the card, since the process began
+
+    def __init__(self, tensors):
+        tensors = list(tensors)
+        self._shapes = [tuple(t.shape) for t in tensors]
+        self._event, self._arrays = None, None
+        groups = collections.defaultdict(list)
+        for i, t in enumerate(tensors):
+            groups[t.dtype].append(i)
+        self._groups = []
+        for dtype, idx in groups.items():
+            flat = torch.cat([tensors[i].detach().reshape(-1) for i in idx])
+            if flat.is_cuda:
+                buf = torch.empty(flat.shape, dtype=dtype, pin_memory=True)
+                buf.copy_(flat, non_blocking=True)
+                flat = buf
+            self._groups.append((idx, flat))
+        if any(t.is_cuda for t in tensors):
+            self._event = torch.cuda.Event()
+            self._event.record()
+
+    def arrays(self) -> list:
+        """The numpy arrays, in the order the tensors were given."""
+        if self._arrays is None:
+            if self._event is not None:
+                self._event.synchronize()
+                HostCopy.waits += 1
+            out = [None] * len(self._shapes)
+            for idx, buf in self._groups:
+                host, at = buf.numpy(), 0
+                for i in idx:
+                    n = int(np.prod(self._shapes[i], dtype=np.int64))
+                    out[i] = host[at:at + n].reshape(self._shapes[i])
+                    at += n
+            self._arrays, self._groups = out, None
+        return self._arrays
+
+
+def fetch(tensors: dict) -> dict:
+    """``{key: tensor.cpu().numpy()}`` for a dict of tensors, made by one
+    :class:`HostCopy` (one wait on the card, not one a key)."""
+    return dict(zip(tensors, HostCopy(tensors.values()).arrays()))

@@ -13,7 +13,7 @@ the CUDA stream pass as ``c_void_p``, every entry point returns
 Each entry point is wrapped as one ``torch.library`` operator in the
 ``sfm`` namespace (``sfm::blur_levels``, ``candidate_response``,
 ``candidate_block_max``, ``match_top2``, ``ba_blocks``, ``expand_cam``,
-``reduce_cam``), registered by its wrapper module under ``ops/``
+``reduce_cam``, ``small_svd``), registered by its wrapper module under ``ops/``
 (:func:`register_ops` imports them all): the plain version is its CPU
 implementation, the ``ctypes`` launch its CUDA implementation, and a fake
 implementation gives its output shapes, so ``torch.export`` traces a
@@ -47,7 +47,7 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-OPS = ("blur_cuda", "features_cuda", "matching", "ba_cuda", "ba_matvec")
+OPS = ("blur_cuda", "features_cuda", "matching", "ba_cuda", "ba_matvec", "small_svd")
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # entry point -> argtypes (all return int = cudaError_t)
@@ -69,6 +69,8 @@ _SIGNATURES = {
     "sfm_expand_cam": (_P, _P, _P, _I, _I, _P, _P),
     # w21, y, perm, mask, O, V, rows, coup, stream
     "sfm_reduce_cam": (_P, _P, _P, _P, _I, _I, _I, _P, _P),
+    # A, batch, M, N, full, scratch, half (floats), U, S, V, stream
+    "sfm_small_svd": (_P, _I, _I, _I, _I, _P, _L, _P, _P, _P, _P),
 }
 
 

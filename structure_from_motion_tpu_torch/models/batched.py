@@ -25,9 +25,10 @@ import numpy as np
 import torch
 
 from structure_from_motion_tpu_torch.config import PipelineConfig
+from structure_from_motion_tpu_torch.device import fetch, to_device
 from structure_from_motion_tpu_torch.models import tracks
 from structure_from_motion_tpu_torch.models.incremental import LazyDraws, _frame_step
-from structure_from_motion_tpu_torch.models.tracks import EvictionRecord, SfMState
+from structure_from_motion_tpu_torch.models.tracks import EvictionArchive, SfMState
 from structure_from_motion_tpu_torch.ops.features import detect_and_describe
 from structure_from_motion_tpu_torch.utils.rotations import quat_to_rotation
 
@@ -79,12 +80,12 @@ class BatchedIncrementalSfM:
         self._frame = 0
         self._window = min(V, config.window_size)
         # slide mode's evicted views, oldest first: EvictionRecords of (B, ...)
-        # host arrays
-        self._archive: list = []
+        # host arrays, each copied in the background and read at first use
+        self._archive = EvictionArchive()
 
     def _to_device(self, a, dtype=None) -> torch.Tensor:
         a = a if torch.is_tensor(a) else torch.as_tensor(np.asarray(a))
-        return a.to(self.device, dtype) if dtype is not None else a.to(self.device)
+        return to_device(a, self.state.points.device, dtype)
 
     def _begin_frame(self, v: int):
         """The slot of frame v, or None past the window in "stop" mode; in
@@ -94,18 +95,19 @@ class BatchedIncrementalSfM:
         if self.config.window_mode != "slide":
             return None
         self.state, rec = tracks.evict_oldest_view(self.state)
-        self._archive.append(EvictionRecord(*(a.cpu().numpy() for a in rec)))
+        self._archive.append_device(rec)
         return self._window - 1
 
-    def _step(self, xy, desc, valid) -> dict:
+    def _step(self, frame) -> dict:
+        """The frame step on (B, H, W) images or the lanes' (xy, desc, valid)."""
         v = self._frame
         slot = self._begin_frame(v)
         if slot is None:
             return {"skipped": True, "frame": v}
         draws = LazyDraws(self.seeds, v, self.state.points.device)
-        self.state, info = _frame_step(self.state, slot, draws, xy, desc, valid, self.config)
+        self.state, info = _frame_step(self.state, slot, draws, frame, self.config)
         self._frame = v + 1
-        info = {k: val.cpu().numpy() for k, val in info.items()}
+        info = fetch(info)  # one grouped copy and one wait
         info["frame"] = v
         return info
 
@@ -118,14 +120,13 @@ class BatchedIncrementalSfM:
         """``imgs``: (B, H, W), frame t of every sequence."""
         if self.frontend != "native":
             raise RuntimeError("process_images requires the native frontend")
-        kps, desc = self.detect(imgs)
-        return self._step(kps.xy, desc, kps.mask)
+        return self._step(self._to_device(imgs))
 
     def process_features(self, xy, desc, valid) -> dict:
         """(B, K, 2), (B, K, D), (B, K) features of frame t of every lane."""
-        return self._step(self._to_device(xy, torch.float32),
-                          self._to_device(desc, torch.float32),
-                          self._to_device(valid, torch.bool))
+        return self._step((self._to_device(xy, torch.float32),
+                           self._to_device(desc, torch.float32),
+                           self._to_device(valid, torch.bool)))
 
     # -- results -------------------------------------------------------------
     def lane_state(self, b: int) -> SfMState:

@@ -68,9 +68,20 @@ import numpy as np
 import torch
 
 from structure_from_motion_tpu_torch.config import PipelineConfig
-from structure_from_motion_tpu_torch.device import generator, repeat_each, stable_topk
+from structure_from_motion_tpu_torch.device import (
+    fetch,
+    generator,
+    repeat_each,
+    stable_topk,
+    to_device,
+)
 from structure_from_motion_tpu_torch.models import global_ba, tracks
-from structure_from_motion_tpu_torch.models.tracks import SfMState, _lane, lanewise
+from structure_from_motion_tpu_torch.models.tracks import (
+    EvictionArchive,
+    SfMState,
+    _lane,
+    lanewise,
+)
 from structure_from_motion_tpu_torch.ops.ba import BAObservations, BAState, run_bundle_adjustment
 from structure_from_motion_tpu_torch.ops.distortion import undistort_pixels
 from structure_from_motion_tpu_torch.ops.campose import (
@@ -98,7 +109,7 @@ from structure_from_motion_tpu_torch.ops.triangulation import (
     reprojection_residuals,
     triangulate,
 )
-from structure_from_motion_tpu_torch.utils.control import lane_map, switch, take
+from structure_from_motion_tpu_torch.utils.control import graphed, lane_map, switch, take
 from structure_from_motion_tpu_torch.utils.geometry import (
     camera_projection,
     normalized_camera_coords,
@@ -174,10 +185,12 @@ class LazyDraws:
         return FrameDraws(gate=gate, boot=boot, pnp=tuple(pnp))
 
 
-def _match_stage(st: SfMState, v, draws, config: PipelineConfig) -> SfMState:
+def _match_stage(st: SfMState, v, gate, config: PipelineConfig) -> SfMState:
     """Every lane's view v against its prior views: ONE B3 launch for all
     lanes and views, then the per-view F-gate RANSAC with a (lane, view)
-    batch, only for views with enough matches, and the matches recorded."""
+    batch, only for views with enough matches, and the matches recorded.
+    ``gate``: the F-gate's uniforms (B, V, H, K), or generators one a lane
+    (``draws.gate_source()``); None without the gate."""
     B, V = st.kp_desc.shape[:2]
     prior = torch.arange(V, device=st.kp_desc.device) < v
     res = match_descriptors(st.kp_desc, take(st.kp_desc, v, 1), st.kp_valid & prior[:, None],
@@ -187,12 +200,53 @@ def _match_stage(st: SfMState, v, draws, config: PipelineConfig) -> SfMState:
         rc = config.matcher.gate_ransac
         ar = torch.arange(B, device=valid.device)[:, None, None]
         que_xy = take(st.kp_xy, v, 1)[ar, res.target.clamp_min(0).long()]  # (B, V, K, 2)
-        idx_sets = sample_index_sets(draws.gate_source(), valid, rc.num_hypotheses, 8)
+        idx_sets = sample_index_sets(gate, valid, rc.num_hypotheses, 8)
         gate = find_fundamental(idx_sets, st.kp_xy, que_xy, valid, rc)
         # only gate views with enough matches for a meaningful model
         enough = valid.sum(-1, keepdim=True) >= 16
         valid = torch.where(enough, valid & gate.inliers, valid)
     return tracks.record_matches(st, v, res.target, valid & prior[:, None])
+
+
+def _front(st: SfMState, v, gate, frame, *, config: PipelineConfig) -> SfMState:
+    """A frame up to its stage: ``frame`` an image ((H, W) for a stack of
+    one lane, (B, H, W) for B) that is detected here, or the lanes'
+    features ``(xy, desc, valid)``; stored at slot v (undistorted first
+    when the config has lens distortion), then matched."""
+    if torch.is_tensor(frame):
+        kps, desc = detect_and_describe(frame, config.frontend)
+        xy, valid = kps.xy, kps.mask
+        if frame.dim() == 2:
+            xy, desc, valid = xy[None], desc[None], valid[None]
+    else:
+        xy, desc, valid = frame
+    if any(config.distortion):
+        # known lens distortion: undistort the measurements ONCE at ingest,
+        # so that every later residual is the pinhole residual
+        xy = lane_map(lambda x, K: undistort_pixels(x, K, config.distortion), xy,
+                      take(st.K, v, 1))
+    st = tracks.set_view_features(st, v, xy, desc, valid)
+    return _match_stage(st, v, gate, config)
+
+
+def _front_stage(st: SfMState, v, draws, frame, config: PipelineConfig) -> SfMState:
+    """:func:`_front` with the F-gate's uniforms drawn first (the live
+    engine's generators draw eagerly: a CUDA graph would replay one draw
+    forever), as ONE ``utils/control.graphed`` call: from image (or
+    features) to the recorded matches no host read is made. The slot goes
+    in as a 0-dim device tensor (a fill, no upload), so every frame of one
+    engine has one key: on the card frame 0 runs eagerly, frame 1 captures
+    the graph and every later frame replays it."""
+    if not torch.is_tensor(v):
+        v = torch.full((), v, dtype=torch.long, device=st.points.device)
+    gate = None
+    if config.matcher.use_fundamental_gate:
+        gate = draws.gate_source()
+        if not torch.is_tensor(gate):
+            _, V, Kk = st.tri_index.shape
+            gate = draw_uniform(gate, (V, config.matcher.gate_ransac.num_hypotheses, Kk),
+                                st.points.device)
+    return graphed(functools.partial(_front, config=config), st, v, gate, frame)
 
 
 def _cos_parallax(X, Ca, Cb):
@@ -613,20 +667,15 @@ def _later_view(st: SfMState, v, draws, *, config: PipelineConfig):
                            pruned_obs=pruned_o, pruned_points=pruned_p)
 
 
-def _frame_step(st: SfMState, v, draws, xy, desc, valid, config: PipelineConfig):
+def _frame_step(st: SfMState, v, draws, frame, config: PipelineConfig):
     """One frame at slot ``v`` (a Python int, or a 0-dim int64 tensor in an
-    exported program) for every lane: store features, match against all
-    prior views, then the v == 0 / bootstrap / localise + BA stage (a
+    exported program) for every lane: :func:`_front_stage` (detect when
+    ``frame`` is an image, store the features, match against all prior
+    views), then the v == 0 / bootstrap / localise + BA stage (a
     :func:`~..utils.control.switch` on ``min(v, 2)``), and the reprojection
-    metric. ``xy``, ``desc``, ``valid`` carry the lane axis; ``draws`` is a
-    :class:`LazyDraws` or :class:`FrameDraws`."""
-    if any(config.distortion):
-        # known lens distortion: undistort the measurements ONCE at ingest,
-        # so that every later residual is the pinhole residual
-        xy = lane_map(lambda x, K: undistort_pixels(x, K, config.distortion), xy,
-                      take(st.K, v, 1))
-    st = tracks.set_view_features(st, v, xy, desc, valid)
-    st = _match_stage(st, v, draws, config)
+    metric. ``frame`` carries the lane axis but for a single (H, W) image;
+    ``draws`` is a :class:`LazyDraws` or :class:`FrameDraws`."""
+    st = _front_stage(st, v, draws, frame, config)
     stages = [functools.partial(fn, config=config)
               for fn in (_first_view, _second_view, _later_view)]
     stage = v.clamp(max=2) if torch.is_tensor(v) else min(v, 2)
@@ -637,11 +686,15 @@ def _frame_step(st: SfMState, v, draws, xy, desc, valid, config: PipelineConfig)
     return st, info
 
 
-def _single_step(state: SfMState, v, draws, xy, desc, valid, config: PipelineConfig):
+def _one_lane(state: SfMState, v, draws, frame, config: PipelineConfig):
     """:func:`_frame_step` on one state: a stack of one lane."""
-    st, info = _frame_step(tracks.lanes_of(state), v, draws, xy[None], desc[None], valid[None],
-                           config)
+    st, info = _frame_step(tracks.lanes_of(state), v, draws, frame, config)
     return tracks.lane_state(st, 0), {k: t[0] for k, t in info.items()}
+
+
+def _single_step(state: SfMState, v, draws, xy, desc, valid, config: PipelineConfig):
+    """:func:`_frame_step` of one state on its features."""
+    return _one_lane(state, v, draws, (xy[None], desc[None], valid[None]), config)
 
 
 def _assess_frame(state: SfMState, prev_slot, xy, desc, valid,
@@ -689,8 +742,7 @@ def _assess_frame_native(state: SfMState, prev_slot, img, config: PipelineConfig
 
 def _frame_step_native(state: SfMState, v, draws, img, config: PipelineConfig):
     """Frame step with the frontend in front: image -> features -> frame."""
-    kps, desc = detect_and_describe(img, config.frontend)
-    return _single_step(state, v, draws, kps.xy, desc, kps.mask, config)
+    return _one_lane(state, v, draws, img, config)
 
 
 def _finalize_ba(state: SfMState, iterations: int, config: PipelineConfig):
@@ -736,8 +788,8 @@ class IncrementalSfM:
         self.seed = seed
         self._frame = 0
         self._window = min(config.capacity.max_views, config.window_size)
-        # slide mode's evicted views, oldest first, as host-numpy records
-        self._archive: list = []
+        # slide mode's evicted views, oldest first, read as host-numpy records
+        self._archive = EvictionArchive()
         # keyframe bookkeeping: the input index of every ACCEPTED frame (the
         # identity when keyframe_min_flow_px == 0) and the next input's index
         self._input_index = 0
@@ -763,7 +815,7 @@ class IncrementalSfM:
                 raise ValueError(f"input on {a.device}, the engine runs on {self.device}")
         else:
             a = torch.as_tensor(np.asarray(a))
-        return a.to(self.device, dtype) if dtype is not None else a.to(self.device)
+        return to_device(a, self.state.points.device, dtype)
 
     def _draws(self, frame: int) -> LazyDraws:
         return LazyDraws([self.seed], frame, self.state.points.device)
@@ -793,10 +845,10 @@ class IncrementalSfM:
             return None
         else:
             self.state, rec = self.programs["evict"](self.state)
-            self._archive.append(tracks.EvictionRecord(*(a.cpu().numpy() for a in rec)))
+            self._archive.append_device(rec)
             slot = self._window - 1
         if K is not None:
-            K = torch.as_tensor(np.asarray(K, np.float32))
+            K = self._to_device(np.asarray(K, np.float32))
             self.state = tracks.set_view_K(self.state, slot, K)
         return slot
 
@@ -862,8 +914,9 @@ class IncrementalSfM:
         self._input_index += 1
         info = dict(info, frame=v)
         if self.collect_metrics:
-            info = {k: (val.cpu().numpy() if torch.is_tensor(val) else val)
-                    for k, val in info.items()}
+            # every metric in ONE grouped copy and one wait (the JAX package's
+            # grouped device_get), not a host read a key
+            info.update(fetch({k: val for k, val in info.items() if torch.is_tensor(val)}))
             info["reprojection_px"] = float(info["reprojection_px"])
         return info
 
@@ -880,7 +933,8 @@ class IncrementalSfM:
         """Restore a checkpoint of either package; returns the resume frame."""
         from structure_from_motion_tpu_torch.utils import checkpoint
 
-        self.state, self._frame, self._archive, kf = checkpoint.load_state(path, self.device)
+        self.state, self._frame, archive, kf = checkpoint.load_state(path, self.device)
+        self._archive = EvictionArchive(archive)
         self.keyframe_indices, self._input_index = kf
         return self._frame
 
@@ -907,7 +961,8 @@ class IncrementalSfM:
                                             num_shards=num_shards, stats=stats)
         A = len(self._archive)
         C, q = out.C.cpu().numpy(), out.q.cpu().numpy()
-        self._archive = [r._replace(C=C[i], q=q[i]) for i, r in enumerate(self._archive)]
+        self._archive = EvictionArchive(r._replace(C=C[i], q=q[i])
+                                        for i, r in enumerate(self._archive))
         cam_C, cam_q = self.state.cam_C.clone(), self.state.cam_q.clone()
         cam_C[:n_live] = out.C[A:A + n_live]
         cam_q[:n_live] = out.q[A:A + n_live]

@@ -24,7 +24,7 @@ from typing import NamedTuple
 import torch
 
 from structure_from_motion_tpu_torch.config import CapacityConfig
-from structure_from_motion_tpu_torch.device import DTYPE
+from structure_from_motion_tpu_torch.device import DTYPE, HostCopy
 from structure_from_motion_tpu_torch.ops.reproj import pixel_residuals
 from structure_from_motion_tpu_torch.utils.control import put, take
 
@@ -314,6 +314,40 @@ class EvictionRecord(NamedTuple):
     valid: torch.Tensor  # (Kk,) bool
 
 
+class EvictionArchive:
+    """Slide mode's evicted views, oldest first, read as host-numpy
+    :class:`EvictionRecord` s (indexing, iteration, ``len``). A record of
+    device tensors (:meth:`append_device`) starts its host copy at once
+    (:class:`~..device.HostCopy`: non-blocking, one event) and becomes a
+    numpy record the first time anything reads it, so a slide frame does
+    not wait for its eviction record (the JAX package's
+    ``copy_to_host_async``)."""
+
+    def __init__(self, records=()):
+        self._items = list(records)
+
+    def append_device(self, record: EvictionRecord) -> None:
+        """Append a record of tensors, copied to the host in the background."""
+        self._items.append(HostCopy(record))
+
+    def _get(self, i: int) -> EvictionRecord:
+        item = self._items[i]
+        if isinstance(item, HostCopy):
+            item = self._items[i] = EvictionRecord(*item.arrays())
+        return item
+
+    def __len__(self) -> int:
+        return len(self._items)
+
+    def __getitem__(self, i):
+        if isinstance(i, slice):
+            return [self._get(j) for j in range(len(self))[i]]
+        return self._get(i)
+
+    def __iter__(self):
+        return (self._get(i) for i in range(len(self)))
+
+
 def _shift0(x: torch.Tensor, fill) -> torch.Tensor:
     """Drop row 0 of every lane, shift every row down by one, fill the last."""
     return torch.cat([x[:, 1:], torch.full_like(x[:, :1], fill)], dim=1)
@@ -360,7 +394,8 @@ def evict_oldest_view(state: SfMState):
     match_table[:, : V - 1, : V - 1] = state.match_table[:, 1:, 1:]
     keep_obs = state.obs_valid & (state.obs_cam != 0)
     counts = _lane_counts(pt, keep_obs, M)
-    ident = state.cam_q.new_tensor([1.0, 0, 0, 0]).expand(B, 1, 4)
+    ident = torch.zeros_like(state.cam_q[:, :1])  # (1, 0, 0, 0) made on the device
+    ident[..., 0] = 1.0
     state = state._replace(
         kp_xy=_shift0(state.kp_xy, 0),
         kp_desc=_shift0(state.kp_desc, 0),

@@ -16,6 +16,7 @@ import torch
 from structure_from_motion_tpu_torch.config import RansacConfig
 from structure_from_motion_tpu_torch.ops.linalg import floor_abs, nullspace
 from structure_from_motion_tpu_torch.ops.ransac import ransac
+from structure_from_motion_tpu_torch.ops.small_svd import svd3
 from structure_from_motion_tpu_torch.utils.control import fori
 from structure_from_motion_tpu_torch.utils.geometry import to_homogeneous
 
@@ -53,7 +54,7 @@ def eight_point(ref_h, que_h, weights=None, eps: float = 1e-12):
         W = W * weights[..., :, None]
     f = nullspace(W)
     F = f.reshape(*f.shape[:-1], 3, 3)
-    u, s, vh = torch.linalg.svd(F, full_matrices=False)
+    u, s, vh = svd3(F)
     s2 = torch.cat([s[..., :2], torch.zeros_like(s[..., 2:])], dim=-1)
     F = (u * s2[..., None, :]) @ vh
     return F / floor_abs(F[..., 2:3, 2:3], eps)

@@ -46,7 +46,7 @@ import torch
 import torch.nn.functional as F
 
 from structure_from_motion_tpu_torch.config import FrontendConfig
-from structure_from_motion_tpu_torch.device import clamp_index, repeat_each, stable_topk
+from structure_from_motion_tpu_torch.device import clamp_index, constant, repeat_each, stable_topk
 from structure_from_motion_tpu_torch.ops.blur_cuda import blur_levels
 from structure_from_motion_tpu_torch.ops.features_cuda import (
     BLOCK,
@@ -147,9 +147,9 @@ def _subpixel_offset_3d(flat, obase, h, w, hw, s_layers, s_idx, yy, xx):
     rounds, then a fit whose offsets are clipped to +-0.5. Returns
     (dx, dy, ds, moved_x, moved_y, moved_s)."""
     border = 2
-    trip = torch.tensor(
+    trip = constant(
         [(ds, dy, dx) for ds in (-1, 0, 1) for dy in (-1, 0, 1) for dx in (-1, 0, 1)],
-        device=flat.device,
+        torch.long, flat.device,
     ).T
     offs = trip[0][None] * hw[:, None] + trip[1][None] * w[:, None] + trip[2][None]
     n_flat = flat.shape[0]
@@ -229,15 +229,15 @@ def _octave_lut(stacks: list, oct_idx: torch.Tensor):
     ``stacks``. For lane stacks ``oct_idx`` is (B, n) and each base moves
     to the entry's own lane; everything comes back flattened to (B * n,)."""
     bases = np.cumsum([0] + [s.numel() for s in stacks])[:-1]
-    table = torch.tensor(
+    table = constant(
         [[int(b), s.shape[-2], s.shape[-1], s.shape[-2] * s.shape[-1]]
          for b, s in zip(bases, stacks)],
-        dtype=torch.long, device=oct_idx.device,
+        torch.long, oct_idx.device,
     )
     base, h, w, hw = table[oct_idx].unbind(-1)
     if oct_idx.dim() == 2:  # a lane's stack follows the previous lane's
-        lane_numel = torch.tensor([s[0].numel() for s in stacks], dtype=torch.long,
-                                  device=oct_idx.device)[oct_idx]
+        lane_numel = constant([s[0].numel() for s in stacks], torch.long,
+                              oct_idx.device)[oct_idx]
         lane = torch.arange(oct_idx.shape[0], device=oct_idx.device)[:, None]
         base = base + lane * lane_numel
     return base.reshape(-1), h.reshape(-1), w.reshape(-1), hw.reshape(-1)
@@ -332,7 +332,7 @@ def _spatial_weights(D: int, device) -> torch.Tensor:
     pos = (np.arange(D) + 0.5) / (D / 4) - 0.5
     wrow = np.maximum(0.0, 1.0 - np.abs(pos[:, None] - np.arange(4)[None, :]))
     spatial = np.einsum("ya,xb->yxab", wrow, wrow).reshape(D * D, 16)
-    return torch.tensor(spatial, dtype=torch.float32, device=device)
+    return constant(spatial, torch.float32, device)
 
 
 def _descriptors_for(pyr, s_lvl, x, y, sig, angle, valid):
@@ -403,8 +403,8 @@ def _shared_offsets(G: int, step: float, device):
     """(dxs, dys) (G*G,) sigma-unit offsets of the shared grid, row-major."""
     lin = (np.arange(G, dtype=np.float32) - (G - 1) / 2.0) * step
     gy, gx = np.meshgrid(lin, lin, indexing="ij")
-    return (torch.as_tensor(gx.reshape(-1), device=device),
-            torch.as_tensor(gy.reshape(-1), device=device))
+    return (constant(gx.reshape(-1), torch.float32, device),
+            constant(gy.reshape(-1), torch.float32, device))
 
 
 def _sample_shared_grid(pyr: _FlatPyramid, s_lvl, x, y, sig, G: int, step: float):
@@ -523,8 +523,8 @@ def _detect_dog(img: torch.Tensor, cfg: FrontendConfig):
     # clamp BEFORE the sigma lookup: relocation can drive s_idx to -1, and a
     # negative index would wrap to the coarsest sigma
     s_idx = s_idx.clamp(0, n_levels - 1)
-    sig = torch.tensor(sigmas, dtype=torch.float32, device=dev)[s_idx] * torch.pow(
-        torch.tensor(k_per_level, dtype=torch.float32, device=dev), soff
+    sig = constant(sigmas, torch.float32, dev)[s_idx] * torch.pow(
+        constant(k_per_level, torch.float32, dev), soff
     )
     s_lvl = torch.round(s_idx.to(torch.float32) + soff).long().clamp(0, S)
 
@@ -680,7 +680,7 @@ def _brief_describe(img, x, y, angle, valid, n_bits: int, patch: float = 31.0) -
     """Steered-BRIEF +-1 codes, bit i = sign(I(R p_i) - I(R q_i)), with the
     steering angle quantised to pi/15 so that orientation noise leaves the
     pattern exactly unchanged."""
-    pat = torch.as_tensor(_brief_pattern(n_bits, patch), device=img.device)
+    pat = constant(_brief_pattern(n_bits, patch), torch.float32, img.device)
     step = math.pi / 15.0
     angle = torch.round(angle / step) * step
     ca, sa = torch.cos(angle)[..., None], torch.sin(angle)[..., None]

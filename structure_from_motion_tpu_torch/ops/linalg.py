@@ -1,12 +1,13 @@
 """Small batched linear algebra (port of ``structure_from_motion_tpu/ops/linalg.py``).
 
 Closed forms for 3x3 systems keep the tiny fixed-size solves elementwise;
-null vectors, Cholesky and small dense solves go to ``torch.linalg``, as the
-JAX package leaves them to XLA; :func:`pcg_solve` is the matrix-free
+null vectors go to kernel B7 (``ops/small_svd.py``) on the card, Cholesky
+and small dense solves to ``torch.linalg``, as the JAX package leaves them
+to XLA; :func:`pcg_solve` is the matrix-free
 solver of the large reduced camera systems. The JAX package's
 accelerator-only null vector and polar factor (``nullspace_gram``,
-``polar_rotation_3x3``) are not ported: on the H100 the SVD is faster and
-more accurate (``ops/pnp.py``).
+``polar_rotation_3x3``) are not ported: an SVD is more accurate
+(``ops/pnp.py``).
 The ``*_ex`` variants are used so that no solve synchronises the device to
 check for a singular matrix.
 """
@@ -17,6 +18,7 @@ import functools
 
 import torch
 
+from structure_from_motion_tpu_torch.ops import small_svd
 from structure_from_motion_tpu_torch.utils.control import masked_loop
 
 
@@ -27,11 +29,11 @@ def floor_abs(x: torch.Tensor, eps: float) -> torch.Tensor:
 
 
 def nullspace(A: torch.Tensor) -> torch.Tensor:
-    """Unit null vector (right-singular vector of the smallest singular value)
-    of each matrix in a ``(..., M, N)`` batch -> ``(..., N)``."""
-    wide = A.shape[-2] < A.shape[-1]
-    _, _, vh = torch.linalg.svd(A, full_matrices=wide)
-    return vh[..., -1, :]
+    """Unit null vector (right-singular vector of the smallest singular value,
+    its largest component positive) of each matrix in a ``(..., M, N)``
+    batch -> ``(..., N)``: kernel B7 on the card (no host read), the SVD on
+    the CPU (``ops/small_svd.py``)."""
+    return small_svd.nullspace(A)
 
 
 def det3x3(A: torch.Tensor) -> torch.Tensor:

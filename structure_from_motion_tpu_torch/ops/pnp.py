@@ -1,10 +1,12 @@
 """Perspective-n-Point: batched 6-point DLT RANSAC + LM refinement (port of
 ``structure_from_motion_tpu/ops/pnp.py``).
 
-The DLT takes its null vector and rotation from the SVD on every device
-(the JAX package's CPU path; on the H100, cuSOLVER's batched SVD is both
-faster and more accurate than its accelerator path, gram inverse iteration
-plus a Newton polar factor). RANSAC samples are inputs of :func:`linear_pnp_ransac` (see :func:`sample_pnp`);
+The DLT takes its null vector and rotation from an SVD on every device
+(the JAX package's CPU path): kernel B7 on the card (``ops/small_svd.py``,
+one-sided Jacobi on the system itself, no host read), ``torch.linalg.svd``
+on the CPU; both more accurate than the JAX package's accelerator path,
+gram inverse iteration plus a Newton polar factor. RANSAC samples are
+inputs of :func:`linear_pnp_ransac` (see :func:`sample_pnp`);
 the LM loops keep the JAX package's early exit once the squared step
 falls below 1e-14, stopped on the device (``utils/control.masked_loop``:
 one host read every :data:`LM_CHUNK` steps, each chunk one CUDA graph
@@ -26,6 +28,7 @@ from structure_from_motion_tpu_torch.ops.linalg import (
 )
 from structure_from_motion_tpu_torch.ops.ransac import draw_uniform, ransac, sample_index_sets
 from structure_from_motion_tpu_torch.ops.reproj import batched_residual_jacobians, pixel_residuals
+from structure_from_motion_tpu_torch.ops.small_svd import svd3
 from structure_from_motion_tpu_torch.utils.control import fori, masked_loop
 from structure_from_motion_tpu_torch.utils.geometry import normalized_camera_coords
 from structure_from_motion_tpu_torch.utils.rotations import (
@@ -62,7 +65,7 @@ def solve_pnp_dlt(X, meas_norm, weights=None):
         W = W * torch.cat([weights, weights], dim=-1)[..., None]
     P = nullspace(W).reshape(*W.shape[:-2], 3, 4)
     A, b = P[..., :3], P[..., 3]
-    uu, s, vh = torch.linalg.svd(A)
+    uu, s, vh = svd3(A)
     R_w2c, s0 = uu @ vh, s[..., 0]
     det = det3x3(R_w2c)
     R_w2c = R_w2c * det[..., None, None]

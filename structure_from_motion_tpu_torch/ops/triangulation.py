@@ -1,8 +1,8 @@
 """Batched triangulation: linear DLT + fixed-damping LM (port of
 ``structure_from_motion_tpu/ops/triangulation.py``).
 
-The DLT null vector comes from the SVD on every device (the JAX package's
-CPU path; see ``ops/pnp.py`` for why the card takes it too); the LM loop
+The DLT null vector comes from an SVD on every device (the JAX package's
+CPU path; kernel B7 on the card, see ``ops/pnp.py``); the LM loop
 has the JAX package's early exit once the largest squared step falls below
 1e-14, stopped on the device (``utils/control.masked_loop``, one host read
 every ``pnp.LM_CHUNK`` steps, each chunk one CUDA graph replay on the card).

@@ -402,9 +402,9 @@ class ServedSfM:
         m = self._modules
         slots: dict = {}
 
-        def slot(v) -> torch.Tensor:  # one cached 0-dim tensor a slot: no upload a frame
+        def slot(v) -> torch.Tensor:  # one cached 0-dim tensor a slot, filled on the device
             if v not in slots:
-                slots[v] = torch.tensor(v, dtype=torch.long, device=dev)
+                slots[v] = torch.full((), v, dtype=torch.long, device=dev)
             return slots[v]
 
         def state_in(st) -> list:

@@ -1,7 +1,7 @@
 """Live against served frames: where a served frame's time goes.
 
     python3 -m structure_from_motion_tpu_torch.tools.serve_frames [--frames 16] [--device cuda]
-        [--python-profile] [--trace DIR] [--report DIR]
+        [--python-profile] [--trace DIR] [--report DIR] [--boxed-syncs]
 
 Exports a fresh native engine's ``frame_step_native`` alone (the CLI's
 default configuration on rendered 960x1280 frames on the card; a small
@@ -12,7 +12,8 @@ time of every frame between two synchronisations; the served/live ratio of
 the mean steady frame (from frame 2 on, no loop graph captured by either
 engine; more than 16 frames would need the eviction program); the host
 synchronisations a frame (``torch.cuda.set_sync_debug_mode``; on the card
-only); each frame's loop-mask reads, CUDA graph captures and replays
+only), and those of the last steady frame by call site
+(``tools/slice_frames.sync_site``); each frame's loop-mask reads, CUDA graph captures and replays
 (``utils/control.stats``); the export's trace and save seconds, the
 program's and artifact's bytes and the load seconds. The last frame of each
 engine runs under ``torch.profiler``: the operators that took the most host
@@ -25,8 +26,11 @@ CUDA graph launches; ``--report DIR`` prints that report again from the
 files. ``--python-profile``: one more frame of each under ``cProfile`` and
 the Python functions whose own time differs most, and the export's save,
 with its loop tags and again without them, under ``cProfile`` with the
-garbage collector's passes and seconds. Prints one JSON line a run, then
-the profiles.
+garbage collector's passes and seconds. ``--boxed-syncs``: one more
+served frame naming each node of the loaded program that synchronises
+through its boxed ``OpOverload`` call (torch logs those to standard error,
+with no Python frame to name). Prints one JSON line a run, then the
+profiles.
 """
 
 from __future__ import annotations
@@ -43,7 +47,6 @@ import shutil
 import subprocess
 import tempfile
 import time
-import warnings
 
 import numpy as np
 import torch
@@ -151,6 +154,8 @@ def _frames(engines: dict, imgs, device: str, traces: dict) -> dict:
     ``{name: file}`` for the last frame's timeline (gzip Chrome trace)."""
     from structure_from_motion_tpu_torch.utils import control
 
+    from structure_from_motion_tpu_torch.tools.slice_frames import host_syncs
+
     out = {name: ([], [], [], None) for name in engines}
     in_program = {name: [0.0] for name in engines}
     for name, engine in engines.items():  # the host time inside the frame program
@@ -167,10 +172,8 @@ def _frames(engines: dict, imgs, device: str, traces: dict) -> dict:
             times, syncs, loops, _ = out[name]
             sync()
             prof = torch.profiler.profile(activities=acts) if last else contextlib.nullcontext()
-            with warnings.catch_warnings(record=True) as caught, prof, _collector() as seen:
-                warnings.simplefilter("always")
-                if device == "cuda":
-                    torch.cuda.set_sync_debug_mode("warn")
+            counting = host_syncs() if device == "cuda" else contextlib.nullcontext({})
+            with counting as sites, prof, _collector() as seen:
                 control.reset_stats()
                 in_program[name][0] = 0.0
                 t0 = time.perf_counter()
@@ -181,9 +184,7 @@ def _frames(engines: dict, imgs, device: str, traces: dict) -> dict:
                 loops.append(dict(reads=st.reads, replays=st.replays, captures=st.captures,
                                   pool_bytes=st.pool_bytes, program_s=in_program[name][0],
                                   gc_passes=seen[:3], gc_s=seen[3]))
-                if device == "cuda":
-                    torch.cuda.set_sync_debug_mode(0)
-            syncs.append(sum("synchroniz" in str(w.message) for w in caught))
+            syncs.append(dict(sites))
             if last:
                 out[name] = (times, syncs, loops, prof.key_averages())
                 if name in traces:
@@ -204,6 +205,54 @@ def _timed(fn, acc: list):
         finally:
             acc[0] += time.perf_counter() - t0
     return run
+
+
+def _boxed_syncs(served, im) -> dict:
+    """One more served frame with every node of the loaded programs that
+    still calls its ``OpOverload`` (torch LOGS such a call's host
+    synchronisation to standard error, with no Python frame) wrapped to
+    watch the log: ``{"node name: operator": synchronisations}``."""
+    import collections
+    import sys
+
+    found = collections.Counter()
+    with tempfile.TemporaryFile() as log:
+
+        def watch(name, op):
+            def call(*args, **kwargs):
+                before = os.fstat(log.fileno()).st_size
+                out = op(*args, **kwargs)
+                after = os.fstat(log.fileno()).st_size
+                if after > before:
+                    log.seek(before)
+                    n = log.read(after - before).decode(errors="replace").count(
+                        "called a synchronizing")
+                    if n:
+                        found[f"{name}: {op}"] += n
+                return out
+            return call
+
+        for module in served._modules.values():
+            for _, gm in module.named_modules():
+                if isinstance(gm, torch.fx.GraphModule):
+                    for node in gm.graph.nodes:
+                        if node.op == "call_function" and isinstance(node.target,
+                                                                     torch._ops.OpOverload):
+                            node.target = watch(node.name, node.target)
+                    gm.recompile()
+        sys.stderr.flush()
+        saved = os.dup(2)
+        os.dup2(log.fileno(), 2)
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            served.process_image(im)
+            torch.cuda.synchronize()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+            sys.stderr.flush()
+            os.dup2(saved, 2)
+            os.close(saved)
+    return dict(found)
 
 
 def _ops(avg) -> dict:
@@ -375,7 +424,8 @@ def _dispatch_us(device: str, reps: int = 2000) -> dict:
     return out
 
 
-def run(frames: int, device: str, python_profile: bool = False, trace: str | None = None) -> dict:
+def run(frames: int, device: str, python_profile: bool = False, trace: str | None = None,
+        boxed_syncs: bool = False) -> dict:
     from structure_from_motion_tpu_torch import serve
     from structure_from_motion_tpu_torch.io.synthetic import synthetic_scene_sequence
     from structure_from_motion_tpu_torch.models.incremental import IncrementalSfM
@@ -426,7 +476,8 @@ def run(frames: int, device: str, python_profile: bool = False, trace: str | Non
         times, syncs, loops, avg = runs[name]
         out[name] = dict(median_s=float(np.median(times[2:-1])),
                          steady_s=float(np.mean([times[i] for i in steady])), times_s=times,
-                         syncs=syncs, loops=loops)
+                         syncs=[sum(f.values()) for f in syncs], loops=loops,
+                         sites={f"frame {i}": syncs[i] for i in steady[-1:]})
         ops[name] = _ops(avg)
         tables[name] = avg.table(sort_by="self_cpu_time_total", row_limit=12)
         if device == "cuda":
@@ -437,6 +488,8 @@ def run(frames: int, device: str, python_profile: bool = False, trace: str | Non
             text, pys[name] = _python_profile(engine, imgs[-1], device)
             tables[name] += "\n" + text
     out["same_bits"] = all(torch.equal(a, b) for a, b in zip(live.state, served.state))
+    if boxed_syncs and device == "cuda":
+        out["boxed_syncs"] = _boxed_syncs(served, imgs[-1])
     out["same_reads"] = ([f["reads"] for f in out["live"]["loops"]]
                          == [f["reads"] for f in out["served"]["loops"]])
     out["split"] = _split(out, ops)
@@ -492,9 +545,12 @@ if __name__ == "__main__":
     p.add_argument("--report", default=None,
                    help="only print the report of the timelines an earlier --trace wrote to "
                         "this directory")
+    p.add_argument("--boxed-syncs", action="store_true",
+                   help="one more served frame, naming the loaded program's nodes that "
+                        "synchronise through their boxed OpOverload call (card only)")
     a = p.parse_args()
     if a.report:
         print(_timeline_report(*(os.path.join(a.report, f"serve_frames_{name}.json.gz")
                                  for name in ("live", "served"))))
     else:
-        run(a.frames, a.device, a.python_profile, a.trace)
+        run(a.frames, a.device, a.python_profile, a.trace, a.boxed_syncs)

@@ -70,7 +70,10 @@ def put(t: torch.Tensor, i, val, dim: int = 0) -> torch.Tensor:
         val = val.expand(t.shape[:dim] + t.shape[dim + 1:]).unsqueeze(dim)
         return t.index_copy(dim, i.reshape(1).long(), val)
     out = t.clone()
-    out.select(dim, i).copy_(val.to(t.dtype) if torch.is_tensor(val) else val)
+    if torch.is_tensor(val):
+        out.select(dim, i).copy_(val.to(t.dtype))
+    else:  # a fill: copying a Python scalar would upload it, waiting for the card
+        out.select(dim, i).fill_(val)
     return out
 
 
@@ -276,10 +279,11 @@ def fori(n: int, body_fn, carried: tuple, *operands) -> tuple:
 
 @dataclasses.dataclass
 class LoopStats:
-    """What :func:`masked_loop` did since :func:`reset_stats`: host reads of
-    the stop mask, CUDA graph captures (and their seconds), replays, the
-    reserved memory the captures added to the shared graph pool, and the
-    bytes of the graphs' static input buffers."""
+    """What :func:`masked_loop` and :func:`graphed` did since
+    :func:`reset_stats`: host reads of the stop mask, the loops' CUDA graph
+    captures and replays, :func:`graphed`'s (``call_``), and for both the
+    captures' seconds, the reserved memory they added to the shared graph
+    pool and the bytes of the graphs' static input buffers."""
 
     reads: int = 0
     captures: int = 0
@@ -287,6 +291,8 @@ class LoopStats:
     replays: int = 0
     pool_bytes: int = 0
     static_bytes: int = 0
+    call_captures: int = 0
+    call_replays: int = 0
 
 
 stats = LoopStats()
@@ -485,8 +491,6 @@ def _capture(n: int, k: int, step, carried: tuple, tensors: list) -> _Graph:
     """Warm one chunk of ``step`` up on a side stream, then capture it into
     a graph of the shared pool; the launches the capture counted become the
     graph's."""
-    from structure_from_motion_tpu_torch import kernels
-
     dev = carried[0].device
     i = torch.zeros((), dtype=torch.long, device=dev)
     static_c = [t.clone() for t in carried]
@@ -507,15 +511,36 @@ def _capture(n: int, k: int, step, carried: tuple, tensors: list) -> _Graph:
     with torch.cuda.stream(side), _sync_errors():
         chunk()  # creates the library handles and workspaces a capture cannot
     torch.cuda.current_stream(dev).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    flag, launches = _counted_capture(dev, graph, chunk)
+    stats.captures += 1
+    stats.capture_s += time.perf_counter() - t0
+    stats.static_bytes += sum(t.nbytes for t in (i, *static_c, *static_o))
+    return _Graph(graph, i, static_c, static_o, flag, launches)
+
+
+def _credit(launches) -> None:
+    """Add a replayed graph's kernel launches to their wrappers' counts."""
+    for f, dn, ds in launches:
+        f.launches += dn
+        if ds:
+            f.by_shape.update(ds)
+
+
+def _counted_capture(dev, graph, body):
+    """``body()`` captured into ``graph`` (the shared pool, no host
+    synchronisation allowed) -> (its result, the launches the capture
+    counted, which go back to the wrappers' counts: the graph keeps them)."""
+    from structure_from_motion_tpu_torch import kernels
+
     wrappers = kernels.counters()
     before = _launch_counts(wrappers)
     if dev not in _POOLS:
         _POOLS[dev] = torch.cuda.graph_pool_handle()
-    graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph, pool=_POOLS[dev], capture_error_mode="thread_local"):
         reserved = torch.cuda.memory_reserved(dev)
         with _sync_errors():
-            flag = chunk()
+            out = body()
         stats.pool_bytes += torch.cuda.memory_reserved(dev) - reserved
     launches = []
     for (f, n0, s0), (_, n1, s1) in zip(before, _launch_counts(wrappers)):
@@ -524,11 +549,7 @@ def _capture(n: int, k: int, step, carried: tuple, tensors: list) -> _Graph:
         if hasattr(f, "by_shape"):
             f.by_shape.clear()
             f.by_shape.update(s0)
-    stats.captures += 1
-    stats.capture_s += time.perf_counter() - t0
-    stats.static_bytes += sum(t.nbytes for t in (i, *static_c, *static_o))
-    return _Graph(graph, i, static_c, static_o, flag,
-                  [x for x in launches if x[1] or x[2]])
+    return out, [x for x in launches if x[1] or x[2]]
 
 
 def _replay_chunks(key, n: int, k: int, step, carried: tuple, tensors: list):
@@ -546,10 +567,85 @@ def _replay_chunks(key, n: int, k: int, step, carried: tuple, tensors: list):
     for c in range(math.ceil(n / k)):
         g.graph.replay()
         stats.replays += 1
-        for f, dn, ds in g.launches:
-            f.launches += dn
-            if ds:
-                f.by_shape.update(ds)
+        _credit(g.launches)
         if (c + 1) * k >= n or not _read(g.flag):
             break
     return g.i, tuple(t.clone() for t in g.carried)
+
+
+# -- a stretch of a frame replayed as one CUDA graph ---------------------------
+
+
+@dataclasses.dataclass
+class _Call:
+    graph: torch.cuda.CUDAGraph
+    inputs: list  # the input buffers: each call's tensors are copied in
+    outputs: list  # the graph's output leaves (a replay overwrites them)
+    spec: object  # the outputs' tree structure
+    aliases: list  # output i is input aliases[i] unchanged (None: made by the graph)
+    launches: list  # (wrapper, launches, by shape) of the kernels a replay runs
+
+
+_CALLS: dict = {}  # key of a function, its constants and its inputs' shapes -> _Call
+_SEEN: set = set()  # keys called once, eagerly
+
+
+def graphed(fn, *operands):
+    """``fn(*operands)``: ``operands`` any structure of tensors and constants,
+    ``fn`` returning a structure of tensors made from them alone, with no
+    host read (the constants it closes over and the operands' Python values
+    key it).
+
+    On CUDA tensors the first call of a key (``fn``'s code and constants,
+    the constant operands, the tensors' shapes and dtypes) runs eagerly.
+    The second runs eagerly too, with a host synchronisation raising, and
+    then captures ``fn`` on copies of its tensors into a CUDA graph of the
+    shared pool (:func:`masked_loop`'s; a failed capture raises). Every
+    later call copies its tensors into the graph's input buffers and
+    replays it, which adds the launches the capture counted to the
+    kernels' counts. An output that is an input unchanged is returned as
+    that input; every other is a copy of the graph's buffer, so the next
+    replay overwrites nothing the caller holds. On the CPU, and while
+    ``torch.export`` traces, ``fn`` runs as it is."""
+    tensors, rebuild = _split(operands)
+    if exporting() or not tensors or not tensors[0].is_cuda:
+        return fn(*operands)
+    leaves, spec = pytree.tree_flatten(operands)
+    key = (_const_key(fn), spec, tuple(_const_key(x) for x in leaves if not torch.is_tensor(x)),
+           tuple((tuple(t.shape), t.dtype, t.device) for t in tensors))
+    call = _CALLS.get(key)
+    if call is None:
+        if key not in _SEEN:
+            _SEEN.add(key)
+            return fn(*operands)
+        inputs = [t.clone() for t in tensors]
+        with _sync_errors():
+            out = fn(*operands)
+        _CALLS[key] = _capture_call(fn, rebuild, inputs)
+        return out
+    for buf, t in zip(call.inputs, tensors):
+        buf.copy_(t)
+    call.graph.replay()
+    stats.call_replays += 1
+    _credit(call.launches)
+    out = [tensors[a] if a is not None else t.clone()
+           for t, a in zip(call.outputs, call.aliases)]
+    return pytree.tree_unflatten(out, call.spec)
+
+
+def _capture_call(fn, rebuild, inputs: list) -> _Call:
+    """:func:`graphed`'s capture of ``fn`` on the input buffers ``inputs``
+    (it ran eagerly just before: no warm-up)."""
+    dev = inputs[0].device
+    t0 = time.perf_counter()
+    graph = torch.cuda.CUDAGraph()
+    out, launches = _counted_capture(dev, graph, lambda: fn(*rebuild(inputs)))
+    outputs, spec = pytree.tree_flatten(out)
+    if not all(torch.is_tensor(x) for x in outputs):
+        raise TypeError("a graphed function must return tensors only")
+    owner = {(t.data_ptr(), t.shape, t.stride(), t.dtype): i for i, t in enumerate(inputs)}
+    aliases = [owner.get((t.data_ptr(), t.shape, t.stride(), t.dtype)) for t in outputs]
+    stats.call_captures += 1
+    stats.capture_s += time.perf_counter() - t0
+    stats.static_bytes += sum(t.nbytes for t in inputs)
+    return _Call(graph, inputs, outputs, spec, aliases, launches)
