@@ -132,13 +132,17 @@ the script exits non-zero without printing the final result line:
 
 Kernel B7 (``csrc/svd.cu``: the frame path's small SVDs, no host read;
 no Pallas kernel stands behind it) joins phase 3 at every shape the slice
-called it with eagerly: against ``torch.linalg.svd`` under the sign rule
-(null vectors to 1e-3 where the two smallest singular values are apart,
-everywhere a unit vector no worse in ``|A v|``; the 3 x 3 factors to 1e-3
-and rebuilding A), with no host synchronisation and the same bits twice,
-``torch.linalg.svd``'s time as its library call, and the minimal PnP
-margin of ``tests/test_torch_geometry.py`` on that test's 6-point samples
-(B7's median centre error < 1 and 5x below the f32 gram null vector's).
+called it with eagerly, and on the numpy cases of
+``tools/svd_cases.cases`` (65,536 x 12 in one launch, a refit with 90% of
+its rows zero, two close smallest singular values, degenerate samples):
+against ``torch.linalg.svd`` under the sign rule (null vectors to 1e-3
+where the two smallest singular values are apart, everywhere a unit vector
+no worse in ``|A v|``; the 3 x 3 factors to 1e-3 and rebuilding A), with no
+host synchronisation, the same bits twice, a tall matrix's launch replayed
+twice from a CUDA graph with the eager bits, ``torch.linalg.svd``'s time as
+its library call, and the minimal PnP margin of
+``tests/test_torch_geometry.py`` on that test's 6-point samples (B7's
+median centre error < 1 and 5x below the f32 gram null vector's).
 
 Phase 6 also decodes its BMP files through the native loader
 (``io/native_loader.PrefetchingLoader``, ``native/sfm_loader.cpp`` built by
@@ -2397,19 +2401,102 @@ def _gram_nullspace(A):
     return x
 
 
+def _b7_check(torch, S, A, full: bool):
+    """Kernel B7 on ``A`` against its plain version: (max_abs_err, ok,
+    what was held, two launches the same bits, the kernel's outputs). The
+    tolerances: null vectors to 1e-3 where the two smallest singular values
+    are 1e-3 of the largest apart, everywhere a unit vector no worse in
+    ``|A v|`` than the plain one's + 1e-4 s_max; the 3 x 3 factors to 1e-3
+    where the singular values are apart, rebuilding A to 1e-4 s_max. For a
+    tall matrix (more than ``S.MAX_ROWS`` rows) also a CUDA graph of the
+    call replayed twice, each replay the eager bits."""
+    from structure_from_motion_tpu_torch.tools.svd_cases import null_vector_error
+
+    batch, (M, N) = A.numel() // (A.shape[-1] * A.shape[-2]), A.shape[-2:]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = S.small_svd(A, not full)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    again = S.small_svd(A, not full)
+    ref = S.small_svd_reference(A, not full)
+    same = all(torch.equal(x, y) for x, y in zip(got, again))
+    if full:
+        s = torch.linalg.svdvals(A.double())
+        top = s[..., :1].clamp_min(1e-30)
+        gap = ((s[..., :-1] - s[..., 1:]) > 1e-3 * top).all(-1)
+        err = max(float((g - r)[gap].abs().max()) if gap.any() else 0.0
+                  for g, r in zip(got, ref))
+        rebuilt = float(((got[0] * got[1][..., None, :]) @ got[2] - A).abs().max())
+        ok = err <= 1e-3 and rebuilt <= 1e-4 * float(top.max())
+        tol = (f"vectors and values atol 1e-3 where the singular values are 1e-3 of the "
+               f"largest apart ({int(gap.sum())} of {batch}); U S Vh - A {rebuilt:.2e}")
+    else:
+        v, w = got[2][..., 0, :], ref[2][..., 0, :]
+        err, n_gap, unit, slack = null_vector_error(A, v, w)
+        ok = (err <= 1e-3 and unit <= 1e-5 and slack <= 0
+              and bool(torch.isfinite(v).all()))
+        tol = (f"atol 1e-3 where the two smallest singular values are 1e-3 of the largest "
+               f"apart ({n_gap} of {batch}); everywhere a unit vector (|1 - |v|| "
+               f"{unit:.1e}) with |A v| <= the plain one's + 1e-4 s_max (slack {slack:.1e})")
+    tol += f"; two launches same bits: {same}"
+    if M > S.MAX_ROWS and not full:
+        static = A.clone()
+        S.small_svd(static, True)
+        torch.cuda.synchronize()
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            out = S.small_svd(static, True)
+        replays = []
+        for _ in range(2):
+            out[2].zero_()
+            g.replay()
+            torch.cuda.synchronize()
+            replays.append(torch.equal(out[2], got[2]))
+        del g
+        tol += f"; a graph replayed twice, the eager bits: {replays}"
+        same = same and all(replays)
+    return err, ok and same, tol, same, got
+
+
+def _b7_times(torch, S, A, full: bool, got) -> tuple:
+    """(kernel ms, plain ms, library ms, bound ms, bound by, the line's
+    tail) of B7 on ``A``."""
+    batch, (M, N) = A.numel() // (A.shape[-1] * A.shape[-2]), A.shape[-2:]
+    ms = _median_ms(torch, lambda: S.small_svd(A, not full))
+    plain_ms = _median_ms(torch, lambda: S.small_svd_reference(A, not full))
+    full_m = M < N and not full
+    library_ms = _median_ms(torch, lambda: torch.linalg.svd(A, full_matrices=full_m))
+    moved = A.numel() * 4 + sum(t.numel() * 4 for t in got)
+    m, n = max(M, N), min(M, N)
+    flops = batch * (2 * m * n * n - 2 * n**3 / 3)  # one QR: the least an SVD does
+    t_bytes, t_ops = 1e3 * moved / PEAK_BYTES_PER_S, 1e3 * flops / PEAK_F32_FLOPS
+    bound_ms, bound_by = max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+    tail = (f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms by "
+            f"{bound_by} ({moved / 1e6:.3f} MB, {flops / 1e9:.4f} GFLOP), library "
+            f"torch.linalg.svd {library_ms:.4f} ms")
+    return ms, plain_ms, library_ms, bound_ms, bound_by, tail
+
+
 def b7_phase(dev, calls: dict, smi: str) -> list:
     """Kernel B7 against its plain version (``torch.linalg.svd`` under the
-    sign rule) at every shape the slice launched it with (``calls``: the
-    last input at each ``(batch, M, N, full)`` key, :func:`svd_inputs`),
-    with no host synchronisation and the same bits on two launches; then the
-    minimal PnP margin of ``tests/test_torch_geometry.py::
+    sign rule, :func:`_b7_check`) at every shape the slice launched it with
+    (``calls``: the last input at each ``(batch, M, N, full)`` key,
+    :func:`svd_inputs`) and on the numpy cases of
+    ``tools/svd_cases.cases`` (the tall one-launch reduction at 65,536 x 12
+    and with 90% of its rows zero, two close smallest singular values, the
+    degenerate samples), with no host synchronisation, the same bits on two
+    launches and a tall launch's graph replayed twice; then the minimal PnP
+    margin of ``tests/test_torch_geometry.py::
     test_minimal_pnp_poses_under_noise`` on that test's 6-point samples.
-    Raises on a disagreement. Returns the kernel's entries."""
+    Raises on a disagreement. Returns the kernel's entries (the slice's
+    shapes)."""
     import numpy as np
     import torch
 
     from structure_from_motion_tpu_torch.ops import pnp
     from structure_from_motion_tpu_torch.ops import small_svd as S
+    from structure_from_motion_tpu_torch.tools.svd_cases import cases
     from structure_from_motion_tpu_torch.utils.rotations import so3_exp
 
     if not calls:
@@ -2418,54 +2505,10 @@ def b7_phase(dev, calls: dict, smi: str) -> list:
     for key in sorted(calls, key=lambda k: (k[3], k[1] * k[2], k[0])):
         batch, M, N, full = key
         A = calls[key]
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            got = S.small_svd(A, not full)
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
-        again = S.small_svd(A, not full)
-        ref = S.small_svd_reference(A, not full)
-        same = all(torch.equal(x, y) for x, y in zip(got, again))
-        s = torch.linalg.svdvals(A.double())
-        top = s[..., :1].clamp_min(1e-30)
-        if full:
-            gap = ((s[..., :-1] - s[..., 1:]) > 1e-3 * top).all(-1)
-            err = max(float((g - r)[gap].abs().max()) if gap.any() else 0.0
-                      for g, r in zip(got, ref))
-            rebuilt = float(((got[0] * got[1][..., None, :]) @ got[2] - A).abs().max())
-            ok = err <= 1e-3 and rebuilt <= 1e-4 * float(top.max())
-            tol = (f"vectors and values atol 1e-3 where the singular values are 1e-3 of the "
-                   f"largest apart ({int(gap.sum())} of {batch}); U S Vh - A {rebuilt:.2e}")
-        else:
-            v, w = got[2][..., 0, :], ref[2][..., 0, :]
-            s_full = torch.cat([s, s.new_zeros(s.shape[:-1] + (N - s.shape[-1],))], -1)
-            gap = (s_full[..., -2] - s_full[..., -1]) > 1e-3 * top[..., 0]
-            err = float((v - w)[gap].abs().max()) if gap.any() else 0.0
-            Ad = A.double()
-            res_v = (Ad @ v.double()[..., None]).norm(dim=(-2, -1))
-            res_w = (Ad @ w.double()[..., None]).norm(dim=(-2, -1))
-            unit = float((v.norm(dim=-1) - 1).abs().max())
-            slack = float((res_v - res_w - 1e-4 * top[..., 0]).max())
-            ok = (err <= 1e-3 and unit <= 1e-5 and slack <= 0
-                  and bool(torch.isfinite(v).all()))
-            tol = (f"atol 1e-3 where the two smallest singular values are 1e-3 of the largest "
-                   f"apart ({int(gap.sum())} of {batch}); everywhere a unit vector (|1 - |v|| "
-                   f"{unit:.1e}) with |A v| <= the plain one's + 1e-4 s_max (slack {slack:.1e})")
-        ok = ok and same
-        full_m = M < N and not full
-        ms = _median_ms(torch, lambda: S.small_svd(A, not full))
-        plain_ms = _median_ms(torch, lambda: S.small_svd_reference(A, not full))
-        library_ms = _median_ms(torch, lambda: torch.linalg.svd(A, full_matrices=full_m))
-        moved = A.numel() * 4 + sum(t.numel() * 4 for t in got)
-        m, n = max(M, N), min(M, N)
-        flops = batch * (2 * m * n * n - 2 * n**3 / 3)  # one QR: the least an SVD does
-        t_bytes, t_ops = 1e3 * moved / PEAK_BYTES_PER_S, 1e3 * flops / PEAK_F32_FLOPS
-        bound_ms, bound_by = max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+        err, ok, tol, same, got = _b7_check(torch, S, A, full)
+        ms, plain_ms, library_ms, bound_ms, bound_by, tail = _b7_times(torch, S, A, full, got)
         name = f"B7 small_svd ({batch} x {M} x {N}{', U S Vh' if full else ', null vector'})"
-        print(f"kernel {name}: max_abs_err={err:.3e} ({tol}; two launches same bits: {same}) "
-              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms by "
-              f"{bound_by} ({moved / 1e6:.3f} MB, {flops / 1e9:.4f} GFLOP), library "
-              f"torch.linalg.svd {library_ms:.4f} ms ({smi})")
+        print(f"kernel {name}: max_abs_err={err:.3e} ({tol}) {tail} ({smi})")
         if not ok:
             raise AssertionError(f"{name} disagrees with its plain version")
         results.append(dict(
@@ -2473,6 +2516,14 @@ def b7_phase(dev, calls: dict, smi: str) -> list:
             replaces="structure_from_motion_tpu/ops/linalg.py:27 (jnp.linalg.svd; no Pallas "
                      "kernel)", max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
             bound_by=bound_by, library_ms=library_ms, shape=key, path="slice"))
+    for label, arr in cases().items():
+        A = torch.as_tensor(arr).to(dev).contiguous()
+        err, ok, tol, same, got = _b7_check(torch, S, A, False)
+        *_, tail = _b7_times(torch, S, A, False, got)
+        name = f"B7 small_svd (numpy case '{label}': {' x '.join(map(str, A.shape))}, null vector)"
+        print(f"kernel {name}: max_abs_err={err:.3e} ({tol}) {tail} ({smi})")
+        if not ok:
+            raise AssertionError(f"{name} disagrees with its plain version")
 
     # the 6-point samples of test_minimal_pnp_poses_under_noise (seed 13,
     # 240 points, 0.5 px noise), made here with numpy and the port

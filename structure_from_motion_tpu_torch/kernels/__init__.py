@@ -69,7 +69,7 @@ _SIGNATURES = {
     "sfm_expand_cam": (_P, _P, _P, _I, _I, _P, _P),
     # w21, y, perm, mask, O, V, rows, coup, stream
     "sfm_reduce_cam": (_P, _P, _P, _P, _I, _I, _I, _P, _P),
-    # A, batch, M, N, full, scratch, half (floats), U, S, V, stream
+    # A, batch, M, N, full, scratch, scratch floats, U, S, V, stream
     "sfm_small_svd": (_P, _I, _I, _I, _I, _P, _L, _P, _P, _P, _P),
 }
 

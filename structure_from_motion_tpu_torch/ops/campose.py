@@ -10,6 +10,7 @@ from typing import NamedTuple
 
 import torch
 
+from structure_from_motion_tpu_torch.ops.small_svd import svd3
 from structure_from_motion_tpu_torch.utils.control import fori, lane_map, take
 from structure_from_motion_tpu_torch.utils.geometry import camera_extrinsic
 from structure_from_motion_tpu_torch.utils.rotations import so3_exp, so3_hat
@@ -22,12 +23,14 @@ class PoseCandidates(NamedTuple):
 
 
 def decompose_essential(E: torch.Tensor) -> PoseCandidates:
-    """Four (R, C) candidates from an essential matrix."""
+    """Four (R, C) candidates from an essential matrix. The SVD's sign rule
+    (``ops/small_svd.sign_rule``) fixes their order: another sign of a
+    singular pair swaps (Ra, Rb) or (+t, -t), the same four as a set."""
     # [[0, -1, 0], [1, 0, 0], [0, 0, 1]] by device ops (no upload, so an
     # exported branch can hold it; 0 - x keeps every zero +0)
     eye = torch.eye(3, dtype=E.dtype, device=E.device)
     W = torch.stack([0.0 - eye[1], eye[0], eye[2]])
-    u, _, vh = torch.linalg.svd(E)
+    u, _, vh = svd3(E)  # kernel B7 on the card: no host read
     t = u[:, 2]
     Ra = u @ W @ vh
     Rb = u @ W.T @ vh

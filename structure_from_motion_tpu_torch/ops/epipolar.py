@@ -170,6 +170,6 @@ def essential_from_fundamental(F, K_ref, K_que):
     """E = K_que^T F K_ref with singular values projected to (1, 1, 0),
     scaled by E[2,2]."""
     E = K_que.transpose(-1, -2) @ F @ K_ref
-    u, _, vh = torch.linalg.svd(E)
+    u, _, vh = svd3(E)
     E = (u * (1.0 - torch.eye(3, dtype=E.dtype, device=E.device)[2])) @ vh  # (1, 1, 0)
     return E / floor_abs(E[..., 2:3, 2:3], 1e-12)

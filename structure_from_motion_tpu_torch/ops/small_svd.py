@@ -29,7 +29,8 @@ import torch
 
 from structure_from_motion_tpu_torch import kernels
 
-CHUNK = 256  # rows a reduction block of the kernel takes
+ONE_BLOCK = 2048  # rows the kernel reduces in one block (kOneBlock)
+CHUNK = 1024  # rows a block takes when several share a matrix (kChunkRows)
 MAX_ROWS = 32  # rows the Jacobi kernel takes directly
 NULL_COLUMNS = (4, 9, 12)
 
@@ -62,14 +63,15 @@ def small_svd_reference(A: torch.Tensor, null_only: bool):
 
 
 def _scratch_floats(batch: int, M: int, N: int) -> int:
-    """Floats of each half of the kernel's scratch: its largest reduction
-    of a matrix taller than :data:`MAX_ROWS` (``csrc/svd.cu``)."""
-    half, rows = 0, M
-    while rows > MAX_ROWS:
-        chunks = -(-rows // CHUNK)
-        half = max(half, batch * chunks * N * N)
-        rows = chunks * N
-    return half
+    """Floats of the kernel's scratch (``csrc/svd.cu``): a matrix of more
+    than :data:`ONE_BLOCK` rows is reduced by blocks of :data:`CHUNK` rows
+    in one launch, which keep each block's N x N R (``batch * blocks * N *
+    N`` floats) and its scale exponent (an int a block), then one int
+    counter a matrix."""
+    if M <= ONE_BLOCK:
+        return 0
+    blocks = -(-M // CHUNK)
+    return batch * blocks * (N * N + 1) + batch
 
 
 def _check(A: torch.Tensor, null_only: bool) -> None:
@@ -112,18 +114,18 @@ def _(A, null_only):
         U = torch.empty(lead + (0,), dtype=A.dtype, device=dev)
         S = torch.empty(lead + (0,), dtype=A.dtype, device=dev)
         Vh = torch.empty(lead + (1, N), dtype=A.dtype, device=dev)
-        half = _scratch_floats(batch, M, N)
+        floats = _scratch_floats(batch, M, N)
     else:
         U = torch.empty(lead + (3, 3), dtype=A.dtype, device=dev)
         S = torch.empty(lead + (3,), dtype=A.dtype, device=dev)
         Vh = torch.empty(lead + (3, 3), dtype=A.dtype, device=dev)
-        half = 0
+        floats = 0
     if batch == 0:
         return U, S, Vh
-    scratch = torch.empty((2 * half,), dtype=A.dtype, device=dev) if half else None
+    scratch = torch.empty((floats,), dtype=A.dtype, device=dev) if floats else None
     rc = kernels.library().sfm_small_svd(
         flat.data_ptr(), batch, M, N, 0 if null_only else 1,
-        scratch.data_ptr() if half else None, half, U.data_ptr() if not null_only else None,
+        scratch.data_ptr() if floats else None, floats, U.data_ptr() if not null_only else None,
         S.data_ptr() if not null_only else None, Vh.data_ptr(), kernels.stream_ptr(dev))
     kernels.check(rc, "sfm_small_svd")
     _COUNTED.launches += 1

@@ -1,11 +1,12 @@
-"""Device time of variants of B1, B2, B4 and B6 that are NOT in the tree.
+"""Device time of variants of B1, B2, B4, B6 and B7 that are NOT in the tree.
 
 Run on a machine with an NVIDIA card, from the repository root:
 
     python3 -m structure_from_motion_tpu_torch.tools.kernel_variants [--only b4,b6]
 
-The notes at the head of ``csrc/blur.cu`` and ``csrc/cand.cu`` and at B6 in
-``csrc/ba_matvec.cu`` say what else was tried; this script is where those times come from. It
+The notes at the head of ``csrc/blur.cu``, ``csrc/cand.cu`` and
+``csrc/svd.cu`` and at B6 in ``csrc/ba_matvec.cu`` say what else was
+tried; this script is where those times come from. It
 builds each variant from the source in the tree with one constant or
 statement substituted (a substitution that no longer finds its text
 raises), compiles all of a group together with the library's flags into
@@ -31,7 +32,20 @@ prints the median device time of the kernel under ``torch.profiler``
 * ``b6``: B6 with other block sizes and rows in flight, and the variant
   ``variant_sources/reduce_slot_per_thread.cu``, over the 500-camera stream;
 * ``ffma``: the FMA rate of B1's inner code alone
-  (``variant_sources/ffma_rate.cu``).
+  (``variant_sources/ffma_rate.cu``);
+* ``b7``: B7's first design ("cyclic Jacobi",
+  ``variant_sources/svd_cyclic_jacobi.cu``: a cyclic Jacobi for every null
+  vector, three group sums a pair, tall matrices reduced by 256-row blocks
+  in 2-4 launches) against the tree's
+  and the tree's with another 12-column Jacobi group or another reduction
+  block, at every shape a slice frame launches it at
+  (``tools/svd_cases.slice_inputs``): CUDA-event time of one call (warm,
+  the host's enqueue kept out) and the device time of every kernel and
+  memset of the call, in the order first design, tree, the variants, tree,
+  first design;
+  each result held to the plain version with the smoke's tolerance, but
+  for the tree's tall kernel with a part taken out ("wrong result"): where
+  its time goes.
 
 Every line carries the card's name and power limit.
 """
@@ -50,9 +64,13 @@ import torch
 from structure_from_motion_tpu_torch import kernels
 from structure_from_motion_tpu_torch.config import FrontendConfig
 from structure_from_motion_tpu_torch.ops import ba_cuda, ba_matvec, blur_cuda, features_cuda
+from structure_from_motion_tpu_torch.ops import small_svd
+from structure_from_motion_tpu_torch.tools import svd_cases
 from structure_from_motion_tpu_torch.tools.profile_kernels import (
     ARTIFACT,
+    _event_ms,
     b4_inputs,
+    device_times,
     frame_dog_stacks,
     frame_kernels,
     frame_shapes,
@@ -176,6 +194,55 @@ B4_CHANGES = {
          "__global__ void __launch_bounds__(kP * kGroups, 2)\n")],
 }
 BA_BLOCKS_ARGS = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P, _P, _P, _P, _P, _P, _P, _P, _P]
+SVD_ARGS = [_P, _I, _I, _I, _I, _P, _L, _P, _P, _P, _P]
+# B7: changes to csrc/svd.cu (the tree's reduction blocks take 256 threads
+# x 4 rows of a matrix they share, x 8 of one they take alone; its 9- and
+# 12-column Jacobi groups 16 lanes, a row a lane)
+_B7_FIRST = "cyclic Jacobi (the first design)"
+_B7_ROWS = "constexpr int kRowsPerThread = 4;"
+_B7_THREADS = "constexpr int kTallThreads = 256;"
+B7_CHANGES = {
+    "12-column Jacobi: 8 lanes, two rows a lane": [
+        ("constexpr int kLanes12 = 16;", "constexpr int kLanes12 = 8;")],
+    "12-column Jacobi: 4 lanes, three rows a lane": [
+        ("constexpr int kLanes12 = 16;", "constexpr int kLanes12 = 4;")],
+    "9-column Jacobi: 8 lanes, two rows a lane": [
+        ("constexpr int kLanes9 = 16;", "constexpr int kLanes9 = 8;")],
+    "9-column Jacobi: 4 lanes, three rows a lane": [
+        ("constexpr int kLanes9 = 16;", "constexpr int kLanes9 = 4;")],
+    "Jacobi: t by zeta = (beta - alpha) / 2 gamma (three approximate roots and quotients)": [
+        ("  const float d = beta - alpha, e = 2.0f * gamma;\n"
+         "  const float h2 = fmaf(d, d, e * e);\n"
+         "  return __fdividef(copysignf(1.0f, d) * e, fabsf(d) + h2 * rsqrtf(h2));\n",
+         "  const float zeta = __fdividef(beta - alpha, 2.0f * gamma);\n"
+         "  const float r = fmaf(zeta, zeta, 1.0f);\n"
+         "  const float t = __fdividef(copysignf(1.0f, zeta), fabsf(zeta) + r * rsqrtf(r));\n"
+         "  return fabsf(zeta) > 1.0e15f ? __fdividef(0.5f, zeta) : t;\n")],
+    "Jacobi: one round's code, run in a loop": [
+        ("#pragma unroll\n    for (int round = 0;", "#pragma unroll 1\n    for (int round = 0;")],
+    "Jacobi: every lane works out every rotation": [
+        ("constexpr int kSpreadPairs = 3;", "constexpr int kSpreadPairs = 99;")],
+    "Jacobi: the 4 x 4 rotations spread over the lanes too": [
+        ("constexpr int kSpreadPairs = 3;", "constexpr int kSpreadPairs = 2;")],
+    "shared matrices in blocks of 256 x 2 rows": [(_B7_ROWS, "constexpr int kRowsPerThread = 2;")],
+    "shared matrices in blocks of 256 x 8 rows": [(_B7_ROWS, "constexpr int kRowsPerThread = 8;")],
+    "one block a matrix up to 256 x 4 rows": [("constexpr int kRowsOne = 8;",
+                                               "constexpr int kRowsOne = 4;")],
+    "one block a matrix up to 256 x 16 rows": [("constexpr int kRowsOne = 8;",
+                                                "constexpr int kRowsOne = 16;")],
+    "reduction blocks of 128 threads": [(_B7_THREADS, "constexpr int kTallThreads = 128;")],
+    "reduction blocks of 512 threads": [(_B7_THREADS, "constexpr int kTallThreads = 512;")],
+    "wide: reflectors normalised by the approximate rsqrtf": [
+        ("    const float inv = half_utu > 0.0f ? 1.0f / sqrtf(2.0f * half_utu) : 0.0f;",
+         "    const float inv = half_utu > 0.0f ? rsqrtf(2.0f * half_utu) : 0.0f;")],
+    "wide matrices by the Jacobi too": [
+        ("  if (M < N) {\n    null_wide<N>", "  if (M < N && M < 0) {\n    null_wide<N>")],
+    "tall: no final Jacobi (wrong result)": [
+        ("  jacobi_null<N, Gr::G, Gr::R>(b, N, t, group_mask<Gr::G>(t), out + m * N);",
+         "  if (t < N) out[m * N + t] = b[0][0];")],
+    "tall: no QR of the stacked R's (wrong result)": [
+        ("      block_qr<N, T, RPT>(a, (first + count + T - 1) / T, part, total, pivot);\n", "")],
+}
 
 
 def _substitute(src: str, pairs) -> str:
@@ -432,9 +499,63 @@ def ffma_rate(dev, card) -> None:
                   f"at {clock_hz / 1e6:.0f} MHz ({card})")
 
 
+def svd_source(pairs) -> str:
+    return _substitute((kernels.CSRC / "svd.cu").read_text(), pairs)
+
+
+def b7_variants(dev, card) -> None:
+    """B7's first design, the tree's and its variants at every slice shape; each
+    call's outputs held to the plain version (null vectors: the smoke's
+    tolerance, ``svd_cases.null_vector_error``; the 3 x 3 factors to 1e-3
+    and rebuilding A)."""
+    sources = {_B7_FIRST: (HERE / "svd_cyclic_jacobi.cu").read_text(),
+               "as in the tree": svd_source([])}
+    sources.update((n, svd_source(p)) for n, p in B7_CHANGES.items())
+    libs = build("b7", sources, "sfm_small_svd", SVD_ARGS)
+    order = [_B7_FIRST, "as in the tree", *B7_CHANGES, "as in the tree", _B7_FIRST]
+    stream = kernels.stream_ptr(dev)
+    for (batch, M, N, full), arr in svd_cases.slice_inputs().items():
+        A = torch.as_tensor(arr).to(dev).contiguous()
+        ref = small_svd.small_svd_reference(A, not full)
+        U = torch.empty((batch, 3, 3), device=dev)
+        S = torch.empty((batch, 3), device=dev)
+        V = torch.empty((batch, 3, 3) if full else (batch, N), device=dev)
+        # room for the first design's two halves (256-row blocks) and every variant's
+        floats = 2 * batch * -(-M // 256) * N * N + batch
+        scratch = torch.empty(floats, device=dev)
+        for name in order:
+            lib = libs[name]
+            # the first design's entry takes the floats of each of its two halves
+            given = floats // 2 if name == _B7_FIRST else floats
+
+            def call():
+                return lib.sfm_small_svd(A.data_ptr(), batch, M, N, int(full), scratch.data_ptr(),
+                                         given, U.data_ptr(), S.data_ptr(), V.data_ptr(), stream)
+            V.zero_()
+            kernels.check(call(), f"B7 variant {name}")
+            torch.cuda.synchronize()
+            if full:
+                rebuilt = float(((U * S[..., None, :]) @ V - A).abs().max())
+                ok = rebuilt <= 1e-4 * float(ref[1].max())
+                held = f"U S Vh - A {rebuilt:.1e}"
+            else:
+                err, _, unit, slack = svd_cases.null_vector_error(A, V, ref[2][..., 0, :])
+                ok = err <= 1e-3 and unit <= 1e-5 and slack <= 0 and bool(V.isfinite().all())
+                held = f"max_abs_err {err:.1e}, slack {slack:.1e}"
+            if not ok and "wrong result" not in name:
+                raise AssertionError(f"B7 variant {name} at {batch} x {M} x {N}: {held}")
+            for _ in range(3):  # a trace now and then comes back without device records
+                parts = device_times(call, every=True)
+                if parts:
+                    break
+            print(f"B7 {batch} x {M} x {N}{' U S Vh' if full else ''} [{name}]: "
+                  f"{_event_ms(call):.4f} ms by events, device {sum(parts.values()):.2f} us ("
+                  + ", ".join(f"{k} {v:.2f}" for k, v in parts.items()) + f"), {held} ({card})")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--only", default="b1,ablate,b2,b4,b6,ffma")
+    ap.add_argument("--only", default="b1,ablate,b2,b4,b6,ffma,b7")
     ap.add_argument("--artifact", default=str(ARTIFACT), help="checkpoint whose stream B6 walks")
     args = ap.parse_args()
     only = set(args.only.split(","))
@@ -457,6 +578,8 @@ def main() -> None:
         b6_variants(dev, rng, card, args.artifact)
     if "ffma" in only:
         ffma_rate(dev, card)
+    if "b7" in only:
+        b7_variants(dev, card)
 
 
 if __name__ == "__main__":

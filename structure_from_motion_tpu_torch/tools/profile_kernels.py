@@ -1,4 +1,4 @@
-"""Device time of the kernels B1 to B6, kernel by kernel.
+"""Device time of the kernels B1 to B7, kernel by kernel.
 
 Run on a machine with an NVIDIA card, from the repository root:
 
@@ -21,7 +21,10 @@ map kernel followed by the four reductions that used to keep one candidate
 a block, against the fused kernel alone); and for B5 (``expand_cam``) and
 B6 (``reduce_cam``) over
 the camera-major view of the 500-camera checkpoint's stream (``--artifact``,
-by default ``artifacts/longrun500_pre_globalba.ckpt.npz``), it prints what
+by default ``artifacts/longrun500_pre_globalba.ckpt.npz``), and for B7
+(``small_svd``) at every shape a slice frame launches it at
+(``tools/svd_cases.SLICE_SHAPES``, the systems made with numpy; every
+kernel and memset of the call counted), it prints what
 ``torch.profiler`` measured for each CUDA kernel of a wrapper call (mean
 device time over the repeats, so the stages of a wrapper show apart and
 launch overhead is left out), the wrapper's CUDA-event time with a warm L2
@@ -53,7 +56,8 @@ from structure_from_motion_tpu_torch.config import FrontendConfig
 from structure_from_motion_tpu_torch.models import global_ba
 from structure_from_motion_tpu_torch.ops import ba, ba_cuda, ba_matvec, blur_cuda
 from structure_from_motion_tpu_torch.io.synthetic import synthetic_scene_sequence
-from structure_from_motion_tpu_torch.ops import features, features_cuda, matching
+from structure_from_motion_tpu_torch.ops import features, features_cuda, matching, small_svd
+from structure_from_motion_tpu_torch.tools import svd_cases
 from structure_from_motion_tpu_torch.utils import checkpoint
 
 REPS = 30
@@ -62,6 +66,7 @@ REPS = 30
 B4_CASES = ((0, 262144, 16), (0, 233984, 16), (0, 233984, 500), (8, 262144, 16))
 ARTIFACT = Path(__file__).resolve().parents[2] / "artifacts" / "longrun500_pre_globalba.ckpt.npz"
 _KERNEL_NAMES = ("ba_", "match_top2", "blur_", "reduce_cam", "expand_cam", "candidate_")
+_B7_FLOPS = "one QR's 2 M N^2 - 2 N^3 / 3 a matrix"
 
 
 def _event_ms(fn, flush=None, spin: int = 500_000) -> float:
@@ -105,12 +110,12 @@ def device_times(fn, every: bool = False) -> dict:
     return out
 
 
-def _report(name, fn, moved, flops, flush, card):
+def _report(name, fn, moved, flops, flush, card, every: bool = False):
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
     warm, cold = _event_ms(fn), _event_ms(fn, flush)
-    parts = device_times(fn)
+    parts = device_times(fn, every)
     total_us = sum(parts.values())
     print(f"{name}: event time warm L2 {warm:.4f} ms, after a 64 MB flush {cold:.4f} ms; "
           f"device time by kernel (us): "
@@ -283,9 +288,20 @@ def _b5_b6_cases(dev, rng, card, flush, artifact: str, only) -> None:
             filled * (84 + 12) + perm.numel() * 5 + 28 * V, 2 * 21 * filled, flush, card)
 
 
+def _b7_cases(dev, card, flush) -> None:
+    for (batch, M, N, full), arr in svd_cases.slice_inputs().items():
+        A = torch.as_tensor(arr).to(dev).contiguous()
+        n_out = batch * (9 + 3 + 9 if full else N)
+        m, n = max(M, N), min(M, N)
+        _report(f"B7 small_svd {batch} x {M} x {N}{' U S Vh' if full else ' null vector'} "
+                f"(flops: {_B7_FLOPS})", lambda: small_svd.small_svd(A, not full),
+                4 * (A.numel() + n_out), batch * (2 * m * n * n - 2 * n**3 / 3), flush, card,
+                every=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--only", default="B1,B2,B3,B4,B5,B6", help="kernels to time, e.g. B1,B6")
+    ap.add_argument("--only", default="B1,B2,B3,B4,B5,B6,B7", help="kernels to time, e.g. B1,B6")
     ap.add_argument("--artifact", default=str(ARTIFACT),
                     help="checkpoint whose stream B5 and B6 walk")
     args = ap.parse_args()
@@ -304,6 +320,8 @@ def main() -> None:
         _b2_cases(dev, card, flush)
     if only & {"B5", "B6"}:
         _b5_b6_cases(dev, rng, card, flush, args.artifact, only)
+    if "B7" in only:
+        _b7_cases(dev, card, flush)
 
     for B, O, V in B4_CASES if "B4" in only else ():
         bargs = b4_inputs(dev, rng, O, V, B)

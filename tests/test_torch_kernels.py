@@ -426,9 +426,9 @@ def test_cpu_tensors_take_the_plain_version():
 
 def test_kernel_variants_still_find_their_text():
     """``tools/kernel_variants.py`` makes its variants by substituting text
-    of ``csrc/blur.cu``, ``csrc/cand.cu``, ``csrc/ba_blocks.cu`` and
-    ``csrc/ba_matvec.cu``; every
-    substitution must still find its text and change the source."""
+    of ``csrc/blur.cu``, ``csrc/cand.cu``, ``csrc/ba_blocks.cu``,
+    ``csrc/ba_matvec.cu`` and ``csrc/svd.cu``; every substitution must still
+    find its text and change the source."""
     from structure_from_motion_tpu_torch.tools import kernel_variants as kv
 
     tree = (kernels.CSRC / "blur.cu").read_text()
@@ -445,6 +445,8 @@ def test_kernel_variants_still_find_their_text():
     assert len(sources) == len(kv.B2_CHANGES)
     assert len({kv.b4_source(pairs) for pairs in kv.B4_CHANGES.values()}) == len(kv.B4_CHANGES)
     assert len({kv.cand_source(t) for t in kv.B2_TILES}) == len(kv.B2_TILES)
+    b7 = {kv.svd_source(pairs) for pairs in kv.B7_CHANGES.values()}
+    assert len(b7) == len(kv.B7_CHANGES) and kv.svd_source([]) not in b7
     with pytest.raises(RuntimeError, match="no longer holds"):
         kv.blur_source("256,64,128,8,8,2", [("not in the source", "")])
 

@@ -10,6 +10,7 @@ import torch
 
 from structure_from_motion_tpu_torch.ops import small_svd as S
 from structure_from_motion_tpu_torch.ops.linalg import nullspace
+from structure_from_motion_tpu_torch.tools.svd_cases import cases
 
 f32 = np.float32
 
@@ -21,46 +22,7 @@ def _sign_np(v):
     return v * np.where(np.take_along_axis(v, big, -1) < 0, -1.0, 1.0)
 
 
-def _dlt_rows(rng, n, noise):
-    """(n, 2n, 12) PnP DLT systems of 6 noisy points each (``ops/pnp.py``)."""
-    X = rng.uniform([-4, -3, 8], [4, 3, 16], size=(n, 6, 3))
-    uv = X[..., :2] / X[..., 2:] + noise * rng.normal(size=(n, 6, 2))
-    Xh = np.concatenate([X, np.ones_like(X[..., :1])], -1)
-    z = np.zeros_like(Xh)
-    r1 = np.concatenate([Xh, z, -uv[..., :1] * Xh], -1)
-    r2 = np.concatenate([z, Xh, -uv[..., 1:] * Xh], -1)
-    return np.concatenate([r1, r2], -2).astype(f32)
-
-
-def _eight_point_rows(rng, n, m, repeat=0):
-    """(n, m, 9) eight-point design rows of noisy correspondences; the
-    first ``repeat`` rows of each repeated (a degenerate sample)."""
-    a = rng.normal(size=(n, m, 3)).astype(f32)
-    a[..., 2] = 1.0
-    b = a + 0.01 * rng.normal(size=a.shape).astype(f32)
-    b[..., 2] = 1.0
-    W = (b[..., :, None] * a[..., None, :]).reshape(n, m, 9)
-    if repeat:
-        W[:, 1:repeat] = W[:, :1]
-    return W
-
-
-def _cases():
-    rng = np.random.default_rng(0)
-    tall = _eight_point_rows(rng, 4, 2048)
-    tall *= (rng.random((4, 2048, 1)) < 0.6).astype(f32)  # the refit's inlier weights
-    return {
-        "8x9 hypotheses": _eight_point_rows(rng, 64, 8),
-        "8x9 repeated points": _eight_point_rows(rng, 16, 8, repeat=3),
-        "2048x9 weighted refit": tall,
-        "12x12 PnP samples": _dlt_rows(rng, 64, 1e-3),
-        "4096x12 PnP refit": _dlt_rows(rng, 683, 1e-3).reshape(1, -1, 12)[:, :4096],
-        "4x4 triangulation": rng.normal(size=(256, 4, 4)).astype(f32),
-        "zero matrices": np.zeros((3, 8, 9), f32),
-    }
-
-
-CASES = _cases()
+CASES = cases()
 
 
 @pytest.fixture(scope="module")
@@ -159,12 +121,15 @@ def test_small_svd_operator_passes_opcheck(null_only, shape):
     torch.library.opcheck(torch.ops.sfm.small_svd.default, (A, null_only))
 
 
-@pytest.mark.parametrize("M, N, want", [(8, 9, 0), (32, 12, 0), (33, 12, 1 * 12 * 12),
-                                        (2048, 9, 8 * 9 * 9), (65536, 12, 256 * 12 * 12)])
+@pytest.mark.parametrize("M, N, want", [(8, 9, 0), (32, 12, 0), (33, 12, 0), (2048, 9, 0),
+                                        (2049, 9, 3 * (9 * 9 + 1) + 1),
+                                        (65536, 12, 64 * (12 * 12 + 1) + 1)])
 def test_scratch_follows_the_kernels_reductions(M, N, want):
-    """The scratch the wrapper gives the kernel holds its largest row
-    reduction (256 rows a block, until at most 32 rows are left)."""
+    """The scratch the wrapper gives the kernel: none for a matrix that one
+    reduction block takes (2048 rows), else every block's N x N R and
+    scale exponent (1024 rows a block) and one int counter a matrix."""
     assert S._scratch_floats(1, M, N) == want
+    assert S._scratch_floats(8, M, N) == 8 * want
 
 
 @pytest.fixture
@@ -181,7 +146,8 @@ def test_kernel_null_vectors_against_plain(card, case):
     within 1e-4 of the largest singular value of the plain one's, equal to
     1e-3 where the two smallest singular values are apart; the same bits
     on a second launch; no host synchronisation, and a CUDA graph capture
-    of it replays the same bits."""
+    of it replays the same bits twice (the tall reduction's counters are
+    zeroed inside the graph)."""
     A = torch.as_tensor(CASES[case], device=card)
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -205,9 +171,11 @@ def test_kernel_null_vectors_against_plain(card, case):
     torch.cuda.synchronize()
     with torch.cuda.graph(g):
         out = nullspace(static)
-    g.replay()
-    torch.cuda.synchronize()
-    assert torch.equal(out, got)
+    for _ in range(2):
+        out.zero_()
+        g.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, got)
 
 
 @pytest.mark.cuda
