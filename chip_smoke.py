@@ -98,11 +98,17 @@ the script exits non-zero without printing the final result line:
    the 10-iteration finalize: the default programs but the
    precomputed-feature frame step, which the CPU tests serve) into
    ``build/``; a live engine and the served one over the 24 frames (the
-   two taking turns frame by frame, so both meet the same host), equal
-   bit for bit in every state field, the eviction archive and the
-   reprojection, within the slice's bounds; the same launches of B1, B2f,
-   B3 and B4 in both runs (the exported programs run the kernels as
-   ``sfm::`` operators); the served ``finalize``; the artifact served in a
+   two taking turns frame by frame, so both meet the same host), each
+   steady frame of both ONE CUDA graph replay (the served program's
+   ``cond`` nodes IF nodes, its loops WHILE nodes), equal bit for bit in
+   every state field, the eviction archive and the reprojection, within
+   the slice's bounds; no steady frame of either reading the host; the
+   same launches of B1, B2f, B3, B4 and B7 in both runs outside the frame
+   that captures (whose pass in ``control.device_form`` before the
+   capture runs every branch of the program, the served one's stage
+   switch included); each engine's graph numbers
+   (captures, seconds, nodes, pool) and host synchronisations by site; the
+   served ``finalize``; the artifact served in a
    spawned process with ``ops.pnp.estimate_pnp`` and the frame step made to
    raise; export, save, load, draw and frame times, and the served/live
    ratio of the steady frame split into device and host time (the last
@@ -110,25 +116,36 @@ the script exits non-zero without printing the final result line:
    shared).
 
 12. loops (after phase 10): the LM and PCG loops stop on the device
-   (``utils/control.masked_loop``: a stop mask read once every k steps,
-   each chunk of k steps one CUDA graph replay). Every loop call of one
-   steady slice frame (frame ``LOOP_FRAME``: PnP's LO rounds, prior,
-   polish and refinement, the triangulation) and of one batched frame at
-   B = 8 through the graph path against the plain per-step loop
+   (``utils/control.masked_loop``: eagerly a stop mask read once every k
+   steps, each chunk of k steps one CUDA graph replay; in a steady frame's
+   graph one WHILE node over that chunk graph). Every loop call of the
+   last slice frame and of the last batched frame at B = 8, each run with
+   every stage eager in phase 13 (the buckets the frame takes: PnP's LO
+   rounds, prior, polish and refinement, the triangulation; a graphed
+   frame's loops are WHILE nodes no Python call reaches), through the
+   graph path against the plain per-step loop
    (``masked_loop_reference``) on the same inputs, bit for bit, with the
    steps each call took; the 500-camera solve again with the plain PCG
    loop: CG counts, costs and poses equal to phase 5's, and both wall
    times; k, captures, replays, stop-mask reads, the graph pool's memory,
    and host synchronisations a frame of the slice and at B = 8 and B = 1.
 
-13. frame graph (right after phase 4): the slice's detect + match stretch
-   (``models/incremental._front_stage``, no host read from the image to
-   the recorded matches) is ONE CUDA graph (``utils/control.graphed``):
-   frame 0 eager, frame 1 captured, every later frame one replay. The 24
-   frames again with every frame eager, against phase 4's run: every state
-   field after every frame, every statistic and every archive record equal
-   bit for bit; the graph's captures and replays; the host
-   synchronisations of a steady and of an evicting frame by call site.
+13. frame graph (right after phase 4): every steady slice frame (slot >=
+   2) is ONE CUDA graph (``models/incremental._frame_step`` through
+   ``utils/control.graphed``), as the JAX package's frame is one jitted
+   program: captured at frame 2 after one pass in ``control.device_form``
+   (every bucket's branch, every loop chunk, no host read), its PnP,
+   triangulation and BA bucket
+   switches IF nodes and its LM loops WHILE nodes (``csrc/graph_cond.cu``),
+   every later frame one replay; frames 0 and 1 as they are (detect +
+   match one graph). The 24 frames again with every stage eager, against
+   phase 4's run: every state field after every frame, every statistic and
+   every archive record equal bit for bit; every frame from 2 on, the
+   evicting ones included, makes one host synchronisation, the grouped
+   metric fetch's event wait (none by site); the graphs' captures,
+   replays, capture and instantiation seconds, nodes and pool; with the
+   keyframe gate on (8 frames), a steady admitted frame adds only the flow
+   read. The same at B = 8 lanes in the batched phase (10 frames).
 
 Kernel B7 (``csrc/svd.cu``: the frame path's small SVDs, no host read;
 no Pallas kernel stands behind it) joins phase 3 at every shape the slice
@@ -217,10 +234,6 @@ SHARED_BANDS = dict(ate=5.0 * JAX_SHARED["ate"], reproj=1.25 * JAX_SHARED["repro
 SHARDS = 2
 SHARDED_FRAMES = 8
 REPROJ_BOUND_PX = 2.0
-# phase 12: the steady frame of the slice (and of the batched run) whose
-# loop calls are held to the plain loop
-LOOP_FRAME = 12
-BATCHED_LOOP_FRAME = 5
 ARTIFACT = Path(__file__).resolve().parent / "artifacts" / "longrun500_pre_globalba.ckpt.npz"
 # final cost of the JAX package's f32 solve of the artifact on the CPU
 # (solve_global(iterations=20), BAConfig(huber_delta=0.01))
@@ -387,14 +400,16 @@ def batched_phase(dev, seqs, small_seqs, map_seq, cfg, counted, sync, card: str,
     ``bench.py``'s small config, then the map kernel's lane path. Returns
     the launch counts (all, by shape) of the full-width B-lane run, of the
     small batch and of the map run, under "batched", "small batch" and
-    "batched map", and the small batch's last B4 inputs. ``loops`` keeps
-    the loop calls of frame ``BATCHED_LOOP_FRAME`` of the full-width run
-    and the host synchronisations a frame at B and at 1."""
+    "batched map", and the small batch's last B4 inputs (its last frame
+    run again with every stage eager). ``loops`` keeps the loop calls of
+    the last frame of the full-width run with every stage eager (phase 13's
+    run) and the host synchronisations a frame at B and at 1."""
     import dataclasses
 
     import numpy as np
     import torch
 
+    from structure_from_motion_tpu_torch.device import HostCopy
     from structure_from_motion_tpu_torch.models.batched import BatchedIncrementalSfM
     from structure_from_motion_tpu_torch.models.incremental import IncrementalSfM
     from structure_from_motion_tpu_torch.ops import ba as ba_module
@@ -402,36 +417,46 @@ def batched_phase(dev, seqs, small_seqs, map_seq, cfg, counted, sync, card: str,
     B = len(seqs)
     seeds = list(range(B))
 
-    def lockstep(config, lanes, K, label, lane_seeds, record=None):
+    def lockstep(config, lanes, K, label, lane_seeds, keep=None):
         """Every frame of ``lanes`` (each (imgs, ...)) through one engine:
         (engine, wall s a frame, host synchronisations a frame, launches);
-        ``record`` names the run whose loop calls ``loops`` keeps."""
+        ``keep``,
+        when given, receives the frames, every frame's state (copies on the
+        device), statistics, host synchronisations by site and grouped-fetch
+        waits, the archive and the frame graphs' numbers."""
         n = len(lanes[0][0])
         frames = [torch.as_tensor(np.stack([np.asarray(s[0][t]) for s in lanes])).to(dev)
                   for t in range(n)]
         eng = BatchedIncrementalSfM(config, K, batch=len(lanes), seed=lane_seeds, device=dev)
         sync()
         _reset(counted)
-        times, syncs = [], []
+        times, syncs, sites, states, infos, waits = [], [], [], [], [], []
         for t in range(n):
-            loops.on = record if t == BATCHED_LOOP_FRAME else None
-            with _counting_syncs(syncs, dev):
+            w0 = HostCopy.waits
+            with _counting_syncs(syncs, dev, sites):
                 t0 = time.perf_counter()
                 info = eng.process_images(frames[t])
                 sync()
                 times.append(time.perf_counter() - t0)
+            waits.append(HostCopy.waits - w0)
+            if keep is not None:
+                states.append([x.clone() for x in eng.state])
+                infos.append(info)
             print(f"{label} frame {t}: {times[-1]:.3f} s, host synchronisations {syncs[-1]}, "
                   f"matches {info['matches'].tolist()}, reprojection "
                   f"{np.round(info['reprojection_px'], 4).tolist()} px ({card})")
-        loops.on = None
+        if keep is not None:
+            keep.update(frames=frames, states=states, infos=infos, sites=sites, waits=waits,
+                        archive=list(eng._archive), graph=_graph_numbers())
         return eng, times, syncs, _read(counted)
 
     K = seqs[0][1]
     if not all(np.allclose(s[1], K) for s in seqs):
         raise AssertionError("the lanes' renders do not share K")
     n = len(seqs[0][0])
+    graphed_run: dict = {}
     eng, times, syncs, (launches, by_shape) = lockstep(cfg, seqs, K, f"batched B={B}", seeds,
-                                                       record=f"batched B={B}")
+                                                       keep=graphed_run)
     locs, rots = eng.poses()
     reproj = eng.reprojection_error()
     ates = [_span_ate(locs[b], seqs[b][2]) for b in range(B)]
@@ -453,7 +478,22 @@ def batched_phase(dev, seqs, small_seqs, map_seq, cfg, counted, sync, card: str,
         if launches[name] < 1:
             raise AssertionError(f"{name} never launched in the batched run")
 
+    # phase 13 at B lanes: the frame graphs against every stage eager
+    frames = graphed_run.pop("frames")
+    differ = _eager_again(f"B={B}", BatchedIncrementalSfM(cfg, K, batch=B, seed=seeds, device=dev),
+                          frames, lambda e, f: e.process_images(f), graphed_run, sync, card,
+                          loops, f"batched B={B}")
+    reads = _steady_reads(f"B={B}", graphed_run, card)
+    del eng, frames, graphed_run
+    _drop_frame_graphs()
+    if differ:
+        raise AssertionError(f"B={B}: graphed frames differ from eager ones: {differ[:8]}")
+    if reads:
+        raise AssertionError(f"B={B}: steady frames {reads} read the host beyond the grouped "
+                             "fetch")
+
     # lane 0 alone through the same engine: launches and synchronisations
+    # (the B-lane run's poses and reprojection are kept; its engine went)
     _, times1, syncs1, (launches1, _) = lockstep(cfg, seqs[:1], K, "batched B=1", seeds[:1])
     loops.syncs[f"batched B={B}"], loops.syncs["batched B=1"] = syncs, syncs1
     per = {k: round(v / n, 1) for k, v in launches.items()}
@@ -474,13 +514,17 @@ def batched_phase(dev, seqs, small_seqs, map_seq, cfg, counted, sync, card: str,
               f"max |dR| {dr:.2e} (atol 5e-3)")
         if not (dl <= 5e-3 and dr <= 5e-3):
             raise AssertionError(f"batched lane {b} differs from its single run")
-    del eng
+    del single
+    _drop_frame_graphs()
 
     # bench.py's small config: 8 lanes of 240x320
     scfg = small_batch_config()
-    with last_call(ba_module, "ba_blocks") as small_b4:
+    with last_steady_frame() as small_last:
         eng, times, syncs, small_counts = lockstep(scfg, small_seqs, small_seqs[0][1],
                                                    f"small batch B={B}", seeds)
+    with last_call(ba_module, "ba_blocks") as small_b4:
+        rerun_eagerly(small_last)
+    del small_last
     locs, _ = eng.poses()
     ates = [_span_ate(locs[b], small_seqs[b][2]) for b in range(B)]
     reproj = eng.reprojection_error()
@@ -517,7 +561,8 @@ def batched_phase(dev, seqs, small_seqs, map_seq, cfg, counted, sync, card: str,
 def harris_phase(dev, seq, counted, sync, card: str):
     """``reconstruct --detector harris`` on BMP files, held to the bands of
     the JAX package's CLI on the same frames. Returns its launch counts
-    (all, by shape), its frontend config and its last B4 inputs."""
+    (all, by shape), its frontend config and its last B4 inputs (its last
+    frame run again with every stage eager)."""
     import numpy as np
 
     from structure_from_motion_tpu_torch.config import PipelineConfig
@@ -532,7 +577,7 @@ def harris_phase(dev, seq, counted, sync, card: str):
         write_bmp_gray(str(root / "frames" / f"frame{i:04d}.bmp"), np.asarray(im))
     out = root / "out"
     _reset(counted)
-    with last_call(ba_module, "ba_blocks") as b4_in:
+    with last_steady_frame() as last:
         rc, text = _run_cli(["reconstruct", "--images", str(root / "frames"), "--pattern",
                              "*.bmp", "--out", str(out), "--fx", repr(float(K[0, 0])),
                              "--fy", repr(float(K[1, 1])), "--cx", repr(float(K[0, 2])),
@@ -542,6 +587,9 @@ def harris_phase(dev, seq, counted, sync, card: str):
     print(text.rstrip())
     if rc != 0:
         raise AssertionError(f"reconstruct --detector harris exited with {rc}")
+    with last_call(ba_module, "ba_blocks") as b4_in:
+        rerun_eagerly(last)
+    del last
     rec = np.load(out / "reconstruction.npz")
     locs, pts = rec["locations"], rec["points"]
     cfg = PipelineConfig.from_json((out / "config.json").read_text())
@@ -666,14 +714,18 @@ def write_bmp_gray(path, gray) -> None:
 
 @contextlib.contextmanager
 def last_call(module, name: str):
-    """Keep the arguments of the last call of ``module.name`` made in the
-    block: the inputs a path gave a kernel's wrapper, whose launches still
-    count as the path's own."""
+    """Keep the arguments of the last call of ``module.name`` made eagerly
+    in the block (a capture's arguments hold nothing yet): the inputs a
+    path gave a kernel's wrapper, whose launches still count as the path's
+    own."""
     fn = getattr(module, name)
     seen = {}
 
     def spy(*args):
-        seen["args"] = args
+        import torch
+
+        if not (args[0].is_cuda and torch.cuda.is_current_stream_capturing()):
+            seen["args"] = args
         return fn(*args)
 
     setattr(module, name, spy)
@@ -681,6 +733,45 @@ def last_call(module, name: str):
         yield seen
     finally:
         setattr(module, name, fn)
+
+
+@contextlib.contextmanager
+def last_steady_frame():
+    """Keep the function and operands of the last steady frame's
+    ``control.graphed`` call made in the block (``models/incremental.
+    _frame_step``; a replay calls no kernel wrapper), for
+    :func:`rerun_eagerly`. Yields the dict that keeps them."""
+    from structure_from_motion_tpu_torch.models import incremental
+
+    graphed, kept = incremental.graphed, {}
+
+    def spy(fn, *operands, calls=None):
+        if getattr(fn, "func", None) is incremental._frame_body:
+            kept.update(fn=fn, operands=operands)
+        return graphed(fn, *operands, calls=calls)
+
+    incremental.graphed = spy
+    try:
+        yield kept
+    finally:
+        incremental.graphed = graphed
+
+
+def rerun_eagerly(kept: dict):
+    """The frame :func:`last_steady_frame` kept, again with every stage
+    eager (``control.graphed`` a plain call: its switches read the host and
+    run the taken branch, its loops replay their chunks), on the same
+    inputs (the engine's state is not touched). Returns its outputs."""
+    from structure_from_motion_tpu_torch.models import incremental
+
+    if "fn" not in kept:
+        raise AssertionError("the run made no steady frame")
+    graphed = incremental.graphed
+    incremental.graphed = lambda fn, *operands, calls=None: fn(*operands)
+    try:
+        return kept["fn"](*kept["operands"])
+    finally:
+        incremental.graphed = graphed
 
 
 @contextlib.contextmanager
@@ -725,6 +816,9 @@ def _reset(counted) -> None:
 
 
 def _read(counted):
+    from structure_from_motion_tpu_torch.utils import control
+
+    control.settle()  # the graph replays' launches the device counted and no fetch brought
     return ({name: fn.launches for name, fn in counted.items()},
             {name: dict(fn.by_shape) for name, fn in counted.items() if hasattr(fn, "by_shape")})
 
@@ -759,6 +853,97 @@ def _loop_stats() -> str:
             f"{s.static_bytes / 2**20:.2f} MiB")
 
 
+def _graph_numbers() -> dict:
+    """What ``control.graphed`` did since the last :func:`_reset`: captures,
+    replays, the capture's seconds (its pass in the device form
+    included), instantiation seconds, the graphs' nodes (conditional
+    bodies and child graphs included), the pools' reserved bytes and the
+    bytes a replay copied in and out."""
+    from structure_from_motion_tpu_torch.utils import control
+
+    s = control.stats
+    return dict(captures=s.call_captures, replays=s.call_replays, capture_s=round(s.capture_s, 3),
+                instantiate_s=round(s.instantiate_s, 3), nodes=s.call_nodes,
+                pool_mib=round(s.pool_bytes / 2**20, 1),
+                copied_mib_a_replay=round(s.copy_bytes / max(s.call_replays, 1) / 2**20, 2))
+
+
+def _eager_again(label: str, engine, frames, feed, graphed_run: dict, sync, card: str,
+                 loops=None, record: str | None = None) -> list:
+    """``frames`` through ``engine`` (``feed(engine, frame)`` one frame) with
+    ``utils/control.graphed`` a plain call, so every stage runs eagerly (its
+    switches read the host, its loops replay their chunks), against the
+    states, statistics and archive records ``graphed_run`` kept of the same
+    frames through the frame graphs. ``loops`` (a :class:`LoopRecorder`
+    installed), when given, keeps the last frame's loop calls under
+    ``record``. Returns what differs (printed with the eager frame
+    times)."""
+    import numpy as np
+    import torch
+
+    from structure_from_motion_tpu_torch.models import incremental
+
+    graphed = incremental.graphed
+    incremental.graphed = lambda fn, *operands, calls=None: fn(*operands)
+    differ, eager_s = [], []
+    try:
+        for t, frame in enumerate(frames):
+            if loops is not None:
+                loops.on = record if t == len(frames) - 1 else None
+            sync()
+            t0 = time.perf_counter()
+            info = feed(engine, frame)
+            sync()
+            eager_s.append(time.perf_counter() - t0)
+            for f, a, b in zip(type(engine.state)._fields, graphed_run["states"][t], engine.state):
+                if not torch.equal(a, b):
+                    differ.append(f"frame {t} state.{f}")
+            want = graphed_run["infos"][t]
+            for k in want:
+                if not np.array_equal(np.asarray(want[k]), np.asarray(info[k])):
+                    differ.append(f"frame {t} info[{k!r}]")
+    finally:
+        incremental.graphed = graphed
+        if loops is not None:
+            loops.on = None
+    records = list(engine._archive)
+    if len(records) != len(graphed_run["archive"]):
+        differ.append(f"archive of {len(records)} records against {len(graphed_run['archive'])}")
+    for i, (a, b) in enumerate(zip(graphed_run["archive"], records)):
+        differ += [f"archive[{i}].{f}" for f, x, y in zip(a._fields, a, b)
+                   if not np.array_equal(x, y)]
+    print(f"frame graph {label}: {len(frames)} frames with every stage eager against the frame "
+          f"graphs: state fields, statistics and {len(records)} archive records that differ "
+          f"{differ[:8] or 'none'}; eager frames 2-{len(frames) - 1} median "
+          f"{float(np.median(eager_s[2:])):.4f} s ({card})")
+    return differ
+
+
+def _steady_reads(label: str, graphed_run: dict, card: str) -> list:
+    """Frames 2 on of ``graphed_run`` whose host synchronisations are not
+    exactly the grouped metric fetch's one event wait (none reported by
+    torch's debug mode, one ``HostCopy`` wait); prints them by site."""
+    sites, waits = graphed_run["sites"], graphed_run["waits"]
+    print(f"frame graph {label}: host synchronisations torch reports a frame "
+          f"{[sum(x.values()) for x in sites]}, grouped-fetch waits a frame {waits}; frame 2 "
+          f"(capture) by site {sites[2]}; last frame by site {sites[-1]}; "
+          f"{graphed_run['graph']} ({card})")
+    return [t for t in range(2, len(sites)) if sum(sites[t].values()) or waits[t] != 1]
+
+
+def _drop_frame_graphs() -> None:
+    """Give the card back the pools of the frame graphs whose engines the
+    phase just run has dropped (each engine keeps its own graphs, each
+    graph a pool of its own with every rung's buffers live at once: ~4.6
+    GiB reserved for the slice's, ~34 GiB at B = 8 lanes)."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def _b4_kernels(torch, fn, smi: str, label: str, bound_ms: float) -> None:
     """Print the device time of each kernel of one B4 call (ba_assemble and
     the instantiation of ba_reduce_rows it launches) with its registers a
@@ -780,8 +965,9 @@ def _b4_kernels(torch, fn, smi: str, label: str, bound_ms: float) -> None:
 
 class LoopRecorder:
     """Keeps a copy of the arguments of every ``control.masked_loop`` call
-    the ops modules make while ``on`` names a run (phase 12 replays them),
-    and the host synchronisations a frame of the runs that count them."""
+    the ops modules make outside a CUDA graph capture while ``on`` names a
+    run (phase 12 replays them), and the host synchronisations a frame of
+    the runs that count them."""
 
     def __init__(self):
         self.on, self.calls, self.syncs = None, {}, {}
@@ -795,7 +981,7 @@ class LoopRecorder:
         from structure_from_motion_tpu_torch.utils import control
 
         def spy(n, k, step_fn, carried, *operands, capture=True):
-            if self.on is not None:
+            if self.on is not None and not torch.cuda.is_current_stream_capturing():
                 copy = lambda t: t.clone() if torch.is_tensor(t) else t  # noqa: E731
                 self.calls.setdefault(self.on, []).append(
                     (n, k, step_fn, pytree.tree_map(copy, tuple(carried)),
@@ -991,14 +1177,15 @@ def slice_phase(dev, imgs, K, C_gt, cfg, counted, sync, card: str,
     """Frames through the engine in slide mode, then ``finalize_global``;
     raises when a bound fails. Returns the launch counts of the phase and,
     for the wrappers that tally them, the counts by shape. ``loops``, when
-    given, keeps frame ``LOOP_FRAME``'s loop calls and the host
-    synchronisations a frame. ``keep``, when given, receives every frame's
+    given, keeps the host synchronisations a frame. ``keep``, when given,
+    receives every frame's
     state (copies on the device), statistics and host synchronisations by
     site, the archive and the frame graph's captures and replays, before
     the global solve. ``card`` (name and power limit) is printed beside
     every time."""
     import numpy as np
 
+    from structure_from_motion_tpu_torch.device import HostCopy
     from structure_from_motion_tpu_torch.models.incremental import IncrementalSfM
     from structure_from_motion_tpu_torch.utils import control
 
@@ -1006,15 +1193,15 @@ def slice_phase(dev, imgs, K, C_gt, cfg, counted, sync, card: str,
     window = cfg.window_size
     _reset(counted)
     engine = IncrementalSfM(cfg, K, frontend="native", seed=0, device=dev)
-    frame_s, syncs, sites, states, infos = [], [], [], [], []
-    for t, im in enumerate(imgs):
-        if loops is not None:
-            loops.on = "slice" if t == LOOP_FRAME else None
+    frame_s, syncs, sites, states, infos, waits = [], [], [], [], [], []
+    for im in imgs:
+        w0 = HostCopy.waits
         with _counting_syncs(syncs, dev, sites):
             t0 = time.perf_counter()
             info = engine.process_image(im)
             sync()
             frame_s.append(time.perf_counter() - t0)
+        waits.append(HostCopy.waits - w0)
         if keep is not None:
             states.append([x.clone() for x in engine.state])
             infos.append(info)
@@ -1023,12 +1210,10 @@ def slice_phase(dev, imgs, K, C_gt, cfg, counted, sync, card: str,
               f"reprojection {info['reprojection_px']:.4f} px, host synchronisations "
               f"{syncs[-1]} ({card})")
     if loops is not None:
-        loops.on = None
         loops.syncs["slice"] = syncs
     if keep is not None:
-        keep.update(states=states, infos=infos, sites=sites, syncs=syncs,
-                    archive=list(engine._archive), graph=(control.stats.call_captures,
-                                                         control.stats.call_replays))
+        keep.update(states=states, infos=infos, sites=sites, syncs=syncs, waits=waits,
+                    archive=list(engine._archive), graph=_graph_numbers())
     locs, _ = engine.poses()
     span = float(np.linalg.norm(C_gt.max(0) - C_gt.min(0)))
     ate_before = _umeyama_ate(locs, C_gt)
@@ -1127,6 +1312,7 @@ def serve_phase(dev, imgs, K, C_gt, cfg, counted, sync, card: str) -> dict:
     import torch
 
     from structure_from_motion_tpu_torch import serve
+    from structure_from_motion_tpu_torch.device import HostCopy
     from structure_from_motion_tpu_torch.models.incremental import IncrementalSfM, LazyDraws
     from structure_from_motion_tpu_torch.utils import control
 
@@ -1153,7 +1339,8 @@ def serve_phase(dev, imgs, K, C_gt, cfg, counted, sync, card: str) -> dict:
     t0 = time.perf_counter()
     served = serve.load_engine(str(SERVE_ARTIFACT), seed=0, device=dev)
     load_s = time.perf_counter() - t0
-    print(f"serve load: {load_s:.2f} s ({card})")
+    print(f"serve load: {load_s:.2f} s ({card}); constant copies computed at load "
+          f"{served.hoisted}, cond nodes run as switches, loop nodes as the live loops")
 
     # (b), (c): the live and the served engine over the frames, taking turns
     # frame by frame (the live one first on even frames), each with its own
@@ -1161,24 +1348,28 @@ def serve_phase(dev, imgs, K, C_gt, cfg, counted, sync, card: str) -> dict:
     class Run:
         def __init__(self, engine, label):
             self.engine, self.label = engine, label
-            self.times, self.syncs, self.reads, self.caps = [], [], [], []
+            self.times, self.syncs, self.sites, self.reads, self.caps = [], [], [], [], []
             self.first, self.device_ms, self.capture_s, self.replays = None, None, 0.0, 0
+            self.frame_launches, self.frame_caps, self.waits = [], [], []
+            self.graph = collections.Counter()
             self.launches = dict.fromkeys(counted, 0)
             self.by_shape = {name: collections.Counter() for name, fn in counted.items()
                              if hasattr(fn, "by_shape")}
 
         def frame(self, i, im):
             st = control.stats
-            before = (st.reads, st.captures, st.capture_s, st.replays, *_read(counted))
+            before = (st.reads, st.captures, st.capture_s, st.replays, *_read(counted),
+                      _graph_numbers(), HostCopy.waits)
             prof = torch.profiler.profile(activities=[
                 torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]) \
                 if i == n - 1 else contextlib.nullcontext()
             with prof:
-                with _counting_syncs(self.syncs, dev):
+                with _counting_syncs(self.syncs, dev, self.sites):
                     t0 = time.perf_counter()
                     self.engine.process_image(im)
                     sync()
                     self.times.append(time.perf_counter() - t0)
+            self.waits.append(HostCopy.waits - before[7])
             if i == n - 1:
                 self.device_ms = sum(e.self_device_time_total for e in prof.key_averages()) / 1e3
             self.reads.append(st.reads - before[0])
@@ -1186,11 +1377,17 @@ def serve_phase(dev, imgs, K, C_gt, cfg, counted, sync, card: str) -> dict:
             self.capture_s += st.capture_s - before[2]
             self.replays += st.replays - before[3]
             launches, by_shape = _read(counted)
+            self.frame_launches.append({k: launches[k] - before[4][k] for k in counted})
             for name in counted:
                 self.launches[name] += launches[name] - before[4][name]
             for name in self.by_shape:
                 self.by_shape[name].update(by_shape[name])
                 self.by_shape[name].subtract(before[5][name])
+            g = _graph_numbers()
+            self.frame_caps.append(g["captures"] - before[6]["captures"])
+            self.graph.update({k: g[k] - before[6][k] for k in ("captures", "replays", "capture_s",
+                                                                 "instantiate_s", "nodes",
+                                                                 "pool_mib")})
             if i + 1 == SERVE_CHILD_FRAMES:
                 self.first = self.engine.poses()[0]
 
@@ -1203,6 +1400,11 @@ def serve_phase(dev, imgs, K, C_gt, cfg, counted, sync, card: str) -> dict:
                   f"({self.capture_s:.3f} s), {self.replays} replays, {sum(self.reads)} stop-mask "
                   f"reads; stop-mask reads a frame {self.reads}; frame {n - 1} profiled: "
                   f"{t[-1]:.4f} s, device time {self.device_ms:.3f} ms")
+            print(f"serve {self.label} frame graphs: {dict(self.graph)} (captures, replays, "
+                  f"capture and instantiate s, nodes, pool MiB); host synchronisations torch "
+                  f"reports a frame {self.syncs}, grouped-fetch waits a frame {self.waits}; "
+                  f"frame 2 (capture) by site {self.sites[2]}, frame {n - 1} by site "
+                  f"{self.sites[n - 1]} ({card})")
 
     _reset(counted)
     live_run = Run(IncrementalSfM(cfg, K, frontend="native", seed=0, device=dev), "live")
@@ -1220,10 +1422,12 @@ def serve_phase(dev, imgs, K, C_gt, cfg, counted, sync, card: str) -> dict:
         served_run.times, served_run.launches, served_run.reads, served_run.device_ms,
         served_run.caps)
     served_by_shape = {name: dict(c) for name, c in served_run.by_shape.items()}
-    # no time gate: the host is shared with other machines' work. The live
-    # engine's loop graphs exist from the slice phase, the served engine
-    # captures its own: only frames in which neither engine captured compare
-    frames = [i for i in range(2, n - 1) if not live_caps[i] and not served_caps[i]] \
+    # no time gate: the host is shared with other machines' work. Each
+    # engine captures its own frame graphs (and the served one its loop
+    # graphs): only frames in which neither engine captured compare
+    frames = [i for i in range(2, n - 1) if not (live_caps[i] or served_caps[i]
+                                                  or live_run.frame_caps[i]
+                                                  or served_run.frame_caps[i])] \
         or list(range(2, n - 1))
     steady = [float(np.mean([t[i] for i in frames])) for t in (live_t, served_t)]
     extra_ms = 1e3 * (steady[1] - steady[0])
@@ -1236,6 +1440,13 @@ def serve_phase(dev, imgs, K, C_gt, cfg, counted, sync, card: str) -> dict:
     if served_reads != live_reads:
         raise AssertionError(f"served stop-mask reads a frame {served_reads} differ from live "
                              f"{live_reads}")
+    # a steady frame of either engine is one graph replay: no read torch
+    # reports (the live engine's one is its grouped fetch's event wait; the
+    # served engine leaves its statistics on the device)
+    steady_reads = [(r.label, i) for r in (live_run, served_run) for i in range(2, n)
+                    if r.syncs[i]]
+    if steady_reads:
+        raise AssertionError(f"steady frames read the host: {steady_reads}")
     fields = type(live.state)._fields
     differ = [f for f, a, b in zip(fields, live.state, served.state) if not torch.equal(a, b)]
     arch = all(np.array_equal(a, b) for ra, rb in zip(live._archive, served._archive)
@@ -1257,8 +1468,17 @@ def serve_phase(dev, imgs, K, C_gt, cfg, counted, sync, card: str) -> dict:
     if not (ate < ATE_BOUND and reproj_served < REPROJ_BOUND_PX and np.isfinite(locs).all()
             and locs.shape == (n, 3)):
         raise AssertionError("the served run is outside the slice's bounds")
-    if any(served_launches[k] != live_launches[k] or live_launches[k] < 1 for k in kernels_of):
-        raise AssertionError(f"served launches {served_launches} differ from live {live_launches}")
+    # the frame that captures a frame graph runs it in the device form first,
+    # every branch of every switch: the served program's holds the bootstrap and
+    # the first view too (its stage is a switch), the live frame's does not
+    # (its stage is a Python int); every other frame's launches must agree
+    same = [i for i in range(n) if not (live_run.frame_caps[i] or served_run.frame_caps[i])]
+    live_same, served_same = ({k: sum(r.frame_launches[i][k] for i in same) for k in counted}
+                              for r in (live_run, served_run))
+    print(f"serve launches outside the capture frames {sorted(set(range(n)) - set(same))}: live "
+          f"{[live_same[k] for k in kernels_of]}, served {[served_same[k] for k in kernels_of]}")
+    if any(served_same[k] != live_same[k] or live_same[k] < 1 for k in kernels_of):
+        raise AssertionError(f"served launches {served_same} differ from live {live_same}")
 
     # (d) the exported finalize against the live one on the equal end states
     costs = served.finalize()
@@ -1307,65 +1527,57 @@ def serve_phase(dev, imgs, K, C_gt, cfg, counted, sync, card: str) -> dict:
     return served_launches, served_by_shape
 
 
-def frame_graph_phase(dev, imgs, K, cfg, graphed_run: dict, sync, card: str) -> None:
-    """The slice's frames again with ``utils/control.graphed`` made a plain
-    call (every frame's detect + match eager), against the slice phase's
-    run (``graphed_run``: frame 0 eager, frame 1 captured, every later
-    frame one replay of the CUDA graph): every state field after every
-    frame, every statistic and every archive record equal, bit for bit; the
-    graph's captures and replays; the host synchronisations a steady frame
-    of the graphed run by call site. Raises on a difference."""
-    import numpy as np
-    import torch
-
-    from structure_from_motion_tpu_torch.models import incremental
+def frame_graph_phase(dev, imgs, K, cfg, graphed_run: dict, sync, card: str,
+                      loops: LoopRecorder) -> None:
+    """Phase 13: the slice phase's run (``graphed_run``) made every steady
+    frame (slot >= 2) ONE CUDA graph (``utils/control.graphed``: captured at
+    frame 2 after its pass in the device form, bucket switches IF nodes,
+    loops WHILE nodes; frames 0 and 1 as they are, detect + match one
+    graph). The same frames again with every stage eager: every state
+    field after every frame, every statistic and every archive record
+    equal, bit for bit; and every frame from 2 on, the evicting ones
+    included, makes one host synchronisation: the grouped fetch's event
+    wait. ``loops`` keeps the last eager frame's loop calls (phase 12).
+    Raises on a difference."""
     from structure_from_motion_tpu_torch.models.incremental import IncrementalSfM
-    from structure_from_motion_tpu_torch.models.tracks import SfMState
 
-    captures, replays = graphed_run["graph"]
     engine = IncrementalSfM(cfg, K, frontend="native", seed=0, device=dev)
-    graphed = incremental.graphed
-    incremental.graphed = lambda fn, *operands: fn(*operands)
-    differ, eager_s = [], []
-    try:
-        for t, im in enumerate(imgs):
-            sync()
-            t0 = time.perf_counter()
-            info = engine.process_image(im)
-            sync()
-            eager_s.append(time.perf_counter() - t0)
-            want = graphed_run["infos"][t]
-            for f, a, b in zip(SfMState._fields, graphed_run["states"][t], engine.state):
-                if not torch.equal(a, b):
-                    differ.append(f"frame {t} state.{f}")
-            for k in want:
-                if not np.array_equal(np.asarray(want[k]), np.asarray(info[k])):
-                    differ.append(f"frame {t} info[{k!r}]")
-    finally:
-        incremental.graphed = graphed
-    records = list(engine._archive)
-    if len(records) != len(graphed_run["archive"]) or not records:
-        differ.append(f"archive of {len(records)} records against {len(graphed_run['archive'])}")
-    for i, (a, b) in enumerate(zip(graphed_run["archive"], records)):
-        differ += [f"archive[{i}].{f}" for f, x, y in zip(a._fields, a, b)
-                   if not np.array_equal(x, y)]
-    n = len(imgs)
-    steady = [t for t in range(2, n) if t != cfg.window_size]
-    print(f"frame graph: detect + match of {n} slice frames ({n - cfg.window_size} evicting), "
-          f"{captures} capture and {replays} replays of the frame graph, against every frame "
-          f"eager: state fields, statistics and {len(records)} archive records that differ "
-          f"{differ[:8] or 'none'}; eager frames 2-{n - 1} median "
-          f"{float(np.median(eager_s[2:])):.4f} s ({card})")
-    sites = graphed_run["sites"]
-    t = LOOP_FRAME
-    print(f"frame graph: host synchronisations a frame {graphed_run['syncs']}; frame {t} "
-          f"(steady) by site {sites[t]}; frame {n - 1} (slide, evicts) by site {sites[n - 1]} "
-          f"({card})")
+    with loops.installed():
+        differ = _eager_again(f"slice ({len(imgs) - cfg.window_size} evicting)", engine, imgs,
+                              lambda e, im: e.process_image(im), graphed_run, sync, card,
+                              loops, "slice")
+    reads = _steady_reads("slice", graphed_run, card)
+    g = graphed_run["graph"]
     if differ:
         raise AssertionError(f"graphed frames differ from eager ones: {differ[:8]}")
-    if captures != 1 or replays < n - 2:
-        raise AssertionError(f"the frame graph was captured {captures} times and replayed "
-                             f"{replays} times in {n} frames (want 1 and {n - 2})")
+    if reads:
+        raise AssertionError(f"steady frames {reads} read the host beyond the grouped fetch")
+    # with the keyframe gate on, a steady frame adds the flow read the JAX
+    # package makes (the frame step on the gate's features: another graph)
+    import dataclasses
+
+    from structure_from_motion_tpu_torch.device import HostCopy
+
+    gated = IncrementalSfM(dataclasses.replace(cfg, keyframe_min_flow_px=1.0), K,
+                           frontend="native", seed=0, device=dev)
+    syncs, sites, waits, admitted = [], [], [], []
+    for im in imgs[:8]:
+        w0 = HostCopy.waits
+        with _counting_syncs(syncs, dev, sites):
+            info = gated.process_image(im)
+            sync()
+        waits.append(HostCopy.waits - w0)
+        admitted.append(not info.get("keyframe_skipped"))
+    flow_only = [t for t in range(2, len(sites)) if admitted[t] and waits[t] == 1
+                 and list(sites[t].values()) == [1] and "_keyframe_flow" in next(iter(sites[t]))]
+    print(f"frame graph, keyframe gate on: admitted {admitted}, host synchronisations by site "
+          f"{sites}, grouped-fetch waits {waits} ({card})")
+    if flow_only != [t for t in range(2, len(sites)) if admitted[t]] or not flow_only:
+        raise AssertionError("a gated steady frame reads the host beyond the flow and the fetch")
+    # detect + match of frame 0 (replayed at frame 1) and the steady frame
+    if g["captures"] != 2 or g["replays"] != len(imgs):
+        raise AssertionError(f"{g['captures']} graph captures and {g['replays']} replays in "
+                             f"{len(imgs)} frames (want 2 and {len(imgs)})")
 
 
 def global_phase(dev, counted, sync, card: str) -> dict:
@@ -2689,18 +2901,23 @@ def _smoke(torch, dev, smi: str, pool) -> None:
     missing = [name for name in slice_kernels if launches[name] < 1]
     if missing:
         raise AssertionError(f"a kernel of the slice never launched: {missing}")
-    if launches["B2f candidate_block_max"] != cfg.frontend.num_octaves * len(imgs) \
+    # a frame's detect launches B2f once an octave; so does the pass in the
+    # device form before each of the two captures (detect + match at frame
+    # 0, the steady frame at frame 2)
+    fronts = len(imgs) + graphed_run["graph"]["captures"]
+    if launches["B2f candidate_block_max"] != cfg.frontend.num_octaves * fronts \
             or launches["B2 candidate_response"]:
         raise AssertionError(f"the slice's candidate stage is not the fused kernel's: {launches}")
 
     # -- 13. the frame graph: detect + match replayed against every frame eager
     with _clock("frame graph"):
-        frame_graph_phase(dev, imgs, K, cfg, graphed_run, torch.cuda.synchronize, smi)
+        frame_graph_phase(dev, imgs, K, cfg, graphed_run, torch.cuda.synchronize, smi, loops)
     del graphed_run
 
     # -- 11. the slice's frames through an exported artifact -------------------
     with _clock("serve"):
         runs["serve"] = serve_phase(dev, imgs, K, C_gt, cfg, counted, torch.cuda.synchronize, smi)
+    _drop_frame_graphs()
 
     # -- 5. the 500-camera global solve --------------------------------------
     with _clock("global"):
@@ -2717,22 +2934,26 @@ def _smoke(torch, dev, smi: str, pool) -> None:
     with _clock("cli"):
         runs["cli map"] = cli_phase(dev, imgs, small_imgs, K, small_K, C_gt, small_C_gt, cfg,
                                     counted, torch.cuda.synchronize, smi)
+    _drop_frame_graphs()
 
     # -- 7. the batched engine ---------------------------------------------------
     with _clock("batched"), loops.installed():
         batched_runs, small_b4 = batched_phase(dev, lanes, small_lanes, map_lanes, cfg, counted,
                                                torch.cuda.synchronize, smi, loops)
     runs.update(batched_runs)
+    _drop_frame_graphs()
 
     # -- 8. the Harris frontend through the command line -------------------------
     harris = renders["harris"].result()
     with _clock("harris"):
         runs["harris"], harris_fe, harris_b4 = harris_phase(dev, harris, counted,
                                                             torch.cuda.synchronize, smi)
+    _drop_frame_graphs()
 
     # -- 10. the shared sample grid: the CLI on the same frames, then 2 lanes
     with _clock("shared"):
         shared_phase(dev, harris, small_lanes, counted, torch.cuda.synchronize, smi)
+    _drop_frame_graphs()
 
     # -- 12. the loops: graph replays against the plain per-step loop ---------
     with _clock("loops"):

@@ -149,5 +149,14 @@ class HostCopy:
 
 def fetch(tensors: dict) -> dict:
     """``{key: tensor.cpu().numpy()}`` for a dict of tensors, made by one
-    :class:`HostCopy` (one wait on the card, not one a key)."""
-    return dict(zip(tensors, HostCopy(tensors.values()).arrays()))
+    :class:`HostCopy` (one wait on the card, not one a key). The device's
+    counts of the CUDA graph replays made since the last fetch
+    (``utils/control.pending_counts``: which conditional branches ran, how
+    many chunks each loop took) travel in the same copy and are credited
+    (``control.settle``)."""
+    from structure_from_motion_tpu_torch.utils import control
+
+    counts = control.pending_counts()
+    arrays = HostCopy([*tensors.values(), *counts]).arrays()
+    control.settle(arrays[len(tensors):])
+    return dict(zip(tensors, arrays))

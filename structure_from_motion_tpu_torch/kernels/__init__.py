@@ -17,7 +17,9 @@ Each entry point is wrapped as one ``torch.library`` operator in the
 (:func:`register_ops` imports them all): the plain version is its CPU
 implementation, the ``ctypes`` launch its CUDA implementation, and a fake
 implementation gives its output shapes, so ``torch.export`` traces a
-program through it. On any other device an operator raises.
+program through it. On any other device an operator raises. The entry
+points of ``csrc/graph_cond.cu`` are no operators: they add conditional
+nodes to a CUDA graph being captured (``utils/control.py`` calls them).
 
 The build runs at the first launch of any kernel (never at import, nor when
 an operator is registered: the CPU tests import every module on a machine
@@ -71,6 +73,18 @@ _SIGNATURES = {
     "sfm_reduce_cam": (_P, _P, _P, _P, _I, _I, _I, _P, _P),
     # A, batch, M, N, full, scratch, scratch floats, U, S, V, stream
     "sfm_small_svd": (_P, _I, _I, _I, _I, _P, _L, _P, _P, _P, _P),
+    # csrc/graph_cond.cu: stream, body stream, predicate; body stream, address of the
+    # body's graph; graph, node count (int64 address); graph, 16 int64 counts;
+    # address of the new stream
+    "sfm_capture_if": (_P, _P, _P),
+    "sfm_end_capture": (_P, _P),
+    "sfm_graph_nodes": (_P, _P),
+    "sfm_graph_node_types": (_P, _P),
+    "sfm_stream_create": (_P,),
+    # stream, body stream, handle (uint64 address); body stream, handle, active flag,
+    # step counter, cap, address of the body's graph
+    "sfm_begin_while": (_P, _P, _P),
+    "sfm_end_while": (_P, ctypes.c_ulonglong, _P, _P, _L, _P),
 }
 
 

@@ -9,8 +9,9 @@ stack: every kernel launches ONCE a stage for the whole batch (B1 and B2
 on the (B, H, W) frames, B3 on each lane's prior views against its own new
 view, B4 on every lane's BA observations), and the frame branch and the
 localisation and BA bucket sizes are taken once for the batch, from the
-LARGEST live count across lanes (see that module for the LM loops and the
-draws). Lane b draws from the generators of ``IncrementalSfM(seed=seed_b)``,
+LARGEST live count across lanes, on the device (see that module for the LM
+loops and the draws). A steady frame of the batch is one CUDA graph replay
+on the card, as a single engine's is. Lane b draws from the generators of ``IncrementalSfM(seed=seed_b)``,
 so with the same seeds and buckets a lane draws what the single engine
 draws.
 
@@ -82,6 +83,7 @@ class BatchedIncrementalSfM:
         # slide mode's evicted views, oldest first: EvictionRecords of (B, ...)
         # host arrays, each copied in the background and read at first use
         self._archive = EvictionArchive()
+        self._graphs: dict = {}  # the frame's CUDA graphs (``utils/control.graphed``)
 
     def _to_device(self, a, dtype=None) -> torch.Tensor:
         a = a if torch.is_tensor(a) else torch.as_tensor(np.asarray(a))
@@ -105,7 +107,7 @@ class BatchedIncrementalSfM:
         if slot is None:
             return {"skipped": True, "frame": v}
         draws = LazyDraws(self.seeds, v, self.state.points.device)
-        self.state, info = _frame_step(self.state, slot, draws, frame, self.config)
+        self.state, info = _frame_step(self.state, slot, draws, frame, self.config, self._graphs)
         self._frame = v + 1
         info = fetch(info)  # one grouped copy and one wait
         info["frame"] = v

@@ -15,18 +15,21 @@ lane, ``models/batched.py`` on B sequences in lockstep (the JAX package
 * every kernel launches ONCE a stage: B3 on each lane's prior views
   against its own new view, B4 on every lane's BA observations;
 * the JAX package fuses a frame into one jitted program and picks the
-  stage and the buckets on device with ``lax.switch``; here each choice is
-  a ``utils/control.switch``: eagerly ONE host read of the LARGEST live
-  count across lanes (the stage, a Python int, costs none), and every lane
-  runs at the smallest power-of-two bucket that holds it (the same
-  ladders, so the set of shapes stays small; a lane below it just pads, as
-  a lane of the JAX package does); in an exported program (``serve.py``)
-  a ``cond`` node;
+  stage and the buckets on device with ``lax.switch``; here a steady frame
+  is ONE ``utils/control.graphed`` call (one CUDA graph replay on the
+  card, :func:`_frame_step`), and each choice is a
+  ``utils/control.switch`` on the LARGEST live count across lanes: an IF
+  node a rung in the graph, decided on the device (eagerly one host read;
+  the stage, a Python int, costs none), every lane at the smallest
+  power-of-two bucket that holds it (the same ladders, so the set of
+  shapes stays small; a lane below it just pads, as a lane of the JAX
+  package does); in an exported program (``serve.py``) a ``cond`` node;
 * the LM loops of PnP and triangulation stop lane by lane
   (``utils/control.masked_loop``): a finished lane takes no step and keeps
   its iterate, and the loop ends when no lane moves (the vmapped
-  ``while_loop``), read once every chunk of steps; the fixed-count loops
-  (BA iterations, LO rounds, the essential-manifold refinement) are
+  ``while_loop``): in the graph a WHILE node stopped on the device,
+  eagerly read once every chunk of steps; the fixed-count loops (BA
+  iterations, LO rounds, the essential-manifold refinement) are
   ``utils/control.fori``;
 * the ``lax.map`` over prior views in the match stage is one batched call
   with a leading view axis; the small pure pieces of the bootstrap (pose
@@ -38,9 +41,10 @@ The draws are :class:`LazyDraws` in the live engine: made when a stage
 asks, from fresh ``torch.Generator``s seeded from ``(seed, frame,
 stream)``, one a lane and draw (the one per-lane loop left: a generator's
 stream cannot be split), so a lane draws what a single run with its seed
-draws, and a PnP rung draws the same whichever rung is taken. A served
-engine passes every draw a frame may use (:class:`FrameDraws`) into the
-exported program instead. A shared bucket larger than a lane's own changes
+draws, and a PnP rung draws the same whichever rung is taken. A steady
+frame draws every rung's before its graph replay (a graph would replay one
+draw forever), and a served engine passes every draw a frame may use
+(:class:`FrameDraws`) into the exported program. A shared bucket larger than a lane's own changes
 the shape of its PnP and triangulation draws, so lanes agree with single
 runs to a tolerance, as in the JAX package.
 
@@ -164,10 +168,11 @@ class LazyDraws:
     def pnp_source(self, rung: int):
         return self._gens(_STREAM_STAGE)
 
-    def materialize(self, config: PipelineConfig) -> FrameDraws:
+    def materialize(self, config: PipelineConfig, bootstrap: bool = True) -> FrameDraws:
         """Every draw a frame program of ``config`` may use, as a frame
         whose stage takes it draws it (~59 M floats a lane at the CLI's
-        default config, mostly PnP's hypotheses at its three rungs)."""
+        default config, mostly PnP's hypotheses at its three rungs); with
+        ``bootstrap=False`` none of the bootstrap's (a steady frame's)."""
         cap = config.capacity
         V, Kk, dev = cap.max_views, cap.max_keypoints, self.device
         gate = None
@@ -175,7 +180,8 @@ class LazyDraws:
             gate = draw_uniform(self.gate_source(),
                                 (V, config.matcher.gate_ransac.num_hypotheses, Kk), dev)
         hf = config.fundamental_ransac.num_hypotheses
-        boot = tuple(draw_uniform(self.boot_source(k), (hf, Kk), dev) for k in (0, 1))
+        boot = tuple(draw_uniform(self.boot_source(k), (hf, Kk), dev)
+                     for k in ((0, 1) if bootstrap else ()))
         rc = config.pnp_ransac
         pnp = []
         for rung, n in enumerate(_pnp_ladder(config)):
@@ -229,14 +235,16 @@ def _front(st: SfMState, v, gate, frame, *, config: PipelineConfig) -> SfMState:
     return _match_stage(st, v, gate, config)
 
 
-def _front_stage(st: SfMState, v, draws, frame, config: PipelineConfig) -> SfMState:
+def _front_stage(st: SfMState, v, draws, frame, config: PipelineConfig,
+                 graphs: dict | None = None) -> SfMState:
     """:func:`_front` with the F-gate's uniforms drawn first (the live
     engine's generators draw eagerly: a CUDA graph would replay one draw
-    forever), as ONE ``utils/control.graphed`` call: from image (or
-    features) to the recorded matches no host read is made. The slot goes
-    in as a 0-dim device tensor (a fill, no upload), so every frame of one
-    engine has one key: on the card frame 0 runs eagerly, frame 1 captures
-    the graph and every later frame replays it."""
+    forever), as ONE ``utils/control.graphed`` call kept in ``graphs`` (the
+    engine's): from image (or features) to the recorded matches no host
+    read is made. The slot goes in as a 0-dim device tensor (a fill, no
+    upload), so every frame of one engine has one key: on the card frame 0
+    captures the graph and every later frame replays it (a steady frame's
+    graph holds this stage inline)."""
     if not torch.is_tensor(v):
         v = torch.full((), v, dtype=torch.long, device=st.points.device)
     gate = None
@@ -246,7 +254,7 @@ def _front_stage(st: SfMState, v, draws, frame, config: PipelineConfig) -> SfMSt
             _, V, Kk = st.tri_index.shape
             gate = draw_uniform(gate, (V, config.matcher.gate_ransac.num_hypotheses, Kk),
                                 st.points.device)
-    return graphed(functools.partial(_front, config=config), st, v, gate, frame)
+    return graphed(functools.partial(_front, config=config), st, v, gate, frame, calls=graphs)
 
 
 def _cos_parallax(X, Ca, Cb):
@@ -401,8 +409,9 @@ def _pnp_rung(draws, X3d, uv, K_v, mask, prior_R, prior_C, *, rung: int, n: int,
 
 def _localize_stage(st: SfMState, v, draws, config: PipelineConfig):
     """PnP of every lane's view v against the union of its prior views'
-    2D-3D matches at ONE shared bucket (one host read), then the localised
-    observations and the triangulation of new matches."""
+    2D-3D matches at ONE shared bucket (a switch: an IF node a rung in the
+    frame's graph, one host read eagerly), then the localised observations
+    and the triangulation of new matches."""
     B, V, Kk = st.tri_index.shape
     dev = st.points.device
     ar = _lane(B, dev)
@@ -566,17 +575,24 @@ def _sharded_ba(st: SfMState, config: PipelineConfig):
 
 def _ba_rung(st: SfMState, *, m: int, o: int, config: PipelineConfig):
     """Bundle adjustment of every lane on the prefix of ``m`` points and
-    ``o`` observations -> (state, costs)."""
+    ``o`` observations -> (state, costs). A rung too small for the live
+    counts runs only where every rung does (``utils/control.device_form``,
+    the pass before a CUDA graph's capture), its results unread: its
+    observations of points past the prefix are dropped, their ids clamped
+    into it (JAX's clamping gather). On the rung the switch takes every id
+    is inside the prefix, and the values, and so the bits, are the
+    observations' own."""
     B = st.points.shape[0]
     cam_o = st.obs_cam[:, :o]
+    pt_o = st.obs_pt[:, :o]
     ba_state = BAState(C=st.cam_C, q=st.cam_q, X=st.points[:, :m], cam_valid=st.cam_valid,
                        pt_valid=st.pt_valid[:, :m])
     obs = BAObservations(
         cam=cam_o,
-        point=st.obs_pt[:, :o],
+        point=pt_o.clamp(max=m - 1),
         uv_norm=normalized_camera_coords_per_obs(st.K[_lane(B, st.K.device), cam_o.long()],
                                                  st.obs_uv[:, :o]),
-        valid=st.obs_valid[:, :o],
+        valid=st.obs_valid[:, :o] & (pt_o < m),
     )
     out, costs = run_bundle_adjustment(ba_state, obs, config.ba)
     points = st.points.clone()
@@ -588,7 +604,7 @@ def _ba_rung(st: SfMState, *, m: int, o: int, config: PipelineConfig):
 def _ba_stage(st: SfMState, config: PipelineConfig):
     """Bundle adjustment of every lane over all its valid views, points and
     observations at ONE shared prefix bucket holding the largest live counts
-    (one host read; one B4 launch an LM iteration for all lanes), or sharded
+    (a switch, as PnP's; one B4 launch an LM iteration for all lanes), or sharded
     over ``config.ba_num_shards`` ranks (one lane), then pruning. Returns
     (state, costs, dropped_obs, pruned_obs, pruned_points)."""
     if config.ba_num_shards > 1:
@@ -667,18 +683,14 @@ def _later_view(st: SfMState, v, draws, *, config: PipelineConfig):
                            pruned_obs=pruned_o, pruned_points=pruned_p)
 
 
-def _frame_step(st: SfMState, v, draws, frame, config: PipelineConfig):
-    """One frame at slot ``v`` (a Python int, or a 0-dim int64 tensor in an
-    exported program) for every lane: :func:`_front_stage` (detect when
-    ``frame`` is an image, store the features, match against all prior
-    views), then the v == 0 / bootstrap / localise + BA stage (a
-    :func:`~..utils.control.switch` on ``min(v, 2)``), and the reprojection
-    metric. ``frame`` carries the lane axis but for a single (H, W) image;
-    ``draws`` is a :class:`LazyDraws` or :class:`FrameDraws`."""
-    st = _front_stage(st, v, draws, frame, config)
+def _frame_body(st: SfMState, v, draws, frame, *, stage, config: PipelineConfig,
+                graphs: dict | None = None):
+    """:func:`_front_stage` (its graph kept in ``graphs``), the stage
+    ``stage`` (an int, or a 0-dim tensor a :func:`~..utils.control.switch`
+    reads) and the frame's metrics."""
+    st = _front_stage(st, v, draws, frame, config, graphs)
     stages = [functools.partial(fn, config=config)
               for fn in (_first_view, _second_view, _later_view)]
-    stage = v.clamp(max=2) if torch.is_tensor(v) else min(v, 2)
     st, info = switch(stage, stages, st, v, draws)
     info["reprojection_px"] = tracks.reprojection_error(st)
     info["dropped_points"] = st.dropped_points
@@ -686,15 +698,50 @@ def _frame_step(st: SfMState, v, draws, frame, config: PipelineConfig):
     return st, info
 
 
-def _one_lane(state: SfMState, v, draws, frame, config: PipelineConfig):
+def _frame_step(st: SfMState, v, draws, frame, config: PipelineConfig,
+                graphs: dict | None = None):
+    """One frame at slot ``v`` (a Python int, or a 0-dim int64 tensor in an
+    exported program) for every lane: :func:`_front_stage` (detect when
+    ``frame`` is an image, store the features, match against all prior
+    views), then the v == 0 / bootstrap / localise + BA stage (a
+    :func:`~..utils.control.switch` on ``min(v, 2)``), and the reprojection
+    metric. ``frame`` carries the lane axis but for a single (H, W) image;
+    ``draws`` is a :class:`LazyDraws` or :class:`FrameDraws`; ``graphs`` is
+    the engine's dict of CUDA graphs (``utils/control.graphed``).
+
+    A steady frame (an int slot >= 2, unsharded BA) is ONE
+    ``utils/control.graphed`` call, as the JAX package's frame is one
+    jitted program: the slot goes in as a 0-dim device tensor (a fill) and
+    the draws as :meth:`LazyDraws.materialize` makes them (every PnP rung
+    drawn eagerly: a graph would replay one draw forever), so every steady
+    frame of an engine has one key. On the card the first steady frame
+    runs once in ``control.device_form`` (every rung of every switch, every
+    loop chunk, no host read), is captured (its bucket switches IF nodes,
+    its loops WHILE nodes) and replayed; every later one is a replay with
+    no host read. Frames 0 and 1 run as they are (detect + match one
+    graph)."""
+    if torch.is_tensor(v):
+        return _frame_body(st, v, draws, frame, stage=v.clamp(max=2), config=config)
+    if v < 2 or config.ba_num_shards > 1:  # a sharded BA's gloo calls cannot be captured
+        return _frame_body(st, v, draws, frame, stage=min(v, 2), config=config, graphs=graphs)
+    slot = torch.full((), v, dtype=torch.long, device=st.points.device)
+    if isinstance(draws, LazyDraws):
+        draws = draws.materialize(config, bootstrap=False)
+    return graphed(functools.partial(_frame_body, stage=2, config=config), st, slot, draws, frame,
+                   calls=graphs)
+
+
+def _one_lane(state: SfMState, v, draws, frame, config: PipelineConfig,
+              graphs: dict | None = None):
     """:func:`_frame_step` on one state: a stack of one lane."""
-    st, info = _frame_step(tracks.lanes_of(state), v, draws, frame, config)
+    st, info = _frame_step(tracks.lanes_of(state), v, draws, frame, config, graphs)
     return tracks.lane_state(st, 0), {k: t[0] for k, t in info.items()}
 
 
-def _single_step(state: SfMState, v, draws, xy, desc, valid, config: PipelineConfig):
+def _single_step(state: SfMState, v, draws, xy, desc, valid, config: PipelineConfig,
+                 graphs: dict | None = None):
     """:func:`_frame_step` of one state on its features."""
-    return _one_lane(state, v, draws, (xy[None], desc[None], valid[None]), config)
+    return _one_lane(state, v, draws, (xy[None], desc[None], valid[None]), config, graphs)
 
 
 def _assess_frame(state: SfMState, prev_slot, xy, desc, valid,
@@ -740,9 +787,10 @@ def _assess_frame_native(state: SfMState, prev_slot, img, config: PipelineConfig
     return kps.xy, desc, kps.mask, flow
 
 
-def _frame_step_native(state: SfMState, v, draws, img, config: PipelineConfig):
+def _frame_step_native(state: SfMState, v, draws, img, config: PipelineConfig,
+                       graphs: dict | None = None):
     """Frame step with the frontend in front: image -> features -> frame."""
-    return _one_lane(state, v, draws, img, config)
+    return _one_lane(state, v, draws, img, config, graphs)
 
 
 def _finalize_ba(state: SfMState, iterations: int, config: PipelineConfig):
@@ -796,10 +844,13 @@ class IncrementalSfM:
         self.keyframe_indices: list = []
         # the device programs by the name an exported artifact gives them:
         # (state, slot, draws, features or image), (state, previous slot,
-        # features or image), (state), and (state, iterations) for finalize
+        # features or image), (state), and (state, iterations) for finalize;
+        # the frame's CUDA graphs are the engine's own (dropping it frees them)
+        self._graphs: dict = {}
         self.programs = {
-            "frame_step": functools.partial(_single_step, config=config),
-            "frame_step_native": functools.partial(_frame_step_native, config=config),
+            "frame_step": functools.partial(_single_step, config=config, graphs=self._graphs),
+            "frame_step_native": functools.partial(_frame_step_native, config=config,
+                                                   graphs=self._graphs),
             "assess": functools.partial(_assess_frame, config=config),
             "assess_native": functools.partial(_assess_frame_native, config=config),
             "evict": tracks.evict_oldest_view,

@@ -19,7 +19,7 @@ import functools
 import torch
 
 from structure_from_motion_tpu_torch.ops import small_svd
-from structure_from_motion_tpu_torch.utils.control import masked_loop
+from structure_from_motion_tpu_torch.utils.control import masked_loop, unconditional
 
 
 def floor_abs(x: torch.Tensor, eps: float) -> torch.Tensor:
@@ -72,11 +72,26 @@ def inv3x3(A: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
     return adj / det[..., None, None]
 
 
+def _substitute(b: torch.Tensor, L: torch.Tensor) -> torch.Tensor:
+    """``cholesky_solve`` of every system, one call a system: torch sends a
+    stack of several to MAGMA's batched solve, which no CUDA graph capture
+    takes, and one system to cuSOLVER's."""
+    N = L.shape[-1]
+    Ls, bs = L.reshape(-1, N, N), b.reshape(-1, N, 1)
+    if Ls.shape[0] == 1:
+        return torch.cholesky_solve(b[..., None], L)[..., 0]
+    return torch.cat([torch.cholesky_solve(bs[i:i + 1], Ls[i:i + 1])
+                      for i in range(Ls.shape[0])]).reshape(b.shape)
+
+
 def solve_psd(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Solve symmetric positive-definite systems ``(..., N, N) x = (..., N)``
-    by Cholesky."""
+    by Cholesky. cuSOLVER's substitution allocates in the stream as it
+    runs, which a conditional body of a CUDA graph may not hold: in a
+    capture it runs outside the bucket switch's IF body around it
+    (``utils/control.unconditional``)."""
     L, _ = torch.linalg.cholesky_ex(A)
-    return torch.cholesky_solve(b[..., None], L)[..., 0]
+    return unconditional(_substitute, b, L)
 
 
 # CG iterations between two host reads of the stop test, at most (the

@@ -12,11 +12,16 @@ never re-enters the Python geometry stack.
 What an exported program holds: the ATen operators the stages run, the
 hand-written kernels as ``sfm::*`` operators (``kernels.register_ops``),
 the stage and bucket choices as ``cond`` nodes and the loops as tagged
-``while_loop`` nodes (``utils/control.py``). A ``cond`` node makes the one
-host read the live engine makes there; at load, :func:`retarget_loops`
+``while_loop`` nodes (``utils/control.py``). At load, :func:`retarget_loops`
 points each loop node at the live engine's loop (a fixed loop with no read,
-a masked loop in chunks of CUDA graph replays), and :func:`eager_calls`
-points each ATen node it can at the eager binding the live engine calls. An exported program takes its
+a masked loop in chunks of CUDA graph replays), :func:`retarget_conds`
+points each ``cond`` node at the live engine's switch (one host read
+eagerly, IF nodes in a capture), :func:`hoist_constants` uploads the
+constants the export left on the host once, and :func:`eager_calls`
+points each ATen node it can at the eager binding the live engine calls.
+A steady served frame (slot >= 2) is one ``control.graphed`` call of the
+loaded program, as the live engine's steady frame is: on the card one CUDA
+graph replay with no host read. An exported program takes its
 random draws as inputs (``models.incremental.FrameDraws``): the served
 engine draws them from the live engine's generators, every rung of the PnP
 ladder a frame, so a served run repeats the live run's bits.
@@ -44,7 +49,11 @@ from structure_from_motion_tpu_torch import kernels
 from structure_from_motion_tpu_torch.config import PipelineConfig
 from structure_from_motion_tpu_torch.utils import control
 
-_FORMAT_VERSION = 1
+# 2: before a served steady frame is captured into a CUDA graph, every
+# branch of the program's switches runs once on the live map, so each BA
+# rung must clamp the map it is handed to its size
+# (models/incremental._ba_rung); a version-1 program does not
+_FORMAT_VERSION = 2
 
 
 def enable_compilation_cache(cache_dir: str) -> None:
@@ -281,6 +290,109 @@ def retarget_loops(module: torch.nn.Module, name: str = "program") -> int:
     return count
 
 
+def _cholesky_solve(*args, **kwargs):
+    return control.unconditional(torch.ops.aten.cholesky_solve.default, *args, **kwargs)
+
+
+# operators a CUDA graph's conditional body may not hold (cuSOLVER allocates
+# in the stream), run outside the body as the live engine runs them
+# (``ops/linalg.solve_psd``)
+_UNCONDITIONAL = {torch.ops.aten.cholesky_solve.default: _cholesky_solve}
+
+
+def retarget_conds(module: torch.nn.Module) -> int:
+    """Run every ``cond`` node of a loaded program (``module`` and every
+    graph under it) as the live engine's :func:`~.utils.control.switch`
+    runs (``control.served_cond``): eagerly one host read and the branch it
+    names, as torch's ``cond`` does; inside a CUDA graph capture an IF node
+    a branch, decided on the device. Its Cholesky nodes run as the live
+    engine's do (``control.unconditional``). Returns the number of ``cond``
+    nodes retargeted."""
+    count = 0
+    for _, gm in module.named_modules():
+        if not isinstance(gm, torch.fx.GraphModule):
+            continue
+        found = False
+        for node in gm.graph.nodes:
+            if node.op != "call_function":
+                continue
+            if node.target is torch.ops.higher_order.cond:
+                node.target = control.served_cond
+                count += 1
+            elif node.target in _UNCONDITIONAL:
+                node.target = _UNCONDITIONAL[node.target]
+            else:
+                continue
+            found = True
+        if found:
+            gm.recompile()
+    return count
+
+
+_COPIES = {torch.ops.aten.to.device, torch.ops.aten.to.dtype_layout, torch.ops.aten.to.dtype,
+           torch.ops.aten._to_copy.default}
+# operators the export puts between a lifted constant and its use: each gives
+# the constant's values again
+_PURE = {torch.ops.aten.lift_fresh_copy.default, torch.ops.aten.detach_.default,
+         torch.ops.aten.detach.default, torch.ops.aten.clone.default,
+         torch.ops.aten.alias.default}
+
+
+def _constant(gm: torch.fx.GraphModule, node):
+    """The value of ``node`` when it is the program's own tensor (a
+    ``get_attr``) or a copy or conversion of one (``_PURE`` and ``_COPIES``
+    operators on it alone), computed now; else None."""
+    if not isinstance(node, torch.fx.Node):
+        return None
+    if node.op == "get_attr":
+        value = gm
+        for part in node.target.split("."):
+            value = getattr(value, part)
+        return value if torch.is_tensor(value) else None
+    if node.op != "call_function" or node.target not in _PURE | _COPIES or not node.args:
+        return None
+    if any(isinstance(a, torch.fx.Node) for a in (*node.args[1:], *node.kwargs.values())):
+        return None
+    src = _constant(gm, node.args[0])
+    return None if src is None else node.target(src, *node.args[1:], **node.kwargs)
+
+
+def hoist_constants(module: torch.nn.Module) -> int:
+    """Replace every copy of a constant in a loaded program (``module`` and
+    every graph under it: a ``to`` or ``_to_copy`` node whose input is the
+    program's own tensor, through the export's ``lift_fresh_copy`` and
+    ``detach_``) by its result, computed once here and kept as a buffer.
+    The export lifts a constant the program builds on the card onto the
+    host and copies it back at every run: on the card a host
+    synchronisation a run, and an upload from pageable memory that no CUDA
+    graph can hold. The copy of a constant is a constant: the bits are the
+    node's. Returns the number of nodes replaced."""
+    count = 0
+    for _, gm in module.named_modules():
+        if not isinstance(gm, torch.fx.GraphModule):
+            continue
+        found = False
+        for node in list(gm.graph.nodes):
+            if node.op != "call_function" or node.target not in _COPIES:
+                continue
+            value = _constant(gm, node)
+            if value is None:
+                continue
+            name = f"_hoisted_{node.name}"
+            gm.register_buffer(name, value)
+            with gm.graph.inserting_before(node):
+                const = gm.graph.get_attr(name)
+            const.meta.update(node.meta)
+            node.replace_all_uses_with(const)
+            gm.graph.erase_node(node)
+            found = True
+            count += 1
+        if found:
+            gm.graph.eliminate_dead_code()
+            gm.recompile()
+    return count
+
+
 def _eager_binding(op):
     """The eager binding the live engine calls for the ATen overload ``op``
     (``torch.<name>``, or the tensor method where the schema's first
@@ -367,7 +479,11 @@ class ServedSfM:
     ``torch.export`` program: the Python geometry stack is never entered.
     The window policy, archive and keyframe bookkeeping are the live
     engine's. ``device`` must be the device type the artifact was exported
-    on."""
+    on. A steady frame is one CUDA graph replay on the card; its statistics
+    stay on the device (no metric fetch), so the device's counts of the
+    replays' conditional nodes (``utils/control.pending_counts``) are read
+    once every 64 steady frames, one host read, unless the caller's
+    ``device.fetch`` brings them first."""
 
     def __init__(self, path: str, seed: int = 0, device="cuda"):
         from structure_from_motion_tpu_torch.models import tracks
@@ -378,7 +494,7 @@ class ServedSfM:
             meta = json.loads(bytes(data["__meta"]).decode())
             if meta["format_version"] != _FORMAT_VERSION:
                 raise ValueError(f"artifact format {meta['format_version']} != "
-                                 f"{_FORMAT_VERSION}")
+                                 f"{_FORMAT_VERSION}: export the engine again")
             K = data["__K"]
             blobs = {name: bytes(data[f"prog_{name}"]) for name in meta["programs"]}
         dev = torch.device(device)
@@ -391,8 +507,11 @@ class ServedSfM:
             self._modules = {name: torch.export.load(io.BytesIO(b)).module()
                              for name, b in blobs.items()}
         self.eager_nodes = {}  # program -> nodes pointed at their eager binding
+        self.hoisted = {}  # program -> copies of constants computed at load
         for name, module in self._modules.items():
             retarget_loops(module, name)
+            retarget_conds(module)
+            self.hoisted[name] = hoist_constants(module)
             self.eager_nodes[name] = eager_calls(module)
         inner = IncrementalSfM(cfg, K, frontend=meta["frontend"], seed=seed,
                                collect_metrics=False, device=dev)
@@ -401,6 +520,7 @@ class ServedSfM:
         n = len(tracks.SfMState._fields)
         m = self._modules
         slots: dict = {}
+        graphs: dict = {}  # the steady frame's CUDA graphs, this engine's own
 
         def slot(v) -> torch.Tensor:  # one cached 0-dim tensor a slot, filled on the device
             if v not in slots:
@@ -422,7 +542,11 @@ class ServedSfM:
             def run(st, v, draws, *inputs):
                 if name == "frame_step_native":
                     inputs = (image(inputs[0]),)
-                out = m[name](*state_in(st), slot(v), *_flat(draws.materialize(cfg)), *inputs)
+                args = (*state_in(st), slot(v), *_flat(draws.materialize(cfg)), *inputs)
+                # a steady frame: one graph replay, as the live engine's (frames 0
+                # and 1 run the program as it is, as the live engine runs them)
+                out = (control.graphed(m[name], *args, calls=graphs) if v >= 2
+                       else m[name](*args))
                 return tracks.SfMState(*out[:n]), dict(zip(INFO_KEYS, out[n:]))
             return run
 

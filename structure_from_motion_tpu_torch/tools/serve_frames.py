@@ -9,12 +9,15 @@ configuration at 240x320 with ``--device cpu``), loads it, and runs the same
 frames through a live and a served engine, the two taking turns frame by
 frame (the shared host's speed drifts within a run). It prints the wall
 time of every frame between two synchronisations; the served/live ratio of
-the mean steady frame (from frame 2 on, no loop graph captured by either
-engine; more than 16 frames would need the eviction program); the host
-synchronisations a frame (``torch.cuda.set_sync_debug_mode``; on the card
-only), and those of the last steady frame by call site
-(``tools/slice_frames.sync_site``); each frame's loop-mask reads, CUDA graph captures and replays
-(``utils/control.stats``); the export's trace and save seconds, the
+the mean steady frame (from frame 2 on, no loop or frame graph captured by
+either engine: a steady frame of both is one CUDA graph replay; more than
+16 frames would need the eviction program); the host synchronisations a
+frame (``torch.cuda.set_sync_debug_mode``; on the card only), and those of
+the last steady frame by call site (``tools/slice_frames.sync_site``; every
+site any frame reported, 0 where none); each frame's loop-mask reads,
+loop and frame graph captures and replays (``utils/control.stats``, the
+device's counts settled after the frame); the export's trace and save
+seconds, the
 program's and artifact's bytes and the load seconds. The last frame of each
 engine runs under ``torch.profiler``: the operators that took the most host
 time and, on the card, device time, the split of the served frame's extra
@@ -180,10 +183,14 @@ def _frames(engines: dict, imgs, device: str, traces: dict) -> dict:
                 engines[name].process_image(im)
                 sync()
                 times.append(time.perf_counter() - t0)
-                st = control.stats
-                loops.append(dict(reads=st.reads, replays=st.replays, captures=st.captures,
-                                  pool_bytes=st.pool_bytes, program_s=in_program[name][0],
-                                  gc_passes=seen[:3], gc_s=seen[3]))
+            if hasattr(control, "settle"):  # the graph replays' device counts (a read)
+                control.settle()
+            st = control.stats
+            loops.append(dict(reads=st.reads, replays=st.replays, captures=st.captures,
+                              call_captures=getattr(st, "call_captures", 0),
+                              call_replays=getattr(st, "call_replays", 0),
+                              pool_bytes=st.pool_bytes, program_s=in_program[name][0],
+                              gc_passes=seen[:3], gc_s=seen[3]))
             syncs.append(dict(sites))
             if last:
                 out[name] = (times, syncs, loops, prof.key_averages())
@@ -429,6 +436,7 @@ def run(frames: int, device: str, python_profile: bool = False, trace: str | Non
     from structure_from_motion_tpu_torch import serve
     from structure_from_motion_tpu_torch.io.synthetic import synthetic_scene_sequence
     from structure_from_motion_tpu_torch.models.incremental import IncrementalSfM
+    from structure_from_motion_tpu_torch.tools.slice_frames import with_zeros
 
     cfg, size = _config(device)
     imgs, K, _, _ = synthetic_scene_sequence(n_frames=frames, size=size, seed=3,
@@ -468,16 +476,17 @@ def run(frames: int, device: str, python_profile: bool = False, trace: str | Non
         traces = {name: os.path.join(trace, f"serve_frames_{name}.json.gz") for name in engines}
     runs = _frames(engines, imgs[:-1], device, traces)
     # the steady frames: from frame 2 on, not the profiled last one, and none
-    # in which either engine captured a loop graph
+    # in which either engine captured a loop graph or a frame graph
     steady = [i for i in range(2, len(imgs) - 2)
-              if not any(runs[name][2][i]["captures"] for name in engines)]
+              if not any(runs[name][2][i]["captures"] or runs[name][2][i]["call_captures"]
+                         for name in engines)]
     out["steady_frames"] = steady
     for name, engine in engines.items():
         times, syncs, loops, avg = runs[name]
         out[name] = dict(median_s=float(np.median(times[2:-1])),
                          steady_s=float(np.mean([times[i] for i in steady])), times_s=times,
                          syncs=[sum(f.values()) for f in syncs], loops=loops,
-                         sites={f"frame {i}": syncs[i] for i in steady[-1:]})
+                         sites=with_zeros(syncs, {f"frame {i}": i for i in steady[-1:]}))
         ops[name] = _ops(avg)
         tables[name] = avg.table(sort_by="self_cpu_time_total", row_limit=12)
         if device == "cuda":

@@ -20,12 +20,18 @@ union of the device's activity over the frame's wall time), and the
 kernels and CUDA graphs the host launched. ``--sites`` prints the host
 synchronisations of frame 0, the bootstrap, a steady frame and (with more
 frames than the window) the last, a slide frame that evicts, by call site
-(:func:`sync_site`); ``--batch B`` runs the same frames again through
+(:func:`sync_site`), every site any frame reported listed in each (0 in a
+frame that replays a CUDA graph: its switches and loops read nothing),
+and the steady frame again with every stage eager (:func:`eager_frames`);
+``--batch B`` runs the same frames again through
 ``BatchedIncrementalSfM`` with B lanes (every lane the same frames), with
 its synchronisations a frame. ``--stages``
-runs the frames again with the engine's stages and the PnP and
+runs the frames again, every stage eager (a steady frame's graph replay
+runs none on the host), with the engine's stages and the PnP and
 triangulation steps each timed between two synchronisations (the medians
-of frames 2 onward; the synchronisations slow the frame). ``--global-solve
+of frames 2 onward; the synchronisations slow the frame). The JSON line
+also gives what the frame graphs cost: captures, capture and
+instantiation seconds, nodes, pool bytes and bytes copied a replay. ``--global-solve
 N`` loads ``artifacts/longrun500_pre_globalba.ckpt.npz`` and times
 ``finalize_global(20)`` N times after one warm-up solve.
 
@@ -70,11 +76,15 @@ def cli_default_config():
 
 
 def _loop_counts() -> tuple:
-    """(replays, stop-mask reads, frame graph replays, grouped host copies
-    waited for) so far; 0 for what a version does not have."""
+    """(loop chunk replays, stop-mask reads, frame graph replays, grouped
+    host copies waited for) so far; 0 for what a version does not have. The
+    device's counts of the graph replays no fetch brought yet are read
+    first (one host read, outside the timed frame)."""
     from structure_from_motion_tpu_torch import device
     from structure_from_motion_tpu_torch.utils import control
 
+    if hasattr(control, "settle"):
+        control.settle()
     stats = getattr(control, "stats", None)
     copies = getattr(device, "HostCopy", None)
     return (getattr(stats, "replays", 0), getattr(stats, "reads", 0),
@@ -225,6 +235,45 @@ def _site_frames(n: int, window: int) -> dict:
     return {k: v for k, v in picks.items() if v < n}
 
 
+def _graph_numbers() -> dict:
+    """What ``control.graphed`` captured so far (0 for what a version does
+    not have): captures and replays, the captures' seconds (the pass in
+    the device form included), the graphs' nodes, the reserved memory the
+    captures added, the bytes a replay copied in and out."""
+    from structure_from_motion_tpu_torch.utils import control
+
+    st = control.stats
+    g = {k: getattr(st, k, 0) for k in ("call_captures", "call_replays", "call_nodes",
+                                        "capture_s", "instantiate_s", "pool_bytes",
+                                        "copy_bytes")}
+    g["copied_bytes_a_replay"] = g.pop("copy_bytes") // max(g["call_replays"], 1)
+    return g
+
+
+@contextlib.contextmanager
+def eager_frames():
+    """Every ``control.graphed`` call of the engine made a plain call in the
+    block: each stage runs op by op between its host reads (the frames the
+    graphs replace, for ``--stages`` and the eager column of ``--sites``)."""
+    from structure_from_motion_tpu_torch.models import incremental
+
+    graphed = incremental.graphed
+    incremental.graphed = lambda fn, *operands, calls=None: fn(*operands)
+    try:
+        yield
+    finally:
+        incremental.graphed = graphed
+
+
+def with_zeros(by_site: list, picks: dict) -> dict:
+    """``{label: {site: synchronisations}}`` of the frames ``picks`` names
+    (``{label: index into by_site}``), every site any frame of ``by_site``
+    reported listed in each (0 where a frame made none: a site inside a
+    CUDA graph reads nothing)."""
+    names = sorted({k for found in by_site for k in found})
+    return {label: {k: by_site[i].get(k, 0) for k in names} for label, i in picks.items()}
+
+
 def _launches(prof) -> dict:
     """Kernel and graph launches the host made in one profiled frame."""
     names = collections.Counter(e.name for e in prof.events()
@@ -263,10 +312,18 @@ def run(frames: int, repeat: int, stages: bool = False, profile: bool = False,
                                    else None),
                    times_s=[round(t, 4) for t in times], syncs=syncs,
                    median_syncs=float(np.median(syncs[2:])), replays=replays, reads=reads,
-                   frame_graph_replays=front, host_copy_waits=waits, card=card)
+                   frame_graph_replays=front, host_copy_waits=waits, graphs=_graph_numbers(),
+                   card=card)
         if sites:
-            res["sites"] = {label: dict(by_site[i].most_common())
-                            for label, i in _site_frames(frames, cfg.window_size).items()}
+            picks = _site_frames(frames, cfg.window_size)
+            steady = min(8, frames - 1)
+            eager = IncrementalSfM(cfg, K, frontend="native", seed=0, device="cuda")
+            with eager_frames():  # the same frames with every stage eager
+                for im in imgs[:steady + 1]:
+                    _, _, eager_sites = _timed(lambda: eager.process_image(im))
+            by_site.append(eager_sites)
+            picks[f"frame {steady} (steady, every stage eager)"] = len(by_site) - 1
+            res["sites"] = with_zeros(by_site, picks)
         if profile:
             acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
             torch.cuda.synchronize()
@@ -291,19 +348,20 @@ def run(frames: int, repeat: int, stages: bool = False, profile: bool = False,
                    times_s=[round(t, 4) for t in times], syncs=syncs,
                    median_syncs=float(np.median(syncs[2:])), card=card)
         if sites:
-            res["sites"] = {label: dict(by_site[i].most_common())
-                            for label, i in _site_frames(frames, cfg.window_size).items()}
+            res["sites"] = with_zeros(by_site, _site_frames(frames, cfg.window_size))
         out.append(res)
         print(json.dumps(res), flush=True)
     if stages:
         timer = _StageTimer()
+        # a graph replay runs no stage on the host: these are eager frames'
         try:
-            eng = IncrementalSfM(cfg, K, frontend="native", seed=0, device="cuda")
-            per_frame = []
-            for im in imgs[:frames]:
-                timer.frame.clear()
-                _, wall, _ = _timed(lambda: eng.process_image(im))
-                per_frame.append(dict(timer.frame, frame=wall))
+            with eager_frames():
+                eng = IncrementalSfM(cfg, K, frontend="native", seed=0, device="cuda")
+                per_frame = []
+                for im in imgs[:frames]:
+                    timer.frame.clear()
+                    _, wall, _ = _timed(lambda: eng.process_image(im))
+                    per_frame.append(dict(timer.frame, frame=wall))
         finally:
             timer.close()
         names = sorted({k for f in per_frame for k in f})

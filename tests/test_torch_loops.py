@@ -8,6 +8,7 @@ also against the JAX package's ``while_loop``). On the CPU the chunks run
 eagerly; the card replays each chunk as a CUDA graph (``chip_smoke.py``
 holds that path to the same plain loop)."""
 
+import contextlib
 import functools
 import io
 import math
@@ -46,6 +47,17 @@ def _plain(monkeypatch, module, fn, *args, **kwargs):
     return out, steps
 
 
+def _form(form: str):
+    """``"chunks"``: the loop as it runs eagerly (one read a chunk);
+    ``"device"``: in ``control.device_form``, as a CUDA graph's WHILE node
+    runs it (every chunk to the cap, no read)."""
+    return control.device_form() if form == "device" else contextlib.nullcontext()
+
+
+def _reads_ok(form: str, reads: int, steps: int, k: int) -> bool:
+    return reads == 0 if form == "device" else reads <= math.ceil(steps / k) + 1
+
+
 def _pnp_lanes(seed: int, lanes: int = 4, n: int = 48):
     """Lane b: n points seen by a camera whose start pose is off by a
     perturbation that grows with b (so lanes stop at different steps; the
@@ -70,19 +82,21 @@ def _pnp_lanes(seed: int, lanes: int = 4, n: int = 48):
     return (quat_normalize(f(q0)), f(C0), f(X), f(meas), torch.as_tensor(mask))
 
 
+@pytest.mark.parametrize("form", ["chunks", "device"])
 @pytest.mark.parametrize("cap", [25, 100])
 @pytest.mark.parametrize("huber", [0.0, 2e-3])
-def test_lm_steps_chunked_equals_the_per_step_loop(monkeypatch, cap, huber):
+def test_lm_steps_chunked_equals_the_per_step_loop(monkeypatch, cap, huber, form):
     """``_lm_steps`` on a stack of lanes through the chunked loop: the same
     bits as the per-step loop, for a cap that is no multiple of k (25) and
     one that is (100), with and without Huber; each lane as its own call
     gives; lanes stop at different steps; at most ceil(steps / k) + 1 host
-    reads."""
+    reads, none in the device form (every chunk run to the cap)."""
     q0, C0, X, meas, mask = _pnp_lanes(1)
     args = (q0, C0, X, meas, mask)
     kw = dict(iterations=cap, damping=1e-3, huber_delta=huber)
     control.reset_stats()
-    got = pnp._lm_steps(*args, **kw)
+    with _form(form):
+        got = pnp._lm_steps(*args, **kw)
     reads = control.stats.reads
     want, (steps,) = _plain(monkeypatch, pnp, pnp._lm_steps, *args, **kw)
     for g, w in zip(got, want):
@@ -93,7 +107,7 @@ def test_lm_steps_chunked_equals_the_per_step_loop(monkeypatch, cap, huber):
         assert torch.equal(got[0][b:b + 1], out[0]) and torch.equal(got[1][b:b + 1], out[1])
     lane_steps = [s for _, (s,) in alone]
     assert len(set(lane_steps)) > 1 and max(lane_steps) == steps
-    assert reads <= math.ceil(steps / pnp.LM_CHUNK) + 1
+    assert _reads_ok(form, reads, steps, pnp.LM_CHUNK)
 
 
 def test_lm_steps_one_problem_without_a_lane_axis(monkeypatch):
@@ -105,11 +119,13 @@ def test_lm_steps_one_problem_without_a_lane_axis(monkeypatch):
     assert all(torch.equal(g, w) for g, w in zip(got, want))
 
 
+@pytest.mark.parametrize("form", ["chunks", "device"])
 @pytest.mark.parametrize("cap", [25, 100])
-def test_refine_triangulate_chunked_equals_the_per_step_loop(monkeypatch, cap):
+def test_refine_triangulate_chunked_equals_the_per_step_loop(monkeypatch, cap, form):
     """Three lanes of points seen by two cameras each, started off their
-    truth by amounts that grow with the lane: the chunked loop gives the
-    per-step loop's bits, and lanes stop at different steps."""
+    truth by amounts that grow with the lane: the chunked loop (and its
+    device form) gives the per-step loop's bits, and lanes stop at
+    different steps."""
     rng = np.random.default_rng(3)
     lanes, n = 3, 40
     Xw = rng.uniform([-3, -2, 6], [3, 2, 12], size=(lanes * n, 3))
@@ -125,7 +141,8 @@ def test_refine_triangulate_chunked_equals_the_per_step_loop(monkeypatch, cap):
     f = lambda a: torch.as_tensor(np.asarray(a, np.float64))  # noqa: E731
     args = (f(P), f(uv), torch.as_tensor(om), f(X0), LMConfig(damping=5.0, iterations=cap))
     control.reset_stats()
-    got = triangulation.refine_triangulate(*args, lanes=lanes)
+    with _form(form):
+        got = triangulation.refine_triangulate(*args, lanes=lanes)
     reads = control.stats.reads
     want, (steps,) = _plain(monkeypatch, triangulation, triangulation.refine_triangulate, *args,
                             lanes=lanes)
@@ -134,7 +151,7 @@ def test_refine_triangulate_chunked_equals_the_per_step_loop(monkeypatch, cap):
                          args[0], args[1][b * n:(b + 1) * n], args[2][b * n:(b + 1) * n],
                          args[3][b * n:(b + 1) * n], args[4])[1][0] for b in range(lanes)]
     assert len(set(lane_steps)) > 1 and max(lane_steps) == steps
-    assert reads <= math.ceil(steps / pnp.LM_CHUNK) + 1
+    assert _reads_ok(form, reads, steps, pnp.LM_CHUNK)
 
 
 def _spd(seed: int, V: int = 30):
@@ -154,26 +171,28 @@ def _precond(r, A, Pinv):
     return torch.einsum("vij,vj->vi", Pinv, r)
 
 
+@pytest.mark.parametrize("form", ["chunks", "device"])
 @pytest.mark.parametrize("cap", [5, 25, 200])
-def test_pcg_chunked_equals_the_per_step_loop_and_jax(monkeypatch, cap):
+def test_pcg_chunked_equals_the_per_step_loop_and_jax(monkeypatch, cap, form):
     """Block-Jacobi PCG with its operands passed (as the global solve passes
     them): the iterate and the count of the per-step loop, bit for bit;
     within ``test_pcg_solve_matches_jax``'s tolerance of JAX's
     ``while_loop``; at most ceil(iterations / k) + 1 host reads of the stop
-    test (and one of the count)."""
+    test (and one of the count), none in the device form."""
     A, b, Pinv = _spd(0)
     ops = (torch.as_tensor(A), torch.as_tensor(Pinv))
     cg: list = []
     control.reset_stats()
-    got = linalg.pcg_solve(_matvec, torch.as_tensor(b), cap, precond=_precond, cg_iters=cg,
-                           operands=ops)
+    with _form(form):
+        got = linalg.pcg_solve(_matvec, torch.as_tensor(b), cap, precond=_precond, cg_iters=cg,
+                               operands=ops)
     reads = control.stats.reads
     plain_cg: list = []
     want, (steps,) = _plain(monkeypatch, linalg, linalg.pcg_solve, _matvec, torch.as_tensor(b),
                             cap, precond=_precond, cg_iters=plain_cg, operands=ops)
     assert torch.equal(got, want) and cg == plain_cg == [steps]
     assert (steps == cap) == (cap < 25)
-    assert reads <= math.ceil(steps / linalg.CG_CHUNK) + 1
+    assert _reads_ok(form, reads, steps, linalg.CG_CHUNK)
     Aj, Pj = jnp.asarray(A), jnp.asarray(Pinv)
     jax_x = jax_pcg_solve(lambda x: (Aj @ x.reshape(-1)).reshape(x.shape), jnp.asarray(b), cap,
                           precond=lambda r: jnp.einsum("vij,vj->vi", Pj, r))

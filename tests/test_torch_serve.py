@@ -122,7 +122,9 @@ def test_artifact_meta_matches_the_jax_one(small_artifact, tmp_path):
             ["__meta", "__K", "prog_evict", "prog_reproj"])
         assert data["__K"].shape == jdata["__K"].shape == (8, 3, 3)
     assert set(meta) == set(jmeta)
-    assert meta["format_version"] == 1 and meta["frontend"] == "precomputed"
+    # the JAX artifact's format is 1; the port's is 2 (its BA rungs clamp the map)
+    assert meta["format_version"] == serve._FORMAT_VERSION == 2
+    assert meta["frontend"] == "precomputed"
     assert meta["config"]["capacity"]["max_keypoints"] == 512
     assert meta["platforms"] == ["cpu"] and meta["programs"] == ["evict", "reproj"]
     assert meta["image_dtype"] == jmeta["image_dtype"] == "float32"
@@ -152,6 +154,22 @@ def test_served_engine_refuses_an_untagged_loop(small_artifact, tmp_path):
     np.savez(bad, **files)
     with pytest.raises(ValueError, match="reproj: the while_loop node .* artifact again"):
         serve.load_engine(bad, device="cpu")
+
+
+def test_served_engine_refuses_a_version_1_artifact(small_artifact, tmp_path):
+    """An artifact of format 1, whose BA rungs do not clamp a map larger
+    than the rung (every rung runs before a steady frame's capture), is
+    refused at load, naming the re-export."""
+    _, path, _ = small_artifact
+    with np.load(path) as data:
+        files = {k: data[k] for k in data.files}
+    meta = json.loads(bytes(files["__meta"]).decode())
+    meta["format_version"] = 1
+    files["__meta"] = np.frombuffer(json.dumps(meta).encode(), np.uint8)
+    old = str(tmp_path / "v1.sfm.npz")
+    np.savez(old, **files)
+    with pytest.raises(ValueError, match="artifact format 1 != 2: export the engine again"):
+        serve.load_engine(old, device="cpu")
 
 
 def test_served_engine_refuses_what_it_cannot_serve(small_artifact):

@@ -262,3 +262,42 @@ def test_loaded_operators_call_their_eager_binding():
         got = program(x, y, floor, torch.tensor(index))
         want = module(x, y, floor, torch.tensor(index))
         assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def test_served_conds_run_as_the_live_switch():
+    """``serve.retarget_conds`` points a loaded program's ``cond`` node at
+    ``control.served_cond``: the eager bits for either branch; in the
+    device form (the CUDA graph's semantics: both branches run on the
+    device, no host read) the same bits."""
+    x, y, floor = _inputs()
+    program, _ = _served(_Loops(), (x, y, floor, torch.tensor(1)))
+    assert serve.retarget_conds(program) == 1
+    targets = [n.target for _, gm in program.named_modules() if isinstance(gm, torch.fx.GraphModule)
+               for n in gm.graph.nodes]
+    assert control.served_cond in targets and torch.ops.higher_order.cond not in targets
+    for index in (0, 1):
+        want = _Loops()(x, y, floor, index)
+        got = program(x, y, floor, torch.tensor(index))
+        control.reset_stats()
+        with control.device_form():
+            dev = program(x, y, floor, torch.tensor(index))
+        assert control.stats.reads == 0
+        for g, d, w in zip(got, dev, want):
+            assert torch.equal(g, w) and torch.equal(d, w), index
+
+
+def test_copies_of_constants_are_hoisted_to_load():
+    """A constant the export lifted and copies at every run (``to`` after
+    ``lift_fresh_copy``; on the card a host-to-card upload a run, which no
+    CUDA graph can hold) is copied once, at load: the program gives the
+    same bits with no ``to`` node left."""
+    class Const(torch.nn.Module):
+        def forward(self, x):
+            return x + torch.tensor([1.0, 2.5, -3.0], dtype=torch.float64).to(x.dtype)
+
+    x = torch.arange(3.0)
+    program = torch.export.load(io.BytesIO(serve.export_program(Const(), (x,))[0])).module()
+    want = program(x)
+    assert serve.hoist_constants(program) == 1
+    assert not any(n.target is torch.ops.aten.to.dtype for n in program.graph.nodes)
+    assert torch.equal(program(x), want) and torch.equal(want, Const()(x))

@@ -31,6 +31,7 @@ from structure_from_motion_tpu_torch.convert import state_from_numpy, state_to_n
 from structure_from_motion_tpu_torch.models import incremental as Ti
 from structure_from_motion_tpu_torch.models import tracks as Ttr
 from structure_from_motion_tpu_torch.models.incremental import IncrementalSfM
+from structure_from_motion_tpu_torch.utils import control
 from tests.test_incremental import umeyama_ate
 from tests.test_torch_config import port_config
 
@@ -91,10 +92,26 @@ def test_ba_stage_matches_jax_on_a_shared_state(runs):
                                    atol=1e-4, err_msg=name)
 
 
-def test_whole_slice_matches_jax_quality(runs):
+@pytest.fixture(scope="module")
+def device_form_port():
+    """The port's engine over the 4 frames in ``control.device_form``: its
+    steady frames as the card's CUDA graph runs them (every bucket's branch
+    run and the indexed one kept, every loop chunk run, no host read)."""
+    imgs, K, _, _ = synthetic_scene_sequence(**FRAMES)
+    teng = IncrementalSfM(port_config(CONFIG), K, frontend="native", seed=0, device="cpu")
+    with control.device_form():
+        for im in imgs:
+            teng.process_image(im)
+    return teng
+
+
+@pytest.mark.parametrize("form", ["eager", "device"])
+def test_whole_slice_matches_jax_quality(runs, form, request):
     """Both engines reproject under 2 px and the port's camera centres lie
-    within 5% of the span of the JAX centres after similarity alignment."""
-    jeng, teng = runs["jax"], runs["port"]
+    within 5% of the span of the JAX centres after similarity alignment;
+    the port run eagerly and in the graph's device form."""
+    jeng = runs["jax"]
+    teng = runs["port"] if form == "eager" else request.getfixturevalue("device_form_port")
     assert jeng.reprojection_error() < 2.0
     assert teng.reprojection_error() < 2.0
     jl, _ = jeng.poses()
