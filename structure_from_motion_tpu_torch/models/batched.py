@@ -31,6 +31,7 @@ from structure_from_motion_tpu_torch.models import tracks
 from structure_from_motion_tpu_torch.models.incremental import LazyDraws, _frame_step
 from structure_from_motion_tpu_torch.models.tracks import EvictionArchive, SfMState
 from structure_from_motion_tpu_torch.ops.features import detect_and_describe
+from structure_from_motion_tpu_torch.utils import profiling
 from structure_from_motion_tpu_torch.utils.rotations import quat_to_rotation
 
 
@@ -96,20 +97,26 @@ class BatchedIncrementalSfM:
             return v
         if self.config.window_mode != "slide":
             return None
-        self.state, rec = tracks.evict_oldest_view(self.state)
-        self._archive.append_device(rec)
+        with profiling.span("frame.evict"):
+            self.state, rec = tracks.evict_oldest_view(self.state)
+            self._archive.append_device(rec)
         return self._window - 1
 
     def _step(self, frame) -> dict:
-        """The frame step on (B, H, W) images or the lanes' (xy, desc, valid)."""
+        """The frame step on (B, H, W) images or the lanes' (xy, desc, valid),
+        in the spans ``frame.evict``, ``frame.step`` and ``frame.fetch`` of
+        the caller's ``frame`` (``utils/profiling``)."""
         v = self._frame
         slot = self._begin_frame(v)
         if slot is None:
             return {"skipped": True, "frame": v}
         draws = LazyDraws(self.seeds, v, self.state.points.device)
-        self.state, info = _frame_step(self.state, slot, draws, frame, self.config, self._graphs)
+        with profiling.span("frame.step"):
+            self.state, info = _frame_step(self.state, slot, draws, frame, self.config,
+                                           self._graphs)
         self._frame = v + 1
-        info = fetch(info)  # one grouped copy and one wait
+        with profiling.span("frame.fetch"):
+            info = fetch(info)  # one grouped copy and one wait
         info["frame"] = v
         return info
 
@@ -122,13 +129,18 @@ class BatchedIncrementalSfM:
         """``imgs``: (B, H, W), frame t of every sequence."""
         if self.frontend != "native":
             raise RuntimeError("process_images requires the native frontend")
-        return self._step(self._to_device(imgs))
+        with profiling.span("frame"):
+            with profiling.span("frame.upload"):
+                imgs = self._to_device(imgs)
+            return self._step(imgs)
 
     def process_features(self, xy, desc, valid) -> dict:
         """(B, K, 2), (B, K, D), (B, K) features of frame t of every lane."""
-        return self._step((self._to_device(xy, torch.float32),
-                           self._to_device(desc, torch.float32),
-                           self._to_device(valid, torch.bool)))
+        with profiling.span("frame"):
+            with profiling.span("frame.upload"):
+                frame = (self._to_device(xy, torch.float32), self._to_device(desc, torch.float32),
+                         self._to_device(valid, torch.bool))
+            return self._step(frame)
 
     # -- results -------------------------------------------------------------
     def lane_state(self, b: int) -> SfMState:

@@ -36,6 +36,7 @@ from structure_from_motion_tpu_torch.parallel import (
     make_mesh,
     replicate_first_rank,
 )
+from structure_from_motion_tpu_torch.utils import profiling
 
 
 class GlobalProblem(NamedTuple):
@@ -269,19 +270,26 @@ def solve_global(problem: GlobalProblem, ba_config: BAConfig, iterations: int = 
     ``num_shards`` > 1 sharded over that many ranks (:func:`solve_sharded`;
     every rank calls this with the same problem). ``stats``, when given,
     receives the layout (``tiers``, ``slots``) and the PCG
-    ``cg_iterations`` of each LM iteration."""
+    ``cg_iterations`` of each LM iteration. Spans (``utils/profiling``):
+    ``global.pack`` (the layout, with its uploads), ``global.lm`` (the LM
+    iterations) and ``global.fetch`` (the points back in the problem's
+    order, the costs to the host), on either path."""
     if num_shards > 1:
         return solve_sharded(problem, ba_config, make_mesh(num_shards), iterations, stats)
-    st, obs_t, tiers, order, cam_rows = tiered_problem(problem)
+    with profiling.span("global.pack"):
+        st, obs_t, tiers, order, cam_rows = tiered_problem(problem)
     cfg = dataclasses.replace(ba_config, iterations=iterations, obs_layout="tiered",
                               tiers=tiers, ell_rows=0, ell_tail=0, cam_rows=cam_rows)
     cg_iters: list = []
-    out, costs = run_bundle_adjustment(st, obs_t, cfg, cg_iters=cg_iters)
-    inv = torch.as_tensor(np.argsort(order)).to(out.X.device)
-    out = out._replace(X=out.X[inv], pt_valid=out.pt_valid[inv])
+    with profiling.span("global.lm"):
+        out, costs = run_bundle_adjustment(st, obs_t, cfg, cg_iters=cg_iters)
+    with profiling.span("global.fetch"):
+        inv = torch.as_tensor(np.argsort(order)).to(out.X.device)
+        out = out._replace(X=out.X[inv], pt_valid=out.pt_valid[inv])
+        costs = costs.cpu().numpy()
     if stats is not None:
         stats.update(tiers=tiers, slots=int(obs_t.cam.shape[0]), cg_iterations=cg_iters)
-    return out, costs.cpu().numpy()
+    return out, costs
 
 
 def solve_sharded(problem: GlobalProblem, ba_config: BAConfig, mesh: Mesh,
@@ -296,31 +304,35 @@ def solve_sharded(problem: GlobalProblem, ba_config: BAConfig, mesh: Mesh,
     problem's point order, costs). ``stats`` as in :func:`solve_global`,
     with ``tiers`` the ELL block of one shard and ``tail`` its spill
     slots."""
-    # rank 0's problem on every rank (see parallel/ba_sharded.py)
-    problem = problem._replace(
-        state=BAState(*(replicate_first_rank(t, mesh) for t in problem.state)),
-        obs=BAObservations(*(replicate_first_rank(t, mesh) for t in problem.obs)))
-    point, cam, valid = (a.cpu().numpy() for a in
-                         (problem.obs.point, problem.obs.cam, problem.obs.valid))
-    V, M = problem.state.C.shape[0], problem.state.X.shape[0]
-    O = problem.obs.cam.shape[0]
-    S = mesh.size
-    counts = np.bincount(point[valid], minlength=M)
-    rows, _ = _choose_ell_rows(counts, M)
-    obs_shard = (point % S)[valid]
-    spill_shard = np.bincount(np.arange(M) % S, weights=np.maximum(counts - rows, 0),
-                              minlength=S)
-    tail = _align_tail((M // S) * rows, int(spill_shard.max()))
-    cam_max = max(int(np.bincount(cam[valid][obs_shard == s], minlength=V).max(initial=0))
-                  for s in range(S))
-    cam_rows = _round_up(cam_max, 8) if V >= 64 else 0
-    cfg = dataclasses.replace(ba_config, iterations=iterations, obs_layout="ell",
-                              ell_rows=rows, ell_tail=tail, cam_rows=cam_rows)
-    bucket = _round_up(int(np.ceil(O / S * 1.25)), 8)
+    with profiling.span("global.pack"):
+        # rank 0's problem on every rank (see parallel/ba_sharded.py)
+        problem = problem._replace(
+            state=BAState(*(replicate_first_rank(t, mesh) for t in problem.state)),
+            obs=BAObservations(*(replicate_first_rank(t, mesh) for t in problem.obs)))
+        point, cam, valid = (a.cpu().numpy() for a in
+                             (problem.obs.point, problem.obs.cam, problem.obs.valid))
+        V, M = problem.state.C.shape[0], problem.state.X.shape[0]
+        O = problem.obs.cam.shape[0]
+        S = mesh.size
+        counts = np.bincount(point[valid], minlength=M)
+        rows, _ = _choose_ell_rows(counts, M)
+        obs_shard = (point % S)[valid]
+        spill_shard = np.bincount(np.arange(M) % S, weights=np.maximum(counts - rows, 0),
+                                  minlength=S)
+        tail = _align_tail((M // S) * rows, int(spill_shard.max()))
+        cam_max = max(int(np.bincount(cam[valid][obs_shard == s], minlength=V).max(initial=0))
+                      for s in range(S))
+        cam_rows = _round_up(cam_max, 8) if V >= 64 else 0
+        cfg = dataclasses.replace(ba_config, iterations=iterations, obs_layout="ell",
+                                  ell_rows=rows, ell_tail=tail, cam_rows=cam_rows)
+        bucket = _round_up(int(np.ceil(O / S * 1.25)), 8)
     cg_iters: list = []
-    out, costs, _ = interleaved_bundle_adjustment(problem.state, problem.obs, cfg, mesh, bucket,
-                                                  cg_iters)
+    with profiling.span("global.lm"):
+        out, costs, _ = interleaved_bundle_adjustment(problem.state, problem.obs, cfg, mesh,
+                                                      bucket, cg_iters)
+    with profiling.span("global.fetch"):
+        costs = costs.cpu().numpy()
     if stats is not None:
         stats.update(tiers=((M // S, rows),), tail=tail, slots=(M // S) * rows + tail,
                      bucket=bucket, cg_iterations=cg_iters)
-    return out, costs.cpu().numpy()
+    return out, costs

@@ -113,6 +113,7 @@ from structure_from_motion_tpu_torch.ops.triangulation import (
     reprojection_residuals,
     triangulate,
 )
+from structure_from_motion_tpu_torch.utils import profiling
 from structure_from_motion_tpu_torch.utils.control import graphed, lane_map, switch, take
 from structure_from_motion_tpu_torch.utils.geometry import (
     camera_projection,
@@ -815,7 +816,14 @@ class IncrementalSfM:
     ``frame_step_native``, ``assess``, ``assess_native``, ``evict``,
     ``reproj``, ``finalize``), so a served engine (``serve.ServedSfM``)
     swaps in exported programs and keeps the window policy, archive and
-    keyframe bookkeeping of this class."""
+    keyframe bookkeeping of this class.
+
+    Spans (``utils/profiling``, recorded while tracing is on): a ``frame``
+    around each :meth:`process_image` and :meth:`process_features` call,
+    holding ``frame.upload``, ``frame.evict`` (the eviction program and the
+    archive's copy), ``frame.step`` (the frame program, its graph replay
+    included) and ``frame.fetch`` (the grouped fetch and its wait);
+    ``checkpoint.load``; and the global solve's (:meth:`finalize_global`)."""
 
     def __init__(self, config: PipelineConfig, K, frontend: str = "native", seed: int = 0,
                  collect_metrics: bool = True, *, device="cuda"):
@@ -895,8 +903,9 @@ class IncrementalSfM:
         elif self.config.window_mode != "slide":
             return None
         else:
-            self.state, rec = self.programs["evict"](self.state)
-            self._archive.append_device(rec)
+            with profiling.span("frame.evict"):
+                self.state, rec = self.programs["evict"](self.state)
+                self._archive.append_device(rec)
             slot = self._window - 1
         if K is not None:
             K = self._to_device(np.asarray(K, np.float32))
@@ -916,35 +925,41 @@ class IncrementalSfM:
         admitted frame reuses the detected features."""
         if self.frontend != "native":
             raise RuntimeError("process_image requires the native frontend")
-        img = self._to_device(img)
-        if self.config.keyframe_min_flow_px > 0 and self._frame >= 1:
-            feats = []
+        with profiling.span("frame"):
+            with profiling.span("frame.upload"):
+                img = self._to_device(img)
+            if self.config.keyframe_min_flow_px > 0 and self._frame >= 1:
+                feats = []
 
-            def assess(prev):
-                *f, flow = self.programs["assess_native"](self.state, prev, img)
-                feats.extend(f)
-                return flow
+                def assess(prev):
+                    *f, flow = self.programs["assess_native"](self.state, prev, img)
+                    feats.extend(f)
+                    return flow
 
-            flow = self._keyframe_flow(assess)
-            if flow < self.config.keyframe_min_flow_px:
-                return self._skip_info(flow)
-            return self._admit(*feats, K, flow)
-        v = self._frame
-        slot = self._begin_frame(v, K)
-        if slot is None:
-            return {"skipped": True, "frame": v}
-        self.state, info = self.programs["frame_step_native"](self.state, slot, self._draws(v),
-                                                              img)
-        return self._finish_frame(v, info)
+                flow = self._keyframe_flow(assess)
+                if flow < self.config.keyframe_min_flow_px:
+                    return self._skip_info(flow)
+                return self._admit(*feats, K, flow)
+            v = self._frame
+            slot = self._begin_frame(v, K)
+            if slot is None:
+                return {"skipped": True, "frame": v}
+            with profiling.span("frame.step"):
+                self.state, info = self.programs["frame_step_native"](self.state, slot,
+                                                                      self._draws(v), img)
+            return self._finish_frame(v, info)
 
     def process_features(self, xy, desc, valid, K=None) -> dict:
-        xy, desc = self._to_device(xy, torch.float32), self._to_device(desc, torch.float32)
-        valid = self._to_device(valid, torch.bool)
-        flow = self._keyframe_flow(
-            lambda prev: self.programs["assess"](self.state, prev, xy, desc, valid))
-        if flow is not None and flow < self.config.keyframe_min_flow_px:
-            return self._skip_info(flow)
-        return self._admit(xy, desc, valid, K, flow)
+        with profiling.span("frame"):
+            with profiling.span("frame.upload"):
+                xy = self._to_device(xy, torch.float32)
+                desc = self._to_device(desc, torch.float32)
+                valid = self._to_device(valid, torch.bool)
+            flow = self._keyframe_flow(
+                lambda prev: self.programs["assess"](self.state, prev, xy, desc, valid))
+            if flow is not None and flow < self.config.keyframe_min_flow_px:
+                return self._skip_info(flow)
+            return self._admit(xy, desc, valid, K, flow)
 
     def _admit(self, xy, desc, valid, K, flow) -> dict:
         """The frame step on device features that passed the keyframe gate."""
@@ -952,8 +967,9 @@ class IncrementalSfM:
         slot = self._begin_frame(v, K)
         if slot is None:
             return {"skipped": True, "frame": v}
-        self.state, info = self.programs["frame_step"](self.state, slot, self._draws(v), xy,
-                                                       desc, valid)
+        with profiling.span("frame.step"):
+            self.state, info = self.programs["frame_step"](self.state, slot, self._draws(v), xy,
+                                                           desc, valid)
         info = self._finish_frame(v, info)
         if flow is not None:
             info["flow_px"] = flow
@@ -967,7 +983,8 @@ class IncrementalSfM:
         if self.collect_metrics:
             # every metric in ONE grouped copy and one wait (the JAX package's
             # grouped device_get), not a host read a key
-            info.update(fetch({k: val for k, val in info.items() if torch.is_tensor(val)}))
+            with profiling.span("frame.fetch"):
+                info.update(fetch({k: val for k, val in info.items() if torch.is_tensor(val)}))
             info["reprojection_px"] = float(info["reprojection_px"])
         return info
 
@@ -981,12 +998,14 @@ class IncrementalSfM:
                               keyframes=(self.keyframe_indices, self._input_index))
 
     def load_checkpoint(self, path: str) -> int:
-        """Restore a checkpoint of either package; returns the resume frame."""
+        """Restore a checkpoint of either package; returns the resume frame
+        (the span ``checkpoint.load``)."""
         from structure_from_motion_tpu_torch.utils import checkpoint
 
-        self.state, self._frame, archive, kf = checkpoint.load_state(path, self.device)
-        self._archive = EvictionArchive(archive)
-        self.keyframe_indices, self._input_index = kf
+        with profiling.span("checkpoint.load"):
+            self.state, self._frame, archive, kf = checkpoint.load_state(path, self.device)
+            self._archive = EvictionArchive(archive)
+            self.keyframe_indices, self._input_index = kf
         return self._frame
 
     # -- results -------------------------------------------------------------
@@ -1004,12 +1023,26 @@ class IncrementalSfM:
         (``models/global_ba.py``). Writes the refined archived poses, live
         poses and live map back. Returns the problem size, the
         per-iteration costs, the tiers, the slot count and the PCG
-        iterations of each LM iteration (empty for a dense solve)."""
-        n_live = min(self._frame, self._window)
-        prob = global_ba.build_global_problem(self.state, self._archive, n_live, min_obs=min_obs)
-        stats: dict = {}
-        out, costs = global_ba.solve_global(prob, self.config.ba, iterations=iterations,
-                                            num_shards=num_shards, stats=stats)
+        iterations of each LM iteration (empty for a dense solve). Spans
+        (``utils/profiling``): ``global.solve`` around the whole, and in it
+        ``global.build``, the solve's (``models/global_ba.solve_global``)
+        and ``global.write_back``."""
+        with profiling.span("global.solve"):
+            n_live = min(self._frame, self._window)
+            with profiling.span("global.build"):
+                prob = global_ba.build_global_problem(self.state, self._archive, n_live,
+                                                      min_obs=min_obs)
+            stats: dict = {}
+            out, costs = global_ba.solve_global(prob, self.config.ba, iterations=iterations,
+                                                num_shards=num_shards, stats=stats)
+            with profiling.span("global.write_back"):
+                self._write_back(prob, out, n_live)
+        return dict(stats, costs=costs, n_cams=prob.n_cams, n_points=prob.n_points,
+                    n_obs=prob.n_obs, max_track_len=prob.max_track_len)
+
+    def _write_back(self, prob, out, n_live: int) -> None:
+        """The solved problem's poses into the archive and the live window,
+        its points into their live map slots."""
         A = len(self._archive)
         C, q = out.C.cpu().numpy(), out.q.cpu().numpy()
         self._archive = EvictionArchive(r._replace(C=C[i], q=q[i])
@@ -1030,8 +1063,6 @@ class IncrementalSfM:
         rows = torch.as_tensor(np.nonzero(ok)[0]).to(dev)
         points[rows] = out.X[torch.as_tensor(j[ok]).to(dev)]
         self.state = self.state._replace(cam_C=cam_C, cam_q=cam_q, points=points)
-        return dict(stats, costs=costs, n_cams=prob.n_cams, n_points=prob.n_points,
-                    n_obs=prob.n_obs, max_track_len=prob.max_track_len)
 
     def reprojection_error(self) -> float:
         """Mean pixel reprojection error over all observations."""

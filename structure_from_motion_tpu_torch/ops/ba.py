@@ -57,6 +57,7 @@ from structure_from_motion_tpu_torch.ops.ba_cuda import ba_blocks, cam_onehot, h
 from structure_from_motion_tpu_torch.ops.ba_matvec import expand_cam, reduce_cam
 from structure_from_motion_tpu_torch.ops.linalg import inv3x3, pcg_solve, solve_psd
 from structure_from_motion_tpu_torch.ops.reproj import batched_residual_jacobians
+from structure_from_motion_tpu_torch.utils import profiling
 from structure_from_motion_tpu_torch.utils.control import fori, put
 from structure_from_motion_tpu_torch.utils.rotations import quat_normalize
 
@@ -467,23 +468,27 @@ def run_bundle_adjustment(state: BAState, obs: BAObservations, config: BAConfig,
 def _lm_iteration(i, C, q, X, lam, costs, cam_valid, pt_valid, obs, lay: ObsLayout, *,
                   config: BAConfig, cg_iters, psum):
     """LM iteration ``i``: assembly, reduced solve, the candidate step, its
-    cost in ``costs[..., i]`` and (adaptive) the accept test and lambda."""
-    state = BAState(C=C, q=q, X=X, cam_valid=cam_valid, pt_valid=pt_valid)
-    U, D, W, b_c, b_p, cost = _assemble(state, obs, config, lay)
-    if psum is not None:
-        cost = psum(cost)  # the accept test compares global costs
-    dc, dp = _reduce_and_solve(U, D, W, b_c, b_p, state, obs, config, lam, lay, cg_iters, psum)
-    cand = _apply_step(state, dc, dp)
-    costs = put(costs, i, cost, dim=-1 % costs.dim())
-    if not config.adaptive:
-        return cand.C, cand.q, cand.X, lam, costs
-    accept = total_reprojection_cost(cand, obs, config.huber_delta, lay, psum) < cost
-    state = BAState(*(torch.where(accept.reshape(accept.shape + (1,) * (a.dim() - accept.dim())),
-                                  a, b) for a, b in zip(cand, state)))
-    lam = torch.clamp(
-        torch.where(accept, lam * config.damping_down, lam * config.damping_up),
-        config.min_damping, config.max_damping,
-    )
-    return state.C, state.q, state.X, lam, costs
+    cost in ``costs[..., i]`` and (adaptive) the accept test and lambda;
+    run eagerly, the span ``ba.iteration`` (``utils/profiling``)."""
+    with profiling.span("ba.iteration"):
+        state = BAState(C=C, q=q, X=X, cam_valid=cam_valid, pt_valid=pt_valid)
+        U, D, W, b_c, b_p, cost = _assemble(state, obs, config, lay)
+        if psum is not None:
+            cost = psum(cost)  # the accept test compares global costs
+        dc, dp = _reduce_and_solve(U, D, W, b_c, b_p, state, obs, config, lam, lay, cg_iters,
+                                   psum)
+        cand = _apply_step(state, dc, dp)
+        costs = put(costs, i, cost, dim=-1 % costs.dim())
+        if not config.adaptive:
+            return cand.C, cand.q, cand.X, lam, costs
+        accept = total_reprojection_cost(cand, obs, config.huber_delta, lay, psum) < cost
+        state = BAState(*(torch.where(
+            accept.reshape(accept.shape + (1,) * (a.dim() - accept.dim())), a, b)
+            for a, b in zip(cand, state)))
+        lam = torch.clamp(
+            torch.where(accept, lam * config.damping_down, lam * config.damping_up),
+            config.min_damping, config.max_damping,
+        )
+        return state.C, state.q, state.X, lam, costs
 
 

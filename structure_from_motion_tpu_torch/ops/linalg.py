@@ -19,7 +19,8 @@ import functools
 import torch
 
 from structure_from_motion_tpu_torch.ops import small_svd
-from structure_from_motion_tpu_torch.utils.control import masked_loop, unconditional
+from structure_from_motion_tpu_torch.utils import profiling
+from structure_from_motion_tpu_torch.utils.control import masked_loop, reads_named, unconditional
 
 
 def floor_abs(x: torch.Tensor, eps: float) -> torch.Tensor:
@@ -134,7 +135,9 @@ def pcg_solve(matvec, b: torch.Tensor, iterations: int, rtol: float = 1e-6, prec
     card, so ``matvec`` and ``precond`` read no tensor but their
     arguments there. ``capture=False`` runs the chunks eagerly (a matvec
     that all-reduces through gloo cannot be captured). ``cg_iters``, when
-    given, receives the number of iterations run (one host read).
+    given, receives the number of iterations run (one host read). The
+    spans (``utils/profiling``): ``pcg.read``, each read of the stop mask;
+    ``pcg.count_read``, the read of the count.
     """
     apply_m = precond if precond is not None else _identity
     z = apply_m(b, *operands)
@@ -142,9 +145,11 @@ def pcg_solve(matvec, b: torch.Tensor, iterations: int, rtol: float = 1e-6, prec
     stop = rtol**2 * rz.abs()
     count = torch.zeros((), dtype=torch.long, device=b.device)
     step = functools.partial(_pcg_step, matvec=matvec, precond=apply_m)
-    _, x, _, _, _, count = masked_loop(iterations, CG_CHUNK, step,
-                                       (rz.abs() > stop, torch.zeros_like(b), b, z, rz, count),
-                                       stop, *operands, capture=capture)
+    with reads_named("pcg.read"):
+        _, x, _, _, _, count = masked_loop(iterations, CG_CHUNK, step,
+                                           (rz.abs() > stop, torch.zeros_like(b), b, z, rz,
+                                            count), stop, *operands, capture=capture)
     if cg_iters is not None:
-        cg_iters.append(int(count))
+        with profiling.span("pcg.count_read"):
+            cg_iters.append(int(count))
     return x

@@ -71,6 +71,8 @@ import torch
 from torch.multiprocessing.reductions import StorageWeakRef
 from torch.utils import _pytree as pytree
 
+from structure_from_motion_tpu_torch.utils import profiling
+
 
 def take(t: torch.Tensor, i, dim: int = 0) -> torch.Tensor:
     """``t`` at index ``i`` of ``dim``: ``i`` a Python int (a view) or a
@@ -427,9 +429,25 @@ def reset_stats() -> None:
         setattr(stats, f.name, f.default)
 
 
+_READ_SPANS = ["loop.read"]  # the span of a stop-mask read, named by the innermost caller
+
+
+@contextlib.contextmanager
+def reads_named(name: str):
+    """Name the span of each host read of a stop mask in the block
+    (``utils/profiling.span``; "loop.read" elsewhere): ``pcg.read`` in
+    ``ops/linalg.pcg_solve``."""
+    _READ_SPANS.append(name)
+    try:
+        yield
+    finally:
+        _READ_SPANS.pop()
+
+
 def _read(flag: torch.Tensor) -> bool:
     stats.reads += 1
-    return bool(flag)
+    with profiling.span(_READ_SPANS[-1]):
+        return bool(flag)
 
 
 def _masked_step(n: int, step_fn, i, carried: tuple, operands: tuple):
