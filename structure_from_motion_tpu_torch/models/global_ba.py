@@ -11,8 +11,14 @@ layout, or sharded over the ranks of a process group
 (``parallel/ba_sharded.py``) in the hybrid ELL (uniform rows plus a
 point-sorted spill tail) a shard.
 
-Assembly is host-side numpy (once per reconstruction; data-dependent
-shapes); only the solve runs on the device.
+The assembly (:func:`build_global_problem`) and the tiered packing
+(:func:`tiered_problem`, :func:`pack_tiered`) run on the state's device:
+the archive is stacked on the host and uploaded once a field, and the
+union, the support count, the seeds, the normalisation and the packing
+are sorts, searches, scatters and gathers there. The host reads only what
+sets a shape or stays on the host (the sizes with the live intrinsics, the
+kept global ids, the track-length histogram with the busiest camera's
+count), each a grouped copy and one wait, counted in :data:`host_reads`.
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ import numpy as np
 import torch
 
 from structure_from_motion_tpu_torch.config import BAConfig
+from structure_from_motion_tpu_torch.device import HostCopy, clamp_index, repeat_each, to_device
 from structure_from_motion_tpu_torch.models.tracks import EvictionRecord, SfMState
 from structure_from_motion_tpu_torch.ops.ba import (
     BAObservations,
@@ -37,6 +44,8 @@ from structure_from_motion_tpu_torch.parallel import (
     replicate_first_rank,
 )
 from structure_from_motion_tpu_torch.utils import profiling
+
+host_reads = 0  # grouped device-to-host reads of the assembly and the packing, since the process began
 
 
 class GlobalProblem(NamedTuple):
@@ -56,12 +65,60 @@ def _round_up(n: int, mult: int) -> int:
     return ((max(n, 1) + mult - 1) // mult) * mult
 
 
-def _stack_archive(archive: Sequence[EvictionRecord]) -> EvictionRecord | None:
-    """One record of stacked host arrays (leading axis = eviction order)."""
-    if not archive:
-        return None
-    return EvictionRecord(*[np.stack([np.asarray(getattr(r, f)) for r in archive])
-                            for f in EvictionRecord._fields])
+def _read(*tensors) -> HostCopy:
+    """A grouped host copy of ``tensors``, started now and waited for at
+    its ``arrays()``; counted in :data:`host_reads`."""
+    global host_reads
+    host_reads += 1
+    return HostCopy(tensors)
+
+
+def _stack(arrays: list, pin: bool = False) -> torch.Tensor:
+    """``np.stack(arrays)`` as a host tensor (pinned where ``pin``), filled
+    by one concatenation of the arrays along their first axis (numpy's
+    ``stack`` also makes a view of every array)."""
+    first = np.asarray(arrays[0])
+    dtype = torch.from_numpy(np.empty((0,), first.dtype)).dtype
+    buf = torch.empty((len(arrays),) + first.shape, dtype=dtype, pin_memory=pin)
+    np.concatenate(arrays, out=buf.numpy().reshape((-1,) + first.shape[1:]))
+    return buf
+
+
+def _scatter_rows(dest: torch.Tensor, n: int, *values: torch.Tensor) -> list:
+    """Each of ``values`` with its rows at ``dest`` in ``n`` zero-filled
+    rows. Every kept row has a destination of its own; a ``dest`` of ``n``
+    drops the row (all such rows share one extra row, so the order of the
+    scatter's writes decides nothing that is kept)."""
+    out = []
+    for v in values:
+        buf = v.new_zeros((n + 1,) + tuple(v.shape[1:]))
+        buf[dest] = v
+        out.append(buf[:n])
+    return out
+
+
+def _compact(keep: torch.Tensor, n: int, *values: torch.Tensor) -> list:
+    """The rows of each of ``values`` where ``keep``, in their order, as the
+    first of ``n`` zero-filled rows."""
+    return _scatter_rows(torch.where(keep, torch.cumsum(keep, 0) - 1, n), n, *values)
+
+
+def seed_winners(sel: torch.Tensor, src_gid: torch.Tensor) -> torch.Tensor:
+    """For each kept global id of ``sel`` (ascending), the index of the
+    LAST entry of ``src_gid`` that holds it (-1 where none does): with the
+    sources in write order (archived slots by eviction, then the live
+    map), later evictions win and the live map wins over all. A max over
+    positions, so the answer does not hang on the order of a scatter."""
+    P = sel.shape[0]
+    win = torch.full((P + 1,), -1, dtype=torch.int64, device=sel.device)
+    if P == 0:
+        return win[:0]
+    key = src_gid.to(sel.dtype)
+    j = torch.searchsorted(sel, key).clamp(max=P - 1)
+    ok = (src_gid >= 0) & (sel[j] == key)
+    pos = torch.arange(src_gid.shape[0], device=sel.device)
+    win.scatter_reduce_(0, torch.where(ok, j, P), pos, "amax")
+    return win[:P]
 
 
 def build_global_problem(state: SfMState, archive: Sequence[EvictionRecord], n_live: int,
@@ -72,82 +129,83 @@ def build_global_problem(state: SfMState, archive: Sequence[EvictionRecord], n_l
     Cameras: ``len(archive)`` archived poses, then the ``n_live`` live
     poses (the order of :meth:`IncrementalSfM.poses`). Points: every
     global id observed ``>= min_obs`` times across the union, seeded from
-    the live map when still alive, else from its last eviction. Pixel
-    observations are normalised with each view's own K. Points and
-    observations are padded to ``pad_multiple``."""
-    st = {k: v.detach().cpu().numpy() for k, v in state._asdict().items()}
-    dt = st["cam_C"].dtype
+    the live map when still alive, else from its last eviction
+    (:func:`seed_winners`). Pixel observations are normalised with each
+    view's own K. Points and observations are padded to ``pad_multiple``.
+
+    The archive's fields are stacked on the host (on the card into pinned
+    memory) and uploaded without a wait, one copy a field (K stays on the
+    host); the live state is read where it is. The host makes two reads
+    (:func:`_read`): the point and observation counts and the longest track
+    with the live views' K (every K is inverted on the host, as numpy
+    inverts it), then the kept global ids (``gids``)."""
+    dev = state.points.device
     A = len(archive)
-    cam_C, cam_q, cam_K = st["cam_C"][:n_live], st["cam_q"][:n_live], st["K"][:n_live]
-    arc = _stack_archive(archive)
-    if A:
-        cam_C = np.concatenate([arc.C, cam_C])
-        cam_q = np.concatenate([arc.q, cam_q])
-        cam_K = np.concatenate([arc.K, cam_K])
+    Kk = int(np.asarray(archive[0].gid).shape[0]) if A else 0
+    fields = ("C", "q", "gid", "uv", "X", "valid")
+    pin = dev.type == "cuda"
+    arc = {f: _stack([getattr(r, f) for r in archive], pin).to(dev, non_blocking=True)
+           for f in fields} if A else {
+        "C": state.cam_C[:0], "q": state.cam_q[:0], "gid": state.pt_gid[:0],
+        "uv": state.obs_uv[:0], "X": state.points[:0], "valid": state.obs_valid[:0]}
+    arc_K = _stack([r.K for r in archive]).numpy() if A else None
     F = A + n_live
 
-    # observation union (cam, gid, uv)
-    cams, gids, uvs = [], [], []
-    if A:
-        v = arc.valid
-        cams.append(np.repeat(np.arange(A, dtype=np.int32), v.sum(axis=1)))
-        gids.append(arc.gid[v])
-        uvs.append(arc.uv[v])
-    lv = st["obs_valid"]
-    cams.append(st["obs_cam"][lv].astype(np.int32) + A)
-    gids.append(st["pt_gid"][st["obs_pt"][lv]])
-    uvs.append(st["obs_uv"][lv])
-    cam, gid, uv = np.concatenate(cams), np.concatenate(gids), np.concatenate(uvs)
+    # candidates: the archived slots (record by record), then the live
+    # store's slots; an empty slot's id is -1
+    lv = state.obs_valid
+    live_pt = clamp_index(state.obs_pt.long(), state.pt_gid.shape[0])
+    cand_gid = torch.cat([torch.where(arc["valid"], arc["gid"], -1).reshape(-1),
+                          torch.where(lv, state.pt_gid[live_pt], -1)])
+    arc_cam = repeat_each(torch.arange(A, dtype=torch.int32, device=dev), Kk)
+    cand_cam = torch.cat([arc_cam, state.obs_cam.to(torch.int32) + A])
+    cand_uv = torch.cat([arc["uv"].reshape(-1, 2), state.obs_uv])
 
-    # global ids with enough support
-    uniq, counts = np.unique(gid[gid >= 0], return_counts=True)
-    sel = uniq[counts >= min_obs]
-    max_track = int(counts[counts >= min_obs].max()) if sel.size else 0
-    P_real = int(sel.size)
-    idx = np.clip(np.searchsorted(sel, gid), 0, max(P_real - 1, 0))
-    keep = np.logical_and(gid >= 0, sel[idx] == gid) if P_real else np.zeros(gid.shape, bool)
-    cam, uv, pt_idx = cam[keep], uv[keep], idx[keep]
-    O_real = int(cam.shape[0])
-
-    # point seeds: archived in eviction order (numpy keeps the LAST write of
-    # duplicate indices, so later evictions win), then the live map
-    X_seed = np.zeros((max(P_real, 1), 3), dt)
-    if A:
-        v = arc.valid
-        g = arc.gid[v]
-        j = np.clip(np.searchsorted(sel, g), 0, max(P_real - 1, 0))
-        ok = sel[j] == g if P_real else np.zeros(g.shape, bool)
-        X_seed[j[ok]] = arc.X[v][ok]
-    live = st["pt_valid"]
-    g = st["pt_gid"][live]
-    j = np.clip(np.searchsorted(sel, np.clip(g, 0, None)), 0, max(P_real - 1, 0))
-    ok = np.logical_and(g >= 0, sel[j] == g) if P_real else np.zeros(g.shape, bool)
-    X_seed[j[ok]] = st["points"][live][ok]
-
-    # normalise pixels with each camera's own K
-    Kinv = np.linalg.inv(cam_K)
-    uvh = np.concatenate([uv, np.ones((O_real, 1), dt)], axis=1)
-    uvn = np.einsum("oij,oj->oi", Kinv[cam], uvh)[:, :2].astype(dt)
+    # support: sort the ids, a run's extent by two searches
+    big = torch.iinfo(torch.int64).max
+    key = torch.where(cand_gid >= 0, cand_gid.long(), big)
+    s = torch.sort(key).values
+    lo = torch.searchsorted(s, key)
+    support = torch.searchsorted(s, key, right=True) - lo
+    keep = (cand_gid >= 0) & (support >= min_obs)
+    lo_s = torch.searchsorted(s, s)
+    run = torch.searchsorted(s, s, right=True) - lo_s
+    head = (lo_s == torch.arange(s.shape[0], device=dev)) & (s != big) & (run >= min_obs)
+    dense = torch.cumsum(head, 0) - 1  # a kept id's point row, at its run's head
+    sizes = torch.stack([head.sum(), keep.sum(), torch.where(head, run, 0).max()])
+    sizes, live_K = _read(sizes, state.K[:n_live]).arrays()
+    P_real, O_real, max_track = (int(v) for v in sizes)
+    sel = _compact(head, P_real, s)[0]
+    gids_read = _read(sel)
 
     P_pad, O_pad = _round_up(P_real, pad_multiple), _round_up(O_real, pad_multiple)
-    dev = state.points.device
-    t = lambda a: torch.as_tensor(a).to(dev)  # noqa: E731
+    cam, point, uv = _compact(keep, O_pad, cand_cam, dense[lo].to(torch.int32), cand_uv)
+    valid = torch.arange(O_pad, device=dev) < O_real
+
+    # normalise pixels with each camera's own K, in numpy's float32 einsum
+    # order over [u, v, 1] (the u and v terms summed first)
+    cam_K = np.concatenate([arc_K, live_K]) if A else live_K
+    Kinv = to_device(torch.from_numpy(np.linalg.inv(cam_K)), dev)[cam.long(), :2]
+    uv_norm = (Kinv[..., 0] * uv[:, :1] + Kinv[..., 1] * uv[:, 1:]) + Kinv[..., 2]
+    uv_norm = torch.where(valid[:, None], uv_norm, 0).to(state.cam_C.dtype)
+
+    # point seeds: the archived slots in eviction order, then the live map
+    src_gid = torch.cat([cand_gid[:A * Kk], torch.where(state.pt_valid, state.pt_gid, -1)])
+    src_X = torch.cat([arc["X"].reshape(-1, 3), state.points])
+    win = seed_winners(sel, src_gid)
+    X = src_X.new_zeros((P_pad, 3))
+    X[:P_real] = torch.where(win[:, None] >= 0, src_X[win.clamp(min=0)], 0)
+
     ba_state = BAState(
-        C=t(cam_C),
-        q=t(cam_q),
-        X=t(np.concatenate([X_seed[:P_real], np.zeros((P_pad - P_real, 3), dt)])),
-        cam_valid=t(np.ones((F,), bool)),
-        pt_valid=t(np.arange(P_pad) < P_real),
+        C=torch.cat([arc["C"], state.cam_C[:n_live]]),
+        q=torch.cat([arc["q"], state.cam_q[:n_live]]),
+        X=X,
+        cam_valid=torch.ones((F,), dtype=torch.bool, device=dev),
+        pt_valid=torch.arange(P_pad, device=dev) < P_real,
     )
-    pad_i = np.zeros(O_pad - O_real, np.int32)
-    obs = BAObservations(
-        cam=t(np.concatenate([cam, pad_i])),
-        point=t(np.concatenate([pt_idx.astype(np.int32), pad_i])),
-        uv_norm=t(np.concatenate([uvn, np.zeros((O_pad - O_real, 2), dt)])),
-        valid=t(np.arange(O_pad) < O_real),
-    )
+    obs = BAObservations(cam=cam, point=point, uv_norm=uv_norm, valid=valid)
     gids_out = np.full((P_pad,), -1, np.int64)
-    gids_out[:P_real] = sel
+    gids_out[:P_real] = gids_read.arrays()[0]
     return GlobalProblem(ba_state, obs, gids_out, F, P_real, O_real, max_track)
 
 
@@ -176,61 +234,57 @@ def choose_tiers(counts_desc: np.ndarray, round_to: int = 256) -> tuple:
     return tuple(tiers)
 
 
-def pack_tiered(obs: BAObservations, tiers: tuple, order: np.ndarray,
-                align: int = 512) -> BAObservations:
-    """Host-side packing into the tiered-ELL layout. ``order``: original id
-    of each renumbered point row (descending track length); tier t owns the
-    next ``n_t`` points x ``rows_t`` slots; the stream is padded to an
-    ``align`` multiple. Returns tensors on ``obs``'s device."""
-    point, cam, uv, valid = (a.detach().cpu().numpy() for a in
-                             (obs.point, obs.cam, obs.uv_norm, obs.valid))
-    newid = np.empty(order.size, np.int64)
-    newid[order] = np.arange(order.size)
-    base = np.empty(order.size, np.int64)
-    p0, s0 = 0, 0
-    for n, r in tiers:
-        base[p0:p0 + n] = s0 + np.arange(n, dtype=np.int64) * r
-        p0 += n
-        s0 += n * r
-    total = s0 + (-s0) % align
-
-    np_v = newid[point[valid]]
-    o2 = np.argsort(np_v, kind="stable")
-    np_s = np_v[o2]
-    rank = np.arange(np_s.size) - np.searchsorted(np_s, np_s)
-    dest = base[np_s] + rank
-
-    cam_t = np.zeros(total, np.int32)
-    uv_t = np.zeros((total, 2), uv.dtype)
-    val_t = np.zeros(total, bool)
-    pt_t = np.zeros(total, np.int32)
-    p0, s0 = 0, 0
-    for n, r in tiers:
-        pt_t[s0:s0 + n * r] = np.repeat(np.arange(p0, p0 + n, dtype=np.int32), r)
-        p0 += n
-        s0 += n * r
-    cam_t[dest] = cam[valid][o2]
-    uv_t[dest] = uv[valid][o2]
-    val_t[dest] = True
+def pack_tiered(obs: BAObservations, tiers: tuple, order, align: int = 512) -> BAObservations:
+    """Packing into the tiered-ELL layout, on ``obs``'s device. ``order``
+    (numpy or a tensor): original id of each renumbered point row
+    (descending track length); tier t owns the next ``n_t`` points x
+    ``rows_t`` slots; the stream is padded to an ``align`` multiple. A
+    stable sort of the valid observations by new point id, each one's rank
+    in its point, and scatters into distinct slots; no host read."""
     dev = obs.cam.device
-    return BAObservations(*(torch.as_tensor(a).to(dev) for a in (cam_t, pt_t, uv_t, val_t)))
+    order = torch.as_tensor(order, device=dev).long()
+    M = order.shape[0]
+    rows_of = np.repeat([r for _, r in tiers], [n for n, _ in tiers]).astype(np.int64)
+    used = int(rows_of.sum())
+    total = used + (-used) % align
+    rows_of = to_device(torch.from_numpy(rows_of), dev)
+    base = torch.cumsum(rows_of, 0) - rows_of  # each new point's first slot
+
+    newid = torch.empty_like(order)
+    newid[order] = torch.arange(M, device=dev)
+    key = torch.where(obs.valid, newid[clamp_index(obs.point.long(), M)], M)  # invalid rows last
+    key_s, o2 = torch.sort(key, stable=True)
+    rank = torch.arange(key_s.shape[0], device=dev) - torch.searchsorted(key_s, key_s)
+    ok = key_s < M
+    dest = torch.where(ok, base[key_s.clamp(max=M - 1)] + rank, total)
+
+    cam_t, uv_t, val_t = _scatter_rows(dest, total, obs.cam[o2], obs.uv_norm[o2], ok)
+    pt_t = torch.repeat_interleave(torch.arange(M, dtype=torch.int32, device=dev), rows_of,
+                                   output_size=used)
+    pt_t = torch.cat([pt_t, pt_t.new_zeros(total - used)])
+    return BAObservations(cam_t, pt_t, uv_t, val_t)
 
 
 def tiered_problem(problem: GlobalProblem):
     """Renumber points by descending track length and pack the stream into
     tiers -> (state, obs, tiers, order, cam_rows); ``cam_rows`` sizes the
-    camera-major view to the busiest camera from 64 cameras up."""
-    point, cam, valid = (a.cpu().numpy() for a in
-                         (problem.obs.point, problem.obs.cam, problem.obs.valid))
+    camera-major view to the busiest camera from 64 cameras up. ``order``
+    is a tensor on the problem's device. The histogram, its stable
+    descending order and the camera counts are made on the device; the host
+    reads the sorted histogram and the busiest camera's count in one
+    :func:`_read`, and :func:`choose_tiers` runs on them."""
+    obs = problem.obs
+    dev = obs.cam.device
     V, M_pad = problem.state.C.shape[0], problem.state.X.shape[0]
-    counts = np.bincount(point[valid], minlength=M_pad)
-    order = np.argsort(-counts, kind="stable")
-    tiers = choose_tiers(counts[order])
-    obs_t = pack_tiered(problem.obs, tiers, order)
-    idx = torch.as_tensor(order).to(problem.state.X.device)
-    st = problem.state._replace(X=problem.state.X[idx], pt_valid=problem.state.pt_valid[idx])
-    cam_max = int(np.bincount(cam[valid], minlength=V).max())
-    cam_rows = _round_up(cam_max, 8) if V >= 64 else 0
+    ones = obs.valid.to(torch.int64)
+    counts = torch.zeros(M_pad, dtype=torch.int64, device=dev).index_add_(0, obs.point.long(), ones)
+    order = torch.sort(-counts, stable=True).indices
+    per_cam = torch.zeros(V, dtype=torch.int64, device=dev).index_add_(0, obs.cam.long(), ones)
+    counts_desc, cam_max = _read(counts[order], per_cam.max()).arrays()
+    tiers = choose_tiers(counts_desc)
+    obs_t = pack_tiered(obs, tiers, order)
+    st = problem.state._replace(X=problem.state.X[order], pt_valid=problem.state.pt_valid[order])
+    cam_rows = _round_up(int(cam_max), 8) if V >= 64 else 0
     return st, obs_t, tiers, order, cam_rows
 
 
@@ -271,7 +325,7 @@ def solve_global(problem: GlobalProblem, ba_config: BAConfig, iterations: int = 
     every rank calls this with the same problem). ``stats``, when given,
     receives the layout (``tiers``, ``slots``) and the PCG
     ``cg_iterations`` of each LM iteration. Spans (``utils/profiling``):
-    ``global.pack`` (the layout, with its uploads), ``global.lm`` (the LM
+    ``global.pack`` (the layout, made on the device), ``global.lm`` (the LM
     iterations) and ``global.fetch`` (the points back in the problem's
     order, the costs to the host), on either path."""
     if num_shards > 1:
@@ -284,7 +338,8 @@ def solve_global(problem: GlobalProblem, ba_config: BAConfig, iterations: int = 
     with profiling.span("global.lm"):
         out, costs = run_bundle_adjustment(st, obs_t, cfg, cg_iters=cg_iters)
     with profiling.span("global.fetch"):
-        inv = torch.as_tensor(np.argsort(order)).to(out.X.device)
+        inv = torch.empty_like(order)
+        inv[order] = torch.arange(order.shape[0], device=order.device)
         out = out._replace(X=out.X[inv], pt_valid=out.pt_valid[inv])
         costs = costs.cpu().numpy()
     if stats is not None:
@@ -309,8 +364,7 @@ def solve_sharded(problem: GlobalProblem, ba_config: BAConfig, mesh: Mesh,
         problem = problem._replace(
             state=BAState(*(replicate_first_rank(t, mesh) for t in problem.state)),
             obs=BAObservations(*(replicate_first_rank(t, mesh) for t in problem.obs)))
-        point, cam, valid = (a.cpu().numpy() for a in
-                             (problem.obs.point, problem.obs.cam, problem.obs.valid))
+        point, cam, valid = _read(problem.obs.point, problem.obs.cam, problem.obs.valid).arrays()
         V, M = problem.state.C.shape[0], problem.state.X.shape[0]
         O = problem.obs.cam.shape[0]
         S = mesh.size

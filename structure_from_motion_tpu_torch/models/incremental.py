@@ -1023,12 +1023,15 @@ class IncrementalSfM:
         (``models/global_ba.py``). Writes the refined archived poses, live
         poses and live map back. Returns the problem size, the
         per-iteration costs, the tiers, the slot count and the PCG
-        iterations of each LM iteration (empty for a dense solve). Spans
+        iterations of each LM iteration (empty for a dense solve), and
+        ``assembly_reads``, the host reads the assembly and the packing
+        made (``models/global_ba.host_reads``). Spans
         (``utils/profiling``): ``global.solve`` around the whole, and in it
         ``global.build``, the solve's (``models/global_ba.solve_global``)
         and ``global.write_back``."""
         with profiling.span("global.solve"):
             n_live = min(self._frame, self._window)
+            reads = global_ba.host_reads
             with profiling.span("global.build"):
                 prob = global_ba.build_global_problem(self.state, self._archive, n_live,
                                                       min_obs=min_obs)
@@ -1038,7 +1041,8 @@ class IncrementalSfM:
             with profiling.span("global.write_back"):
                 self._write_back(prob, out, n_live)
         return dict(stats, costs=costs, n_cams=prob.n_cams, n_points=prob.n_points,
-                    n_obs=prob.n_obs, max_track_len=prob.max_track_len)
+                    n_obs=prob.n_obs, max_track_len=prob.max_track_len,
+                    assembly_reads=global_ba.host_reads - reads)
 
     def _write_back(self, prob, out, n_live: int) -> None:
         """The solved problem's poses into the archive and the live window,

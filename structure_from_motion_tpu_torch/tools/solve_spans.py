@@ -19,6 +19,8 @@ drifts within a run), then one solve with the spans on under
   wall time that its ``checkpoint.load`` and ``global.solve`` cover
   (``solve_wall``), and of the share of ``global.solve`` that its children
   cover (``solve_children``);
+* ``assembly_reads``: the host reads of the assembly and the packing a
+  solve (``models/global_ba.host_reads``), over the blocks' solves;
 * ``site_us``: a span site's cost, ``off`` and ``on`` (no profiler), each
   the mean of 10^5 entries;
 * ``profiled``: the profiled solve's ``wall_s``, the union of its device
@@ -126,6 +128,7 @@ def measure(blob: bytes, config, device: str = "cuda", iterations: int = 20,
             solves: int = 10, blocks: int = 3, warm: int = 2, site_n: int = 100_000) -> dict:
     """The module's report (its docstring) for the checkpoint bytes ``blob``
     under the ``PipelineConfig`` ``config``; leaves the spans off."""
+    from structure_from_motion_tpu_torch.models import global_ba
     from structure_from_motion_tpu_torch.models.incremental import IncrementalSfM
 
     eng = IncrementalSfM(config, np.eye(3), frontend="precomputed", device=device)
@@ -133,6 +136,7 @@ def measure(blob: bytes, config, device: str = "cuda", iterations: int = 20,
     for _ in range(warm):
         _solve(eng, blob, iterations)
     off, on, records, walls = [], [], [], []
+    reads = global_ba.host_reads
     try:
         for _ in range(blocks):
             off.append(float(np.median([_solve(eng, blob, iterations) for _ in range(solves)])))
@@ -143,6 +147,7 @@ def measure(blob: bytes, config, device: str = "cuda", iterations: int = 20,
             on.append(float(np.median(took)))
             records += profiling.records()
             walls += took
+        reads = (global_ba.host_reads - reads) / (2 * blocks * solves)
         acts = [torch.profiler.ProfilerActivity.CPU]
         if torch.device(device).type == "cuda":
             acts.append(torch.profiler.ProfilerActivity.CUDA)
@@ -153,7 +158,7 @@ def measure(blob: bytes, config, device: str = "cuda", iterations: int = 20,
         profiling.enable(False)
         profiling.reset()
     return dict(solve_s={"off": off, "on": on}, **span_summary(records, walls),
-                site_us=site_us(site_n), profiled=dict(wall_s=wall, **idle_gaps(prof)))
+                assembly_reads=reads, site_us=site_us(site_n), profiled=dict(wall_s=wall, **idle_gaps(prof)))
 
 
 def _load_config(path: str | None):

@@ -419,6 +419,98 @@ def test_artifact_loads_and_global_problem_matches_jax():
     assert (got.n_cams, got.n_points, got.n_obs, got.max_track_len) == (500, 6052, 159035, 500)
 
 
+@pytest.fixture(scope="module")
+def artifact_problems():
+    """The artifact's global problem built by each package: (port, JAX)."""
+    state, frame, archive, _ = Tck.load_state(ARTIFACT, "cpu")
+    jstate, jframe, jarchive, _ = Jck.load_state(ARTIFACT)
+    return (Tg.build_global_problem(state, archive, min(frame, 8)),
+            Jg.build_global_problem(jstate, jarchive, min(jframe, 8)))
+
+
+def test_artifact_tiered_problem_matches_jax(artifact_problems):
+    """The port's packing of the artifact (on the problem's device) against
+    the JAX package's choose_tiers + pack_tiered with numpy's stable order:
+    the order, the tiers, cam_rows (432), the packed stream and the
+    permuted points are equal exactly."""
+    got, want = artifact_problems
+    st, obs, tiers, order, cam_rows = Tg.tiered_problem(got)
+    point, cam, valid = (np.asarray(a) for a in (want.obs.point, want.obs.cam, want.obs.valid))
+    counts = np.bincount(point[valid], minlength=want.state.X.shape[0])
+    want_order = np.argsort(-counts, kind="stable")
+    want_tiers = Jg.choose_tiers(counts[want_order])
+    np.testing.assert_array_equal(order.numpy(), want_order)
+    assert tiers == want_tiers
+    assert cam_rows == int(np.bincount(cam[valid], minlength=500).max() + 7) // 8 * 8 == 432
+    for g, w in zip(obs, Jg.pack_tiered(want.obs, want_tiers, want_order)):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    np.testing.assert_array_equal(st.X.numpy(), np.asarray(want.state.X)[want_order])
+    np.testing.assert_array_equal(st.pt_valid.numpy(), np.asarray(want.state.pt_valid)[want_order])
+
+
+def _seed_case():
+    """A hand-made archive of 4 records (4 slots each) and a live map of 2
+    views: gid 10 in records 0-2 and the live map (slot 1), 20 in records 1
+    and 3 (and in an empty slot of record 0), 30 and 60 seen once, 40 in
+    records 0 and 2 (and an empty slot of record 3), 50 in records 1 and 2,
+    70 only live (slot 0). Each source's X is its write position."""
+    cap = CapacityConfig(max_views=3, max_keypoints=4, max_points=8, max_observations=16)
+    K = np.array([[500.0, 0, 320], [0, 510.0, 240], [0, 0, 1]], np.float32)
+    st = {k: np.array(v) for k, v in _np(Jtr.init_state(cap, jnp.asarray(K))).items()}
+    gid = np.array([[10, 30, 40, 20], [10, 20, -1, 50], [10, 40, 50, -1], [20, 60, 40, -1]], np.int32)
+    valid = np.array([[1, 1, 1, 0], [1, 1, 0, 1], [1, 1, 1, 0], [1, 1, 0, 0]], bool)
+    rng = np.random.default_rng(5)
+    archive = [Jtr.EvictionRecord(
+        C=rng.normal(size=3).astype(np.float32), q=np.array([1.0, 0, 0, 0], np.float32),
+        K=K * np.float32(1 + 0.01 * a), gid=gid[a],
+        uv=rng.uniform(0, 600, (4, 2)).astype(np.float32),
+        X=np.stack([np.arange(4 * a, 4 * a + 4), np.zeros(4), np.ones(4)], 1).astype(np.float32),
+        valid=valid[a]) for a in range(4)]
+    st["pt_gid"][:3] = [70, 10, 80]
+    st["pt_valid"][:3] = [True, True, False]
+    st["points"][:3] = [[16.0, 0, 1], [17.0, 0, 1], [18.0, 0, 1]]
+    st["obs_cam"][:4], st["obs_pt"][:4] = [0, 0, 1, 1], [1, 0, 0, 1]
+    st["obs_uv"][:4] = rng.uniform(0, 600, (4, 2))
+    st["obs_valid"][:4] = True
+    st["cam_C"][:2] = rng.normal(size=(2, 3))
+    return st, archive
+
+
+def test_seed_rule_with_duplicate_global_ids():
+    """Each kept point's seed comes from its last source in write order: the
+    live map over every eviction (gid 10 -> live slot 1, position 17), a
+    later eviction over an earlier one (20 -> record 3's slot 0, position
+    12; 40 -> record 2's slot 1, 9; 50 -> 10), empty slots never; ids seen
+    once (30, 60) are dropped. The winner index is asserted as such, and
+    the problem equals the JAX package's on the same inputs, with the
+    archive and without it."""
+    st, archive = _seed_case()
+    got = Tg.build_global_problem(state_from_numpy(st, "cpu"), archive_from_numpy(archive), 2)
+    assert got.n_points == 5 and list(got.gids[:5]) == [10, 20, 40, 50, 70]
+    src = np.concatenate([np.where([r.valid for r in archive], [r.gid for r in archive], -1).ravel(),
+                          np.where(st["pt_valid"], st["pt_gid"], -1)])
+    win = Tg.seed_winners(torch.as_tensor(got.gids[:5]), T(src))
+    assert win.tolist() == [17, 12, 9, 10, 16]
+    np.testing.assert_array_equal(got.state.X[:5, 0].numpy(), [17, 12, 9, 10, 16])
+    _assert_problem_equal(got, Jg.build_global_problem(Jtr.SfMState(**st), archive, 2))
+    assert Tg.seed_winners(torch.zeros(0, dtype=torch.int64), T(src)).shape == (0,)
+    live_only = Tg.build_global_problem(state_from_numpy(st, "cpu"), [], 2)
+    _assert_problem_equal(live_only, Jg.build_global_problem(Jtr.SfMState(**st), [], 2))
+    assert list(live_only.gids[:2]) == [10, 70]
+
+
+def test_finalize_global_artifact_assembly_reads(pipeline_config):  # noqa: F811
+    """finalize_global on the artifact reports the host reads of its
+    assembly and packing: three (the sizes with the live K, the kept ids,
+    the sorted histogram with the busiest camera's count), at most 6."""
+    teng = IncrementalSfM(port_config(_artifact_config(pipeline_config)), np.eye(3),
+                          frontend="precomputed", device="cpu")
+    teng.load_checkpoint(ARTIFACT)
+    info = teng.finalize_global(iterations=1)
+    assert info["assembly_reads"] == 3 <= 6
+    assert info["n_obs"] == 159035 and len(info["costs"]) == 1
+
+
 def _finalize_artifact(cfg, iterations):
     jeng = JaxSfM(cfg, np.eye(3), frontend="precomputed")
     jeng.load_checkpoint(ARTIFACT)

@@ -240,6 +240,7 @@ def test_solve_spans_tool(slide_run):
     assert min(out["coverage"]["solve_wall"]) >= 0.95
     assert min(out["coverage"]["solve_children"]) >= 0.95
     assert 0 < out["site_us"]["off"] < out["site_us"]["on"]
+    assert out["assembly_reads"] == 3
     assert out["profiled"]["wall_s"] > 0
     assert out["profiled"]["busy_s"] == 0 and out["profiled"]["idle_gaps"] == {}
     with profiling.span("after"):
