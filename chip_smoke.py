@@ -2,6 +2,7 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA card.
 
 Run from the repository root with no arguments:  python3 chip_smoke.py
+(``python3 chip_smoke.py --only selfcal`` runs phases 1, 2 and 14 alone).
 
 Phases, each printing its numbers on its own line; any failure raises and
 the script exits non-zero without printing the final result line:
@@ -30,7 +31,7 @@ the script exits non-zero without printing the final result line:
    stream of ``artifacts/longrun500_pre_globalba.ckpt.npz``) and B4 at the
    same O with V = 16; B3, B4 and B6 must give the same bits twice; each
    B4 entry also prints the device time of each of its kernels (the
-   one-lane ``ba_reduce_rows<false>`` or the lane ``<true>``) with the
+   one-lane ``ba_reduce_rows<7, false>`` or the lane ``<7, true>``) with the
    registers ``ptxas`` gave it;
 4. slice: 24 rendered 960x1280 frames through the port's
    ``IncrementalSfM`` at the CLI's default reconstruct configuration
@@ -146,6 +147,21 @@ the script exits non-zero without printing the final result line:
    replays, capture and instantiation seconds, nodes and pool; with the
    keyframe gate on (8 frames), a steady admitted frame adds only the flow
    read. The same at B = 8 lanes in the batched phase (10 frames).
+
+14. selfcal (after phase 5): the self-calibrating camera block at BAL
+   Venice's counts (``benchmark/configs/bal_venice1778.json``: 1,778
+   cameras, 993,923 points, 5,001,946 observations, drawn from the seed
+   by ``benchmark/reference/bal_scene.py``), packed as ``solve_global``
+   packs it (point tiers, camera tiers). B4, B5 and B6 at width 10 on that
+   stream against their plain versions in float64 (B4 a chunk of
+   observations at a time), each entry of U within 2e-5 of sqrt(U_ii
+   U_jj) and every other output's column (f, k1, k2 each on its own)
+   within 2e-5 of that column's largest entry (b_c, b_p and the cost
+   1e-4), B5's x scaled column by column so that every camera column
+   weighs alike; each kernel the
+   same bits on two launches; their CUDA-event and device times against
+   their bounds (``benchmark/counts_selfcal.py``); then two LM iterations
+   of ``solve_global`` with the launches of B4, B5 and B6 counted.
 
 Kernel B7 (``csrc/svd.cu``: the frame path's small SVDs, no host read;
 no Pallas kernel stands behind it) joins phase 3 at every shape the slice
@@ -1628,6 +1644,152 @@ def global_phase(dev, counted, sync, card: str) -> dict:
     return launches, dict(costs=costs, locs=locs, rots=rots, wall=wall, cg=cg)
 
 
+SELFCAL_CONFIG = Path(__file__).resolve().parent / "benchmark" / "configs" / "bal_venice1778.json"
+SELFCAL_SEED = 3100000012
+# the products of the float32 Jacobians (U, DtD, W; B5, B6) sit within ~4e-6
+# of their scale; the right-hand sides and the cost carry the float32
+# residual's own rounding (~3e-5 px under positions of ~500 px), and b_c sums
+# terms that cancel
+SELFCAL_TOL = 2e-5
+SELFCAL_RHS_TOL = 1e-4
+SELFCAL_CHUNK = 1 << 17  # observations a chunk of B4's plain version
+
+
+def _col_gap(got, want, dim: int) -> float:
+    """Largest error over each slice along ``dim`` (a camera column) as a
+    share of that slice's largest reference entry, worst slice."""
+    err = (got.double() - want).abs().movedim(dim, 0).flatten(1).amax(1)
+    return float((err / want.abs().movedim(dim, 0).flatten(1).amax(1).clamp_min(1e-30)).max())
+
+
+def selfcal_phase(dev, smi: str) -> None:
+    """Phase 14 (see the module's docstring); raises when a bound fails."""
+    import dataclasses
+
+    import torch
+
+    from benchmark import counts_selfcal
+    from benchmark.reference import bal_scene
+    from structure_from_motion_tpu_torch.config import BAConfig
+    from structure_from_motion_tpu_torch.io import bal
+    from structure_from_motion_tpu_torch.models import global_ba
+    from structure_from_motion_tpu_torch.ops import ba as ba_ops
+    from structure_from_motion_tpu_torch.ops import ba_cuda, ba_matvec
+    from structure_from_motion_tpu_torch.tools.profile_kernels import device_times
+
+    cfg_json = json.loads(SELFCAL_CONFIG.read_text())
+    n = cfg_json["counts"]
+    V = int(n["cameras"])
+    assumed = {k: v["value"] for k, v in cfg_json["assumed"].items()
+               if isinstance(v["value"], (int, float, list))}
+    d = bal_scene.draw(SELFCAL_SEED, V, int(n["points"]), int(n["observations"]), assumed, dev)
+    problem = bal.to_problem(bal.BALProblem(*(d[k] for k in ("cameras", "points", "cam", "point",
+                                                             "xy"))), dev)
+    del d
+    (st, intr), obs_t, tiers, _, cam_view = global_ba.tiered_problem(problem)
+    cfg = dataclasses.replace(BAConfig(huber_delta=0.0), obs_layout="tiered", tiers=tiers,
+                              ell_rows=0, ell_tail=0, cam_rows=0)
+    obs, lay = ba_ops._layout(st, obs_t, cfg, cam_view)
+    O, cam = obs.cam.shape[0], obs.cam.long()
+    print(f"selfcal problem: V {V}, observations {problem.n_obs}, slots {O}, point tiers "
+          f"{len(tiers)}, camera tiers {len(cam_view)}, camera-view slots {lay.cam_perm.shape[0]} "
+          f"({lay.cam_perm.shape[0] / problem.n_obs:.3f} a real observation)")
+    args = (obs.cam.contiguous(), st.C[cam].contiguous(), st.q[cam].contiguous(),
+            ba_ops._point_gather(st.X, lay).contiguous(), obs.uv_norm.contiguous(),
+            obs.valid.float(), V, 0.0, intr[cam].contiguous())
+
+    # B4 against its plain version in float64, a chunk of observations at a time
+    got = ba_cuda.ba_blocks(*args)
+    again = ba_cuda.ba_blocks(*args)
+    if not all(torch.equal(g, a) for g, a in zip(got, again)):
+        raise AssertionError("B4 at width 10 gave other bits on a second launch")
+    U = torch.zeros((V, 10, 10), dtype=torch.float64, device=dev)
+    bc = torch.zeros((V, 10), dtype=torch.float64, device=dev)
+    cost, per_obs = 0.0, []
+    for o0 in range(0, O, SELFCAL_CHUNK):
+        part = [a[o0:o0 + SELFCAL_CHUNK].double() if a.is_floating_point() else
+                a[o0:o0 + SELFCAL_CHUNK] for a in args[:6]]
+        Uc, bcc, dtd, w, bp, c = ba_cuda.ba_blocks_reference(
+            *part, V, 0.0, args[8][o0:o0 + SELFCAL_CHUNK].double())
+        U += Uc
+        bc += bcc
+        cost += float(c)
+        per_obs.append((dtd, w, bp))
+    dtd, w, bp = (torch.cat(t) for t in zip(*per_obs))
+    del per_obs
+    dU = torch.diagonal(U, dim1=-2, dim2=-1).clamp_min(1e-30).sqrt()
+    gaps = {
+        "U": float(((got[0].double() - U).abs() / (dU[:, :, None] * dU[:, None, :])).max()),
+        "b_c": _col_gap(got[1], bc, 1), "DtD": _col_gap(got[2].flatten(1), dtd.flatten(1), 1),
+        "W": _col_gap(got[3], w, 1), "b_p": _col_gap(got[4], bp, 1),
+        "cost": abs(float(got[5]) / cost - 1)}
+    tol = {k: SELFCAL_RHS_TOL if k in ("b_c", "b_p", "cost") else SELFCAL_TOL for k in gaps}
+    print("selfcal B4 width 10 against its plain version (float64): "
+          + ", ".join(f"{k} {v:.2e} (bound {tol[k]})" for k, v in gaps.items()))
+    bad = {k: v for k, v in gaps.items() if not v <= tol[k]}
+    if bad:
+        raise AssertionError(f"B4 at width 10 outside its bounds of its plain version: {bad}")
+    del U, bc, dtd, bp
+
+    # B5 and B6 at width 10 over the stream and its camera tiers
+    W30 = got[3].reshape(O, 30)
+    colmax = got[3].abs().amax(dim=(0, 2)).clamp_min(1e-30)
+    g = torch.Generator(device=dev).manual_seed(SELFCAL_SEED)
+    x = torch.randn((V, 10), generator=g, device=dev) / colmax
+    y = torch.randn((O, 3), generator=g, device=dev)
+    t = ba_matvec.expand_cam(obs.cam, W30, x)
+    if not torch.equal(t, ba_matvec.expand_cam(obs.cam, W30, x)):
+        raise AssertionError("B5 at width 10 gave other bits on a second launch")
+    t_want = ba_matvec.expand_cam_reference(obs.cam, w.reshape(O, 30), x.double())
+    coup = ba_matvec.reduce_cam(W30, y, lay.cam_perm, lay.cam_mask, V, lay.cam_seg)
+    if not torch.equal(coup, ba_matvec.reduce_cam(W30, y, lay.cam_perm, lay.cam_mask, V,
+                                                  lay.cam_seg)):
+        raise AssertionError("B6 at width 10 gave other bits on a second launch")
+    c_want = ba_matvec.reduce_cam_reference(w.reshape(O, 30), y.double(), lay.cam_perm,
+                                            lay.cam_mask, V, lay.cam_seg)
+    gaps = {"B5 t": _col_gap(t, t_want, 1), "B6 coup": _col_gap(coup, c_want, 1)}
+    print("selfcal B5, B6 width 10 against their plain versions (float64): "
+          + ", ".join(f"{k} {v:.2e}" for k, v in gaps.items()) + f" (bound {SELFCAL_TOL})")
+    bad = {k: v for k, v in gaps.items() if not v <= SELFCAL_TOL}
+    if bad:
+        raise AssertionError(f"B5/B6 at width 10 outside {SELFCAL_TOL} of their plain "
+                             f"versions: {bad}")
+    del w, t_want, c_want
+
+    # times against the bounds
+    filled = int(lay.cam_mask.sum())
+    bounds = {"B4": counts_selfcal.ba_blocks10_launch(O, V)[1],
+              "B5": counts_selfcal.expand_cam10_launch(O, V)[1],
+              "B6": counts_selfcal.reduce_cam10_launch(filled, V, lay.cam_perm.shape[0])[1]}
+    calls = {"B4": lambda: ba_cuda.ba_blocks(*args),
+             "B5": lambda: ba_matvec.expand_cam(obs.cam, W30, x),
+             "B6": lambda: ba_matvec.reduce_cam(W30, y, lay.cam_perm, lay.cam_mask, V,
+                                                lay.cam_seg)}
+    for name, fn in calls.items():
+        ms = _median_ms(torch, fn, reps=10)
+        parts = device_times(fn, every=True)
+        bound = bounds[name] / PEAK_BYTES_PER_S * 1e3
+        print(f"selfcal {name} width 10: {ms:.4f} ms (bound {bound:.4f} ms, "
+              f"{bounds[name] / 1e9:.3f} GB; {100 * bound / ms:.1f}% of it); by kernel: "
+              + ", ".join(f"{k} {us:.1f} us" for k, us in parts.items()) + f" ({smi})")
+
+    # two LM iterations of the solve, their launches counted
+    counted = {"B4 ba_blocks": ba_cuda.ba_blocks, "B5 expand_cam": ba_matvec.expand_cam,
+               "B6 reduce_cam": ba_matvec.reduce_cam}
+    _reset(counted)
+    stats: dict = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    global_ba.solve_global(problem, BAConfig(huber_delta=0.0), iterations=2, stats=stats)
+    torch.cuda.synchronize()
+    launches, _ = _read(counted)
+    print(f"selfcal solve, 2 LM iterations: {time.perf_counter() - t0:.3f} s, CG "
+          f"{stats['cg_iterations']}, cam_width {stats['cam_width']}, launches {launches}; "
+          f"{_loop_stats()} ({smi})")
+    if stats["cam_width"] != 10 or any(v < 1 for v in launches.values()):
+        raise AssertionError(f"the self-calibrating solve did not launch B4-B6: {launches}")
+
+
 def _loop_site(call) -> str:
     """A loop call's site: the step's module, its cap and its constants."""
     n, _, step, _, operands, _ = call
@@ -2839,6 +3001,21 @@ def main() -> None:
     # every frame renders in worker processes (started fresh, not forked
     # from this process, which holds the card); they are joined, and
     # stopped on a failure, at the end
+    if sys.argv[1:] == ["--only", "selfcal"]:
+        from structure_from_motion_tpu_torch import kernels
+
+        t0 = time.perf_counter()
+        kernels.library()
+        print(f"build: {time.perf_counter() - t0:.2f} s")
+        log = kernels.library_path().with_suffix(".log")
+        regs = kernels.ptxas_registers(log.read_text()) if log.exists() else {}
+        for name, (n_regs, spills) in sorted(regs.items()):
+            if name.startswith(("ba_", "expand_cam", "reduce_cam")):
+                print(f"build ptxas: {name}: {n_regs} registers, {spills} bytes spilled")
+        with _clock("selfcal"):
+            selfcal_phase(dev, smi)
+        print(json.dumps({"ok": True, "phases": ["selfcal"]}))
+        return
     pool = ProcessPoolExecutor(max_workers=8, mp_context=multiprocessing.get_context("spawn"))
     try:
         _smoke(torch, dev, smi, pool)
@@ -2923,6 +3100,10 @@ def _smoke(torch, dev, smi: str, pool) -> None:
     with _clock("global"):
         global_launches, single_global = global_phase(dev, counted, torch.cuda.synchronize, smi)
     runs["global"] = (global_launches, {})
+
+    # -- 14. the self-calibrating block at BAL Venice's counts -------------------
+    with _clock("selfcal"):
+        selfcal_phase(dev, smi)
 
     # -- 9. the sharded BA: two ranks on this card, and a one-rank NCCL group --
     with _clock("sharded"):

@@ -17,6 +17,16 @@ adjustment over N ranks, one a card, so it runs under ``torchrun
 harris`` runs Harris corners with 256-bit steered-BRIEF codes, Hamming
 matching and the cross-check, as in the JAX package.
 
+``bundle`` (the port's own subcommand, with a parser of its own beside the
+JAX package's two) solves a bundle adjustment problem in the BAL text format
+(Agarwal et al., *Bundle Adjustment in the Large*): every camera refines its
+pose and its intrinsics (Snavely's model: focal length ``f``, radial ``k1``,
+``k2``, principal point at 0) with the points, through the same
+``models/global_ba.solve_global`` as the end-of-run solve of
+``reconstruct`` (``io/bal.py``; the 10-wide camera block), and writes the
+refined problem in the same format. It prints one JSON line: the costs of
+the first and last iterations, the PCG iterations and the seconds.
+
 Examples:
     python -m structure_from_motion_tpu_torch reconstruct \\
         --images frames/ --pattern "*.bmp" \\
@@ -27,6 +37,9 @@ Examples:
         --out out/ --ba-shards 2
 
     python -m structure_from_motion_tpu_torch selftest --device cpu
+
+    python -m structure_from_motion_tpu_torch bundle \
+        --problem problem-1778-993923-pre.txt --out venice_refined.txt --iterations 20
 """
 
 from __future__ import annotations
@@ -337,8 +350,61 @@ def cmd_selftest(args) -> int:
     return 0 if ok else 1
 
 
+def cmd_bundle(args) -> int:
+    """A BAL problem through the global solve, refined into a BAL file."""
+    import torch
+
+    from structure_from_motion_tpu_torch.config import BAConfig
+    from structure_from_motion_tpu_torch.io import bal
+    from structure_from_motion_tpu_torch.models import global_ba
+    from structure_from_motion_tpu_torch.utils.profiling import device_fence
+
+    if args.device == "cuda" and not torch.cuda.is_available():
+        print("bundle: no CUDA card (--device cpu runs the kernels' plain versions)",
+              file=sys.stderr)
+        return 2
+    # the squared loss BAL problems are posed with; the damping is
+    # Marquardt's, lambda diag(A) (ops/ba.py), from the default schedule
+    cfg = BAConfig(huber_delta=0.0)
+    t0 = time.perf_counter()
+    problem = bal.read_bal(args.problem)
+    t_read = time.perf_counter()
+    stats: dict = {}
+    out, costs = global_ba.solve_global(bal.to_problem(problem, args.device), cfg,
+                                        iterations=args.iterations, stats=stats)
+    cams, pts = bal.from_state(out, len(problem.points))
+    refined = problem._replace(cameras=cams.cpu().numpy(), points=pts.cpu().numpy())
+    device_fence()
+    t_solve = time.perf_counter()
+    bal.write_bal(args.out, refined)
+    print(json.dumps({
+        "cameras": len(problem.cameras), "points": len(problem.points),
+        "observations": len(problem.cam), "cost_first": float(costs[0]),
+        "cost_last": float(costs[-1]), "pcg_iterations": int(sum(stats["cg_iterations"])),
+        "read_s": t_read - t0, "solve_s": t_solve - t_read,
+        "write_s": time.perf_counter() - t_solve, "out": args.out}))
+    return 0
+
+
+def build_bundle_parser() -> argparse.ArgumentParser:
+    b = argparse.ArgumentParser(
+        prog="structure_from_motion_tpu_torch bundle",
+        description="self-calibrating bundle adjustment of a BAL problem (pose, f, k1, k2 a "
+                    "camera) through the global solve")
+    b.add_argument("--problem", required=True, help="BAL text file to solve")
+    b.add_argument("--out", required=True, help="where to write the refined problem (BAL text)")
+    b.add_argument("--iterations", type=int, default=20, help="LM iterations")
+    b.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                   help="cuda runs the hand-written kernels and needs a card; cpu runs their "
+                        "plain versions")
+    return b
+
+
 def build_parser() -> argparse.ArgumentParser:
-    p = argparse.ArgumentParser(prog="structure_from_motion_tpu_torch")
+    p = argparse.ArgumentParser(
+        prog="structure_from_motion_tpu_torch",
+        epilog="bundle: solve a BAL bundle adjustment problem "
+               "(python -m structure_from_motion_tpu_torch bundle --help)")
     sub = p.add_subparsers(dest="cmd", required=True)
 
     r = sub.add_parser("reconstruct", help="incremental SfM over an image directory")
@@ -420,6 +486,9 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else list(argv)
+    if argv[:1] == ["bundle"]:
+        return cmd_bundle(build_bundle_parser().parse_args(argv[1:]))
     args = build_parser().parse_args(argv)
     return args.fn(args)
 

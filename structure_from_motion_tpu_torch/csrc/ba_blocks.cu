@@ -49,6 +49,23 @@
 //   kernel ran at half speed; the one-lane instantiation has no lane term
 //   at all.
 //
+// The camera block's width NC is a template parameter: 7 ([C, q]; the
+// instantiations ba_assemble<7>, ba_reduce_rows<7, false> and <7, true>)
+// and 10, the self-calibrating block [C, q, f, k1, k2] of a BAL-style
+// problem (ba_assemble<10>, ba_reduce_rows<10, false>; one lane). At width
+// 10 the residual is in pixels through f (1 + k1 rho^2 + k2 rho^4) with the
+// principal point at 0: the normalised 2x3 and 2x7 rows are taken through
+// the symmetric 2x2 d proj / d (u, v), and the three intrinsics' columns
+// are closed forms. A slot then reads 68 bytes (the camera's f, k1, k2
+// besides) and writes 168 (W is 10x3), and the payload is 66 wide (55 +
+// 10 + 1): stage 1 gives a lane up to three payload words, and stage 2
+// runs 15 groups of 66 threads (990; 28 x 66 would pass a block's 1024).
+// The payload and the staging would pass 48 KB of static shared memory at
+// width 10, so there the payload waits in registers until the blocks have
+// left and then takes the staging's words. The width-7 instantiations keep
+// the [C, q] kernel's arithmetic and the order of every sum, so its outputs
+// keep their bits (tools/profile_kernels.py prints each output's sha256).
+//
 // No float atomics: every sum has one fixed order given the inputs, so two
 // launches give the same bits. A segment sum over a camera-major view of
 // the stream (as B6 uses) would need an argsort per call, which the
@@ -61,9 +78,13 @@
 namespace {
 
 constexpr int kBO = 128;     // observations per block
-constexpr int kP = 36;       // payload: 28 (upper U) + 7 (b_c) + 1 (cost)
-constexpr int kPS = 37;      // padded payload stride in shared memory
-constexpr int kGroups = 28;  // stage-2 groups of kP threads
+// Per camera width NC (7: [C, q]; 10: [C, q, f, k1, k2]): the payload is the
+// upper U (28 or 55), then b_c (NC), then the cost (1): 36 or 66 floats.
+template <int NC> constexpr int kU = NC * (NC + 1) / 2;
+template <int NC> constexpr int kPay = kU<NC> + NC + 1;
+template <int NC> constexpr int kPS = kPay<NC> + 1;  // padded payload stride (odd: 37, 67)
+// stage-2 groups of kPay threads: 28 x 36 = 1008 threads, 15 x 66 = 990
+template <int NC> constexpr int kGrp = NC == 7 ? 28 : 15;
 // the per-camera costs lie kCostStride floats apart: torch sums a strided
 // vector in one order whatever V is (a contiguous one of more than 128
 // floats it vectorises, in another order)
@@ -71,7 +92,17 @@ constexpr int kCostStride = 2;
 constexpr int kNoKey = 0x00ffffff;  // above every camera id; key * 128 fits an int
 constexpr int kNoSlot = 255;
 // per-observation output staging (words): DtD | W | b_p
-constexpr int kOffW = kBO * 9, kOffB = kBO * 30, kStage = kBO * 33;
+template <int NC> constexpr int kOffW = kBO * 9;
+template <int NC> constexpr int kOffB = kBO * (9 + 3 * NC);
+template <int NC> constexpr int kStage = kBO * (12 + 3 * NC);
+// At NC = 10 the payload (34.3 KB) and the staging (21.5 KB) would pass the
+// 48 KB of static shared memory: the payload then takes the staging's words
+// once the per-observation blocks have left, and waits in registers until
+// then. At NC = 7 each has its own words.
+template <int NC> constexpr bool kAlias = NC != 7;
+// the words of the shared payload and staging at NC = 10
+template <int NC> constexpr int kSmem =
+    kBO * kPS<NC> > kStage<NC> ? kBO * kPS<NC> : kStage<NC>;
 
 // Copy n words from shared to device memory, consecutive threads on
 // consecutive words; 16 bytes a thread when the block is full.
@@ -87,17 +118,42 @@ __device__ __forceinline__ void store_block(float* __restrict__ dst,
   }
 }
 
+// One observation's payload row: the upper U, b_c, r^2.
+template <int NC>
+__device__ __forceinline__ void write_payload(float* my, const float* row0,
+                                              const float* row1, float res0,
+                                              float res1) {
+  int idx = 0;
+#pragma unroll
+  for (int i = 0; i < NC; ++i)
+#pragma unroll
+    for (int j = i; j < NC; ++j)
+      my[idx++] = row0[i] * row0[j] + row1[i] * row1[j];
+#pragma unroll
+  for (int i = 0; i < NC; ++i) my[kU<NC> + i] = row0[i] * res0 + row1[i] * res1;
+  my[kU<NC> + NC] = res0 * res0 + res1 * res1;
+}
+
+// Kg (O, 3): each observation's camera intrinsics (f, k1, k2), read at NC =
+// 10 only (nullptr at NC = 7).
+template <int NC>
 __global__ void __launch_bounds__(kBO)
 ba_assemble(const int* __restrict__ cam, const float* __restrict__ Cg,
             const float* __restrict__ qg, const float* __restrict__ Xg,
-            const float* __restrict__ uvg, const float* __restrict__ wg, int O,
+            const float* __restrict__ uvg, const float* __restrict__ wg,
+            const float* __restrict__ Kg, int O,
             int V, float huber, float* __restrict__ dtd_out,
             float* __restrict__ wblk_out, float* __restrict__ bp_out,
             float* __restrict__ rows, unsigned char* __restrict__ slot,
             int rmax) {
-  __shared__ float pay[kBO * kPS];
-  __shared__ __align__(16) float so[kStage];
+  constexpr int P = kPay<NC>, PS = kPS<NC>;
+  // at NC = 7 the payload and the staging are two arrays; at NC = 10 the
+  // payload takes the staging's words (kAlias)
+  __shared__ float pay_own[kAlias<NC> ? 1 : kBO * PS];
+  __shared__ __align__(16) float so[kAlias<NC> ? kSmem<NC> : kStage<NC>];
+  float* const pay = kAlias<NC> ? so : pay_own;
   __shared__ float sC[kBO * 3], sX[kBO * 3];
+  __shared__ float sK[NC == 7 ? 1 : kBO * 3];
   __shared__ __align__(16) int keys[kBO];
   __shared__ int skey[kBO], order[kBO], seg_start[kBO + 1];
   __shared__ unsigned headmask[kBO / 32];
@@ -106,8 +162,8 @@ ba_assemble(const int* __restrict__ cam, const float* __restrict__ Cg,
   {  // blockIdx.y is the lane: O observations and their scratch a lane
     const size_t lo = (size_t)blockIdx.y * O;
     cam += lo; Cg += 3 * lo; qg += 4 * lo; Xg += 3 * lo; uvg += 2 * lo; wg += lo;
-    dtd_out += 9 * lo; wblk_out += 21 * lo; bp_out += 3 * lo;
-    rows += (size_t)blockIdx.y * nb * rmax * kP;
+    dtd_out += 9 * lo; wblk_out += 3 * NC * lo; bp_out += 3 * lo;
+    rows += (size_t)blockIdx.y * nb * rmax * P;
     slot += (size_t)blockIdx.y * nb * V;
   }
   const int o0 = b * kBO;
@@ -117,9 +173,13 @@ ba_assemble(const int* __restrict__ cam, const float* __restrict__ Cg,
   for (int i = t; i < 3 * n_here; i += kBO) {
     sC[i] = Cg[(size_t)3 * o0 + i];
     sX[i] = Xg[(size_t)3 * o0 + i];
+    if constexpr (NC == 10) sK[i] = Kg[(size_t)3 * o0 + i];
   }
   for (int v = t; v < V; v += kBO) slot[(size_t)b * V + v] = kNoSlot;
   int key = kNoKey;
+  // NC = 10: the payload's inputs (row0, row1, res0, res1), held past the
+  // staging's stores
+  float keep[kAlias<NC> ? 2 * NC + 2 : 1];
   __syncthreads();
 
   if (o < O) {
@@ -154,7 +214,15 @@ ba_assemble(const int* __restrict__ cam, const float* __restrict__ Cg,
     const float z = fabsf(x2) < 1e-12f ? 1e-12f : x2;
     const float inv_z = 1.f / z;
     const float u = x0 * inv_z, v = x1 * inv_z;
-    float res0 = m0 - u, res1 = m1 - v;
+    // NC = 10: pixels through the radial distortion, proj = s (u, v) with
+    // s = f (1 + k1 rho^2 + k2 rho^4), so d proj / d (u, v) is the
+    // symmetric A = s I + g (u, v)^T (u, v), g = f (2 k1 + 4 k2 rho^2)
+    const float fo = NC == 7 ? 0.f : sK[3 * t], k1 = NC == 7 ? 0.f : sK[3 * t + 1],
+                k2 = NC == 7 ? 0.f : sK[3 * t + 2];
+    const float rho2 = u * u + v * v;
+    const float rad = 1.f + rho2 * (k1 + k2 * rho2);
+    const float s = fo * rad;
+    float res0 = NC == 7 ? m0 - u : m0 - s * u, res1 = NC == 7 ? m1 - v : m1 - s * v;
 
     float rw = wv;
     if (huber > 0.f) {
@@ -178,45 +246,70 @@ ba_assemble(const int* __restrict__ cam, const float* __restrict__ Cg,
 
     res0 *= rw;
     res1 *= rw;
-    float row0[7], row1[7], p0[3], p1[3];
-    p0[0] = jp00 * rw; p0[1] = jp01 * rw; p0[2] = jp02 * rw;
-    p1[0] = jp10 * rw; p1[1] = jp11 * rw; p1[2] = jp12 * rw;
+    float row0[NC], row1[NC], p0[3], p1[3];
+    if constexpr (NC == 7) {
+      p0[0] = jp00 * rw; p0[1] = jp01 * rw; p0[2] = jp02 * rw;
+      p1[0] = jp10 * rw; p1[1] = jp11 * rw; p1[2] = jp12 * rw;
 #pragma unroll
-    for (int i = 0; i < 3; ++i) {
-      row0[i] = -p0[i];
-      row1[i] = -p1[i];
-    }
+      for (int i = 0; i < 3; ++i) {
+        row0[i] = -p0[i];
+        row1[i] = -p1[i];
+      }
 #pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      row0[3 + k] = (dx0[k] - u * dx2[k]) * inv_z * rw;
-      row1[3 + k] = (dx1[k] - v * dx2[k]) * inv_z * rw;
+      for (int k = 0; k < 4; ++k) {
+        row0[3 + k] = (dx0[k] - u * dx2[k]) * inv_z * rw;
+        row1[3 + k] = (dx1[k] - v * dx2[k]) * inv_z * rw;
+      }
+    } else {
+      const float g = fo * (2.f * k1 + 4.f * k2 * rho2);
+      const float a00 = s + g * u * u, a01 = g * u * v, a11 = s + g * v * v;
+      const float jp0[3] = {jp00, jp01, jp02}, jp1[3] = {jp10, jp11, jp12};
+#pragma unroll
+      for (int i = 0; i < 3; ++i) {
+        p0[i] = (a00 * jp0[i] + a01 * jp1[i]) * rw;
+        p1[i] = (a01 * jp0[i] + a11 * jp1[i]) * rw;
+        row0[i] = -p0[i];
+        row1[i] = -p1[i];
+      }
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const float n0 = (dx0[k] - u * dx2[k]) * inv_z;
+        const float n1 = (dx1[k] - v * dx2[k]) * inv_z;
+        row0[3 + k] = (a00 * n0 + a01 * n1) * rw;
+        row1[3 + k] = (a01 * n0 + a11 * n1) * rw;
+      }
+      const float f2 = fo * rho2, f4 = fo * rho2 * rho2;
+      row0[7] = rad * u * rw; row1[7] = rad * v * rw;
+      row0[8] = f2 * u * rw;  row1[8] = f2 * v * rw;
+      row0[9] = f4 * u * rw;  row1[9] = f4 * v * rw;
     }
 
-    // strides 9, 21, 3 and 37 are odd: no bank conflicts across a warp
+    // strides 9, 21 (30: even, two-way conflicts at NC = 10), 3 and 37 / 67
 #pragma unroll
     for (int i = 0; i < 3; ++i)
 #pragma unroll
       for (int j = 0; j < 3; ++j)
         so[t * 9 + 3 * i + j] = p0[i] * p0[j] + p1[i] * p1[j];
 #pragma unroll
-    for (int i = 0; i < 7; ++i)
+    for (int i = 0; i < NC; ++i)
 #pragma unroll
       for (int j = 0; j < 3; ++j)
-        so[kOffW + t * 21 + 3 * i + j] = row0[i] * p0[j] + row1[i] * p1[j];
+        so[kOffW<NC> + t * 3 * NC + 3 * i + j] = row0[i] * p0[j] + row1[i] * p1[j];
 #pragma unroll
     for (int j = 0; j < 3; ++j)
-      so[kOffB + t * 3 + j] = p0[j] * res0 + p1[j] * res1;
+      so[kOffB<NC> + t * 3 + j] = p0[j] * res0 + p1[j] * res1;
 
-    float* my = pay + t * kPS;
-    int idx = 0;
+    if constexpr (kAlias<NC>) {
 #pragma unroll
-    for (int i = 0; i < 7; ++i)
-#pragma unroll
-      for (int j = i; j < 7; ++j)
-        my[idx++] = row0[i] * row0[j] + row1[i] * row1[j];
-#pragma unroll
-    for (int i = 0; i < 7; ++i) my[28 + i] = row0[i] * res0 + row1[i] * res1;
-    my[35] = res0 * res0 + res1 * res1;
+      for (int i = 0; i < NC; ++i) {
+        keep[i] = row0[i];
+        keep[NC + i] = row1[i];
+      }
+      keep[2 * NC] = res0;
+      keep[2 * NC + 1] = res1;
+    } else {
+      write_payload<NC>(pay + t * PS, row0, row1, res0, res1);
+    }
   }
   keys[t] = key * kBO + t;
   __syncthreads();
@@ -224,8 +317,12 @@ ba_assemble(const int* __restrict__ cam, const float* __restrict__ Cg,
   // the per-observation blocks leave in whole lines
   const bool full = n_here == kBO;
   store_block(dtd_out + (size_t)o0 * 9, so, n_here * 9, full, t);
-  store_block(wblk_out + (size_t)o0 * 21, so + kOffW, n_here * 21, full, t);
-  store_block(bp_out + (size_t)o0 * 3, so + kOffB, n_here * 3, full, t);
+  store_block(wblk_out + (size_t)o0 * 3 * NC, so + kOffW<NC>, n_here * 3 * NC, full, t);
+  store_block(bp_out + (size_t)o0 * 3, so + kOffB<NC>, n_here * 3, full, t);
+  if constexpr (kAlias<NC>) {  // the payload takes the staging's words now
+    __syncthreads();
+    if (o < O) write_payload<NC>(pay + t * PS, keep, keep + NC, keep[2 * NC], keep[2 * NC + 1]);
+  }
 
   // stable counting rank of (camera, lane): equal cameras become runs in
   // lane order; lanes without a camera (tail, id outside [0, V)) sort last
@@ -261,18 +358,23 @@ ba_assemble(const int* __restrict__ cam, const float* __restrict__ Cg,
   __syncthreads();
 
   // one warp per run, one lane per payload entry, the run in lane order
+  constexpr int kChunks = (P + 31) / 32;  // 2 or 3 words a lane
   for (int s = warp; s < nseg; s += kBO / 32) {
     const int p0 = seg_start[s], p1 = seg_start[s + 1];
     if (skey[p0] == kNoKey) continue;  // warp-uniform
-    float a0 = 0.f, a1 = 0.f;
+    float a[kChunks];
+#pragma unroll
+    for (int ch = 0; ch < kChunks; ++ch) a[ch] = 0.f;
     for (int p = p0; p < p1; ++p) {
-      const float* src = pay + order[p] * kPS;
-      a0 += src[lane];
-      if (lane < kP - 32) a1 += src[32 + lane];
+      const float* src = pay + order[p] * PS;
+#pragma unroll
+      for (int ch = 0; ch < kChunks; ++ch)
+        if (ch == 0 || 32 * ch + lane < P) a[ch] += src[32 * ch + lane];
     }
-    float* r = rows + ((size_t)b * rmax + s) * kP;
-    r[lane] = a0;
-    if (lane < kP - 32) r[32 + lane] = a1;
+    float* r = rows + ((size_t)b * rmax + s) * P;
+#pragma unroll
+    for (int ch = 0; ch < kChunks; ++ch)
+      if (ch == 0 || 32 * ch + lane < P) r[32 * ch + lane] = a[ch];
   }
 }
 
@@ -281,12 +383,13 @@ ba_assemble(const int* __restrict__ cam, const float* __restrict__ Cg,
 // group order; the upper triangle of U is mirrored on the way out. With
 // kLanes, blockIdx.y is the lane: its blocks are lane * nb + [0, nb) of
 // the scratch, its cameras lane * V + [0, V) of the outputs.
-template <bool kLanes>
-__global__ void __launch_bounds__(kP * kGroups)
+template <int NC, bool kLanes>
+__global__ void __launch_bounds__(kPay<NC> * kGrp<NC>)
 ba_reduce_rows(const float* __restrict__ rows,
                const unsigned char* __restrict__ slot, int nb, int V,
                int rmax, float* __restrict__ U, float* __restrict__ bc,
                float* __restrict__ cost) {
+  constexpr int kP = kPay<NC>, kGroups = kGrp<NC>;
   __shared__ float part[kGroups * kP];
   const int lb = kLanes ? blockIdx.y * nb : 0;  // the lane's first block
   const int v = blockIdx.x;
@@ -316,20 +419,43 @@ ba_reduce_rows(const float* __restrict__ rows,
   float tot = 0.f;
   for (int gg = 0; gg < kGroups; ++gg) tot += part[gg * kP + c];
   const size_t ov = kLanes ? (size_t)blockIdx.y * V + v : (size_t)v;  // the output row
-  if (c < 28) {
+  if (c < kU<NC>) {
     int i = 0, rem = c;
-    while (rem >= 7 - i) {
-      rem -= 7 - i;
+    while (rem >= NC - i) {
+      rem -= NC - i;
       ++i;
     }
     const int j = i + rem;
-    U[ov * 49 + 7 * i + j] = tot;
-    U[ov * 49 + 7 * j + i] = tot;
-  } else if (c < 35) {
-    bc[ov * 7 + (c - 28)] = tot;
+    U[ov * NC * NC + NC * i + j] = tot;
+    U[ov * NC * NC + NC * j + i] = tot;
+  } else if (c < kU<NC> + NC) {
+    bc[ov * NC + (c - kU<NC>)] = tot;
   } else {
     cost[ov * kCostStride] = tot;
   }
+}
+
+// the two stages of one launch at width NC
+template <int NC>
+int launch_blocks(const int* cam, const float* C, const float* q, const float* X,
+                  const float* uv, const float* w, const float* K, int lanes, int O,
+                  int V, float huber, float* dtd, float* wblk, float* bp, float* rows,
+                  unsigned char* slot, float* U, float* bc, float* cost,
+                  cudaStream_t s) {
+  const int nb = (O + kBO - 1) / kBO;
+  const int rmax = V < kBO ? V : kBO;
+  if (nb <= 0 || V <= 0 || V > kNoKey || lanes < 1 || lanes > 65535 || (lanes > 1 && O % 4) ||
+      (long long)lanes * nb >= (1LL << 31) || (long long)lanes * V >= (1LL << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
+  ba_assemble<NC><<<dim3(nb, lanes), kBO, 0, s>>>(cam, C, q, X, uv, w, K, O, V, huber, dtd,
+                                                  wblk, bp, rows, slot, rmax);
+  constexpr int threads = kPay<NC> * kGrp<NC>;
+  if (lanes == 1)
+    ba_reduce_rows<NC, false><<<V, threads, 0, s>>>(rows, slot, nb, V, rmax, U, bc, cost);
+  else
+    ba_reduce_rows<NC, true><<<dim3(V, lanes), threads, 0, s>>>(rows, slot, nb, V, rmax, U,
+                                                                 bc, cost);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -341,24 +467,22 @@ ba_reduce_rows(const float* __restrict__ rows,
 // lane's rows 16-byte aligned). Scratch: rows holds lanes * ceil(O / 128) *
 // rmax * 36 floats with rmax = min(128, V); slot holds lanes * V *
 // ceil(O / 128) bytes. Observations whose camera id is outside [0, V)
-// enter no camera sum.
+// enter no camera sum. With K (O, 3), each observation's camera's (f, k1,
+// k2), the camera block is the self-calibrating [C, q, f, k1, k2] (width
+// 10, one lane, uv in pixels, principal point at 0): wblk (O, 30), U (V,
+// 10, 10), bc (V, 10), and rows holds ceil(O / 128) * rmax * 66 floats; K
+// null gives the [C, q] block.
 extern "C" int sfm_ba_blocks_lanes(const int* cam, const float* C, const float* q,
                                    const float* X, const float* uv, const float* w,
-                                   int lanes, int O, int V, float huber, float* dtd,
-                                   float* wblk, float* bp, float* rows, unsigned char* slot,
-                                   float* U, float* bc, float* cost, void* stream) {
+                                   const float* K, int lanes, int O, int V, float huber,
+                                   float* dtd, float* wblk, float* bp, float* rows,
+                                   unsigned char* slot, float* U, float* bc, float* cost,
+                                   void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int nb = (O + kBO - 1) / kBO;
-  const int rmax = V < kBO ? V : kBO;
-  if (nb <= 0 || V <= 0 || V > kNoKey || lanes < 1 || lanes > 65535 || (lanes > 1 && O % 4) ||
-      (long long)lanes * nb >= (1LL << 31) || (long long)lanes * V >= (1LL << 31))
-    return static_cast<int>(cudaErrorInvalidValue);
-  ba_assemble<<<dim3(nb, lanes), kBO, 0, s>>>(cam, C, q, X, uv, w, O, V, huber, dtd, wblk,
-                                              bp, rows, slot, rmax);
-  if (lanes == 1)
-    ba_reduce_rows<false><<<V, kP * kGroups, 0, s>>>(rows, slot, nb, V, rmax, U, bc, cost);
-  else
-    ba_reduce_rows<true><<<dim3(V, lanes), kP * kGroups, 0, s>>>(rows, slot, nb, V, rmax, U,
-                                                                 bc, cost);
-  return static_cast<int>(cudaGetLastError());
+  if (K == nullptr)
+    return launch_blocks<7>(cam, C, q, X, uv, w, nullptr, lanes, O, V, huber, dtd, wblk, bp,
+                            rows, slot, U, bc, cost, s);
+  if (lanes != 1) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_blocks<10>(cam, C, q, X, uv, w, K, 1, O, V, huber, dtd, wblk, bp, rows, slot,
+                           U, bc, cost, s);
 }

@@ -9,6 +9,12 @@
 //   B6 reduce:  coup_v = sum_{o: cam_o = v} W_o y_o     (V, 7)
 //
 // W is B4's row-major (O, 21) output (component i*3+c of the 7x3 block).
+// Both kernels are templated on the camera block's width NC: 7 for [C, q],
+// 10 for the self-calibrating [C, q, f, k1, k2] (W then (O, 30), x (V, 10));
+// the instantiations are expand_cam_kernel<7>/<10> and reduce_cam_kernel<7,
+// ..>/<10, ..> (the second parameter: camera tiers, below), and the width-10
+// ones read 120 bytes of W a slot, not 84. B6's 30 components still fit one
+// warp a row.
 //
 // What bounds them on an H100: device-memory traffic and gather latency.
 // Each observation moves 84 bytes of W plus 12 to 28 bytes of vectors for
@@ -45,6 +51,12 @@
 //   the warps' z_i from shared memory in warp order. The order depends on
 //   rows and the block size only, never on timing.
 // * No limit on V or rows. 32 registers, 448 bytes of shared memory.
+// * Camera tiers: where one row count for every camera would pad the view
+//   past twice the observations (a photo collection's popular cameras),
+//   the BA call cuts the cameras into tiers of their own row counts
+//   (ops/ba.compute_cam_tiers), and seg (V, 2) gives camera v's first slot
+//   and rows (the kSeg instantiations); the walk and its order within a
+//   camera are those of one row count.
 //
 // Measured on an NVIDIA H100 80GB HBM3 at 700 W (500 cameras x 432 slots,
 // 159,035 filled; device time under torch.profiler, tools/profile_kernels.py,
@@ -68,30 +80,32 @@ constexpr int kReduceWarps = kReduceThreads / 32;
 constexpr int kReduceBatch = 16;  // rows of one warp whose loads are in flight together
 constexpr unsigned kReduceBatchMask = (1u << kReduceBatch) - 1u;
 
+template <int NC>
 __global__ void __launch_bounds__(kExpandThreads)
 expand_cam_kernel(const int* __restrict__ cam, const float* __restrict__ w21,
                   const float* __restrict__ x, int O, int V,
                   float* __restrict__ t) {
+  constexpr int kW = 3 * NC;  // a slot's W row: 21 or 30 floats
   const int o = blockIdx.x * kExpandThreads + threadIdx.x;
   if (o >= O) return;
   const int v = cam[o];
-  float xo[7];
+  float xo[NC];
   if (v >= 0 && v < V) {
 #pragma unroll
-    for (int i = 0; i < 7; ++i) xo[i] = __ldg(x + 7 * v + i);
+    for (int i = 0; i < NC; ++i) xo[i] = __ldg(x + NC * v + i);
   } else {
 #pragma unroll
-    for (int i = 0; i < 7; ++i) xo[i] = 0.f;
+    for (int i = 0; i < NC; ++i) xo[i] = 0.f;
   }
-  const float* w = w21 + (size_t)o * 21;
-  float wr[21];
+  const float* w = w21 + (size_t)o * kW;
+  float wr[kW];
 #pragma unroll
-  for (int k = 0; k < 21; ++k) wr[k] = w[k];
+  for (int k = 0; k < kW; ++k) wr[k] = w[k];
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
     float acc = wr[c] * xo[0];
 #pragma unroll
-    for (int i = 1; i < 7; ++i) acc += wr[3 * i + c] * xo[i];
+    for (int i = 1; i < NC; ++i) acc += wr[3 * i + c] * xo[i];
     t[(size_t)o * 3 + c] = acc;
   }
 }
@@ -108,16 +122,22 @@ __device__ __forceinline__ int slot_observation(const int* __restrict__ perm,
   return (m && o < O) ? o : -1;
 }
 
+// kSeg: camera v's slots are its own run of the view, seg[v] = (first
+// slot, rows), in place of [v * rows, (v + 1) * rows)
+template <int NC, bool kSeg>
 __global__ void __launch_bounds__(kReduceThreads)
 reduce_cam_kernel(const float* __restrict__ w21, const float* __restrict__ y,
                   const int* __restrict__ perm,
-                  const unsigned char* __restrict__ mask, int O, int rows,
+                  const unsigned char* __restrict__ mask,
+                  const int* __restrict__ seg, int O, int rows_,
                   float* __restrict__ coup) {
-  __shared__ float part[kReduceWarps][7];
+  constexpr int kW = 3 * NC;  // a slot's W row: 21 or 30 floats
+  __shared__ float part[kReduceWarps][NC];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int v = blockIdx.x;
-  const size_t base = (size_t)v * rows;
-  const bool comp = lane < 21;  // lane i*3+c owns component (i, c) of W
+  const int rows = kSeg ? seg[2 * v + 1] : rows_;
+  const size_t base = kSeg ? (size_t)seg[2 * v] : (size_t)v * rows;
+  const bool comp = lane < kW;  // lane i*3+c owns component (i, c) of W
   const int c = lane % 3;
   float acc = 0.f;
   // warp w takes the 32-slot chunks w, w + kReduceWarps, ..: one slot a lane,
@@ -136,7 +156,7 @@ reduce_cam_kernel(const float* __restrict__ w21, const float* __restrict__ y,
       for (int k = 0; k < kReduceBatch; ++k) {  // every load of the batch first
         const int ok = __shfl_sync(0xffffffffu, o, b + k);
         const bool on = comp && ok >= 0;
-        wv[k] = on ? w21[(size_t)ok * 21 + lane] : 0.f;
+        wv[k] = on ? w21[(size_t)ok * kW + lane] : 0.f;
         yv[k] = on ? y[(size_t)ok * 3 + c] : 0.f;
       }
 #pragma unroll
@@ -149,33 +169,59 @@ reduce_cam_kernel(const float* __restrict__ w21, const float* __restrict__ y,
                   __shfl_down_sync(0xffffffffu, acc, 2);
   if (comp && c == 0) part[warp][lane / 3] = z;
   __syncthreads();
-  if (threadIdx.x < 7) {
+  if (threadIdx.x < NC) {
     float sum = part[0][threadIdx.x];
 #pragma unroll
     for (int w = 1; w < kReduceWarps; ++w) sum += part[w][threadIdx.x];
-    coup[7 * (size_t)v + threadIdx.x] = sum;
+    coup[NC * (size_t)v + threadIdx.x] = sum;
   }
 }
 
 }  // namespace
 
-// cam (O,) int32, w21 (O, 21), x (V, 7) f32 -> t (O, 3) f32. A camera id
-// outside [0, V) gives a zero row.
-extern "C" int sfm_expand_cam(const int* cam, const float* w21, const float* x,
-                              int O, int V, float* t, void* stream) {
+// cam (O,) int32, w (O, 3 * nc), x (V, nc) f32 -> t (O, 3) f32, for a camera
+// block of nc = 7 or 10 entries. A camera id outside [0, V) gives a zero row.
+extern "C" int sfm_expand_cam_w(const int* cam, const float* w, const float* x,
+                                int O, int V, int nc, float* t, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int nb = (O + kExpandThreads - 1) / kExpandThreads;
-  if (nb > 0) expand_cam_kernel<<<nb, kExpandThreads, 0, s>>>(cam, w21, x, O, V, t);
+  if (nc != 7 && nc != 10) return static_cast<int>(cudaErrorInvalidValue);
+  if (nb > 0) {
+    if (nc == 7)
+      expand_cam_kernel<7><<<nb, kExpandThreads, 0, s>>>(cam, w, x, O, V, t);
+    else
+      expand_cam_kernel<10><<<nb, kExpandThreads, 0, s>>>(cam, w, x, O, V, t);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
-// w21 (O, 21), y (O, 3) f32; perm (V * rows,) int32 and mask (V * rows,)
-// bool, the camera-major view of the stream -> coup (V, 7) f32.
+// w (O, 3 * nc), y (O, 3) f32; perm and mask (S,), the camera-major view of
+// the stream -> coup (V, nc) f32. Camera v's slots are [v * rows, (v + 1) *
+// rows) of the view, or, with seg (V, 2) int32, the seg[v][1] slots from
+// seg[v][0] (the camera tiers: rows differ from tier to tier).
+extern "C" int sfm_reduce_cam_w(const float* w, const float* y, const int* perm,
+                                const unsigned char* mask, const int* seg, int O,
+                                int V, int rows, int nc, float* coup, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (nc != 7 && nc != 10) return static_cast<int>(cudaErrorInvalidValue);
+  if (V > 0) {
+    const dim3 g(V), b(kReduceThreads);
+    if (nc == 7 && seg == nullptr)
+      reduce_cam_kernel<7, false><<<g, b, 0, s>>>(w, y, perm, mask, seg, O, rows, coup);
+    else if (nc == 7)
+      reduce_cam_kernel<7, true><<<g, b, 0, s>>>(w, y, perm, mask, seg, O, rows, coup);
+    else if (seg == nullptr)
+      reduce_cam_kernel<10, false><<<g, b, 0, s>>>(w, y, perm, mask, seg, O, rows, coup);
+    else
+      reduce_cam_kernel<10, true><<<g, b, 0, s>>>(w, y, perm, mask, seg, O, rows, coup);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The [C, q] camera block: w21 (O, 21), y (O, 3) f32; perm (V * rows,) int32
+// and mask (V * rows,) bool -> coup (V, 7) f32.
 extern "C" int sfm_reduce_cam(const float* w21, const float* y, const int* perm,
                               const unsigned char* mask, int O, int V, int rows,
                               float* coup, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (V > 0)
-    reduce_cam_kernel<<<V, kReduceThreads, 0, s>>>(w21, y, perm, mask, O, rows, coup);
-  return static_cast<int>(cudaGetLastError());
+  return sfm_reduce_cam_w(w21, y, perm, mask, nullptr, O, V, rows, 7, coup, stream);
 }

@@ -64,13 +64,16 @@ _SIGNATURES = {
     "sfm_candidate_block_max_lanes": (_P, _I, _I, _I, _I, _F, _F, _F, _I, _P, _P, _P),
     # ref, que, sqq, mask_que, lanes, Nr, Nq, d1, d2, j1, stream
     "sfm_match_top2_lanes": (_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P),
-    # cam, C, q, X, uv, w, lanes, O, V, huber, dtd, wblk, bp, rows, slot, U, bc, cost, stream
-    "sfm_ba_blocks_lanes": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P, _P, _P, _P, _P, _P,
-                            _P, _P, _P),
-    # cam, w21, x, O, V, t, stream
-    "sfm_expand_cam": (_P, _P, _P, _I, _I, _P, _P),
+    # cam, C, q, X, uv, w, K (f, k1, k2 an observation, or null), lanes, O, V,
+    # huber, dtd, wblk, bp, rows, slot, U, bc, cost, stream
+    "sfm_ba_blocks_lanes": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P, _P, _P, _P, _P,
+                            _P, _P, _P, _P),
     # w21, y, perm, mask, O, V, rows, coup, stream
     "sfm_reduce_cam": (_P, _P, _P, _P, _I, _I, _I, _P, _P),
+    # cam, w, x, O, V, width (7 or 10), t, stream
+    "sfm_expand_cam_w": (_P, _P, _P, _I, _I, _I, _P, _P),
+    # w, y, perm, mask, seg (or null), O, V, rows, width, coup, stream
+    "sfm_reduce_cam_w": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P),
     # A, batch, M, N, full, scratch, scratch floats, U, S, V, stream
     "sfm_small_svd": (_P, _I, _I, _I, _I, _P, _L, _P, _P, _P, _P),
     # csrc/graph_cond.cu: stream, body stream, predicate; body stream, address of the
@@ -167,7 +170,7 @@ def library() -> ctypes.CDLL:
 def ptxas_registers(log: str) -> dict:
     """``{kernel: (registers a thread, spill stores in bytes)}`` from what
     ``ptxas -v`` said (the ``.log`` beside a build); a name demangled by
-    ``c++filt`` where it is installed (``ba_reduce_rows<false>``), else as
+    ``c++filt`` where it is installed (``ba_reduce_rows<7, false>``), else as
     the compiler mangled it."""
     found = re.findall(r"Compiling entry function '(\w+)'.*?(\d+) bytes spill stores.*?"
                        r"Used (\d+) registers", log, re.S)

@@ -17,8 +17,13 @@ the archive is stacked on the host and uploaded once a field, and the
 union, the support count, the seeds, the normalisation and the packing
 are sorts, searches, scatters and gathers there. The host reads only what
 sets a shape or stays on the host (the sizes with the live intrinsics, the
-kept global ids, the track-length histogram with the busiest camera's
-count), each a grouped copy and one wait, counted in :data:`host_reads`.
+kept global ids, the track-length histogram with the cameras' sorted
+counts), each a grouped copy and one wait, counted in :data:`host_reads`.
+
+A problem whose state carries per-camera intrinsics (an
+``ops/ba.CalibratedBAState``: a BAL problem, ``io/bal.py``) is solved by the
+same :func:`solve_global` with the 10-wide self-calibrating camera block,
+on one device, and comes back as one.
 """
 
 from __future__ import annotations
@@ -35,6 +40,7 @@ from structure_from_motion_tpu_torch.models.tracks import EvictionRecord, SfMSta
 from structure_from_motion_tpu_torch.ops.ba import (
     BAObservations,
     BAState,
+    CalibratedBAState,
     run_bundle_adjustment,
 )
 from structure_from_motion_tpu_torch.parallel import (
@@ -52,7 +58,9 @@ class GlobalProblem(NamedTuple):
     """A reassembled whole-trajectory BA problem plus what is needed to
     write the refined result back into the engine."""
 
-    state: BAState  # cameras = [archived..., live window...]
+    # cameras = [archived..., live window...]; a CalibratedBAState (with
+    # per-camera intrinsics) for a BAL problem
+    state: BAState
     obs: BAObservations
     gids: np.ndarray  # (P,) global point id per (padded) point row, -1 pad
     n_cams: int
@@ -265,26 +273,46 @@ def pack_tiered(obs: BAObservations, tiers: tuple, order, align: int = 512) -> B
     return BAObservations(cam_t, pt_t, uv_t, val_t)
 
 
+def _points(state) -> BAState:
+    """The :class:`BAState` of a state (a ``CalibratedBAState``'s inner one)."""
+    return state.state if isinstance(state, CalibratedBAState) else state
+
+
+def _take_points(state, idx: torch.Tensor):
+    """The state with its point rows (``X``, ``pt_valid``) taken at ``idx``."""
+    if isinstance(state, CalibratedBAState):
+        return state._replace(state=_take_points(state.state, idx))
+    return state._replace(X=state.X[idx], pt_valid=state.pt_valid[idx])
+
+
 def tiered_problem(problem: GlobalProblem):
     """Renumber points by descending track length and pack the stream into
-    tiers -> (state, obs, tiers, order, cam_rows); ``cam_rows`` sizes the
-    camera-major view to the busiest camera from 64 cameras up. ``order``
-    is a tensor on the problem's device. The histogram, its stable
-    descending order and the camera counts are made on the device; the host
-    reads the sorted histogram and the busiest camera's count in one
-    :func:`_read`, and :func:`choose_tiers` runs on them."""
+    tiers -> (state, obs, tiers, order, cam_view); from 64 cameras up
+    ``cam_view`` sizes the camera-major view: ``cam_rows``, the busiest
+    camera's count rounded up to 8, or, where that many rows a camera would
+    pad the view past twice the observations (a photo collection's popular
+    views), camera tiers ((n_cams, rows), ...) by :func:`choose_tiers` over
+    the cameras' counts (``ops/ba.compute_cam_tiers``). ``order`` is a
+    tensor on the problem's device. The histogram, its stable descending
+    order and the camera counts are made on the device; the host reads the
+    sorted histogram and the sorted camera counts in one :func:`_read`, and
+    :func:`choose_tiers` runs on them."""
     obs = problem.obs
     dev = obs.cam.device
-    V, M_pad = problem.state.C.shape[0], problem.state.X.shape[0]
+    base = _points(problem.state)
+    V, M_pad = base.C.shape[0], base.X.shape[0]
     ones = obs.valid.to(torch.int64)
     counts = torch.zeros(M_pad, dtype=torch.int64, device=dev).index_add_(0, obs.point.long(), ones)
     order = torch.sort(-counts, stable=True).indices
     per_cam = torch.zeros(V, dtype=torch.int64, device=dev).index_add_(0, obs.cam.long(), ones)
-    counts_desc, cam_max = _read(counts[order], per_cam.max()).arrays()
+    counts_desc, cams_desc = _read(counts[order], torch.sort(per_cam, descending=True).values
+                                   ).arrays()
     tiers = choose_tiers(counts_desc)
     obs_t = pack_tiered(obs, tiers, order)
-    st = problem.state._replace(X=problem.state.X[order], pt_valid=problem.state.pt_valid[order])
-    cam_rows = _round_up(int(cam_max), 8) if V >= 64 else 0
+    st = _take_points(problem.state, order)
+    cam_rows = _round_up(int(cams_desc[0]), 8) if V >= 64 else 0
+    if cam_rows and V * cam_rows > 2 * max(int(cams_desc.sum()), 1):
+        return st, obs_t, tiers, order, choose_tiers(cams_desc, round_to=1)
     return st, obs_t, tiers, order, cam_rows
 
 
@@ -323,27 +351,37 @@ def solve_global(problem: GlobalProblem, ba_config: BAConfig, iterations: int = 
     point order, costs numpy): on one device in the tiered layout, or with
     ``num_shards`` > 1 sharded over that many ranks (:func:`solve_sharded`;
     every rank calls this with the same problem). ``stats``, when given,
-    receives the layout (``tiers``, ``slots``) and the PCG
-    ``cg_iterations`` of each LM iteration. Spans (``utils/profiling``):
-    ``global.pack`` (the layout, made on the device), ``global.lm`` (the LM
-    iterations) and ``global.fetch`` (the points back in the problem's
-    order, the costs to the host), on either path."""
+    receives the layout (``tiers``, ``slots``), the PCG ``cg_iterations``
+    of each LM iteration, and on one device ``cam_slots`` (the camera-major
+    view's slots, 0 without one), ``cam_tiers`` (its camera tiers, empty
+    where one row count serves), ``cam_width`` (7, or 10 for a problem
+    with intrinsics) and ``obs`` (real observations). Spans
+    (``utils/profiling``): ``global.pack`` (the layout, made on the
+    device), ``global.lm`` (the LM iterations) and ``global.fetch`` (the
+    points back in the problem's order, the costs to the host), on either
+    path. A problem with intrinsics comes back as a ``CalibratedBAState``."""
     if num_shards > 1:
         return solve_sharded(problem, ba_config, make_mesh(num_shards), iterations, stats)
     with profiling.span("global.pack"):
-        st, obs_t, tiers, order, cam_rows = tiered_problem(problem)
+        st, obs_t, tiers, order, cam_view = tiered_problem(problem)
+    cam_tiers = cam_view if isinstance(cam_view, tuple) else ()
     cfg = dataclasses.replace(ba_config, iterations=iterations, obs_layout="tiered",
-                              tiers=tiers, ell_rows=0, ell_tail=0, cam_rows=cam_rows)
+                              tiers=tiers, ell_rows=0, ell_tail=0,
+                              cam_rows=0 if cam_tiers else cam_view)
     cg_iters: list = []
     with profiling.span("global.lm"):
-        out, costs = run_bundle_adjustment(st, obs_t, cfg, cg_iters=cg_iters)
+        out, costs = run_bundle_adjustment(st, obs_t, cfg, cg_iters=cg_iters, cam_tiers=cam_tiers)
     with profiling.span("global.fetch"):
         inv = torch.empty_like(order)
         inv[order] = torch.arange(order.shape[0], device=order.device)
-        out = out._replace(X=out.X[inv], pt_valid=out.pt_valid[inv])
+        out = _take_points(out, inv)
         costs = costs.cpu().numpy()
     if stats is not None:
-        stats.update(tiers=tiers, slots=int(obs_t.cam.shape[0]), cg_iterations=cg_iters)
+        stats.update(tiers=tiers, slots=int(obs_t.cam.shape[0]), cg_iterations=cg_iters,
+                     cam_slots=sum(n * r for n, r in cam_tiers) or _points(problem.state).C.shape[0] * cfg.cam_rows,
+                     cam_tiers=cam_tiers,
+                     cam_width=10 if isinstance(problem.state, CalibratedBAState) else 7,
+                     obs=problem.n_obs)
     return out, costs
 
 
@@ -359,6 +397,8 @@ def solve_sharded(problem: GlobalProblem, ba_config: BAConfig, mesh: Mesh,
     problem's point order, costs). ``stats`` as in :func:`solve_global`,
     with ``tiers`` the ELL block of one shard and ``tail`` its spill
     slots."""
+    if isinstance(problem.state, CalibratedBAState):
+        raise NotImplementedError("the self-calibrating camera block is not sharded")
     with profiling.span("global.pack"):
         # rank 0's problem on every rank (see parallel/ba_sharded.py)
         problem = problem._replace(

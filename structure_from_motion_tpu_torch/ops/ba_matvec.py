@@ -15,6 +15,14 @@ once per BA call: ``perm[v*rows + r]`` is camera v's r-th observation,
 call the ``sfm::expand_cam`` and ``sfm::reduce_cam`` operators, which
 launch ``csrc/ba_matvec.cu`` for CUDA tensors and run the plain versions
 for CPU tensors.
+
+Both take the camera block's width from their arguments: ``x (V, 7)`` and
+``w21 (O, 21)`` for ``[C, q]``, ``x (V, 10)`` and ``w (O, 30)`` for the
+self-calibrating ``[C, q, f, k1, k2]`` (the kernels' width-10
+instantiations). ``seg`` (V, 2) gives each camera its own run of the
+camera-major view, ``(first slot, rows)``, where the BA call cut the cameras
+into tiers of their own row counts (``ops/ba.compute_cam_tiers``); without
+it camera v owns slots ``[v * rows, (v + 1) * rows)``.
 """
 
 from __future__ import annotations
@@ -28,19 +36,26 @@ def expand_cam_reference(cam: torch.Tensor, w21: torch.Tensor, x: torch.Tensor) 
     """Plain version: t (O, 3) with t[o] = W_o^T x[cam_o]; a camera id
     outside [0, V) gives a zero row (the one-hot semantics of the TPU
     kernel)."""
-    V = x.shape[0]
+    V, nc = x.shape
     ok = (cam >= 0) & (cam < V)
     xo = x[cam.long().clamp(0, V - 1)] * ok[:, None].to(x.dtype)
-    return torch.einsum("oic,oi->oc", w21.reshape(-1, 7, 3), xo)
+    return torch.einsum("oic,oi->oc", w21.reshape(-1, nc, 3), xo)
 
 
 def reduce_cam_reference(w21: torch.Tensor, y: torch.Tensor, perm: torch.Tensor,
-                         mask: torch.Tensor, n_views: int) -> torch.Tensor:
-    """Plain version: coup (V, 7) with coup[v] = sum of W_o y_o over the
-    filled slots of camera v's rows of the camera-major view."""
-    z = torch.einsum("oic,oc->oi", w21.reshape(-1, 7, 3), y)
+                         mask: torch.Tensor, n_views: int,
+                         seg: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain version: coup (V, nc) with coup[v] = sum of W_o y_o over the
+    filled slots of camera v's rows of the camera-major view (``seg``: its
+    own run of them)."""
+    nc = w21.shape[1] // 3
+    z = torch.einsum("oic,oc->oi", w21.reshape(-1, nc, 3), y)
     g = z[perm.long()] * mask[:, None].to(z.dtype)
-    return g.reshape(n_views, -1, 7).sum(1)
+    if seg is None:
+        return g.reshape(n_views, -1, nc).sum(1)
+    by_start = torch.argsort(seg[:, 0].long(), stable=True)  # the runs in slot order
+    owner = torch.repeat_interleave(by_start, seg[by_start, 1].long(), output_size=g.shape[0])
+    return g.new_zeros((n_views, nc)).index_add_(0, owner, g)
 
 
 def _check(name: str, t: torch.Tensor, shape: tuple, dtype, dev) -> None:
@@ -60,11 +75,18 @@ def _(cam, w21, x):
     return w21.new_empty((cam.shape[0], 3))
 
 
+def _width(name: str, x: torch.Tensor) -> int:
+    if x.dim() != 2 or x.shape[1] not in (7, 10):
+        raise ValueError(f"{name} must be (V, 7) or (V, 10): a camera block of 7 or 10")
+    return x.shape[1]
+
+
 def _check_expand(cam, w21, x) -> None:
     O, V = cam.shape[0], x.shape[0]
+    nc = _width("expand_cam: x", x)
     _check("expand_cam: cam", cam, (O,), torch.int32, cam.device)
-    _check("expand_cam: w21", w21, (O, 21), torch.float32, cam.device)
-    _check("expand_cam: x", x, (V, 7), torch.float32, cam.device)
+    _check("expand_cam: w21", w21, (O, 3 * nc), torch.float32, cam.device)
+    _check("expand_cam: x", x, (V, nc), torch.float32, cam.device)
     if O == 0 or V < 1:
         raise ValueError("expand_cam: need O > 0 observations and V > 0 cameras")
 
@@ -74,11 +96,11 @@ def _(cam, w21, x):
     _check_expand(cam, w21, x)
     O, V = cam.shape[0], x.shape[0]
     t = torch.empty((O, 3), dtype=torch.float32, device=cam.device)
-    rc = kernels.library().sfm_expand_cam(
-        cam.data_ptr(), w21.data_ptr(), x.data_ptr(), O, V, t.data_ptr(),
+    rc = kernels.library().sfm_expand_cam_w(
+        cam.data_ptr(), w21.data_ptr(), x.data_ptr(), O, V, x.shape[1], t.data_ptr(),
         kernels.stream_ptr(cam.device),
     )
-    kernels.check(rc, "sfm_expand_cam")
+    kernels.check(rc, "sfm_expand_cam_w")
     expand_cam.launches += 1
     return t
 
@@ -95,53 +117,59 @@ def expand_cam(cam: torch.Tensor, w21: torch.Tensor, x: torch.Tensor) -> torch.T
 
 @torch.library.custom_op("sfm::reduce_cam", mutates_args=(), device_types="cpu")
 def _reduce_cam_op(w21: torch.Tensor, y: torch.Tensor, perm: torch.Tensor, mask: torch.Tensor,
-                   n_views: int) -> torch.Tensor:
+                   n_views: int, seg: torch.Tensor | None = None) -> torch.Tensor:
     """B6 as an operator: the plain version on the CPU, the kernel on the
     card, no other device."""
-    return reduce_cam_reference(w21, y, perm, mask, n_views)
+    return reduce_cam_reference(w21, y, perm, mask, n_views, seg)
 
 
 @_reduce_cam_op.register_fake
-def _(w21, y, perm, mask, n_views):
-    return w21.new_empty((n_views, 7))
+def _(w21, y, perm, mask, n_views, seg=None):
+    return w21.new_empty((n_views, w21.shape[1] // 3))
 
 
-def _check_reduce(w21, y, perm, mask, n_views: int) -> None:
+def _check_reduce(w21, y, perm, mask, n_views: int, seg=None) -> None:
     O, S = w21.shape[0], perm.shape[0]
     dev = w21.device
-    _check("reduce_cam: w21", w21, (O, 21), torch.float32, dev)
+    if w21.dim() != 2 or w21.shape[1] not in (21, 30):
+        raise ValueError("reduce_cam: w21 must be (O, 21) or (O, 30): a camera block of 7 or 10")
+    _check("reduce_cam: w21", w21, (O, w21.shape[1]), torch.float32, dev)
     _check("reduce_cam: y", y, (O, 3), torch.float32, dev)
     _check("reduce_cam: perm", perm, (S,), torch.int32, dev)
     _check("reduce_cam: mask", mask, (S,), torch.bool, dev)
-    if n_views < 1 or S % n_views:
+    if seg is not None:
+        _check("reduce_cam: seg", seg, (n_views, 2), torch.int32, dev)
+    elif n_views < 1 or S % n_views:
         raise ValueError(f"reduce_cam: {S} camera-major slots do not split into {n_views} cameras")
 
 
 @_reduce_cam_op.register_kernel("cuda")
-def _(w21, y, perm, mask, n_views):
-    _check_reduce(w21, y, perm, mask, n_views)
+def _(w21, y, perm, mask, n_views, seg=None):
+    _check_reduce(w21, y, perm, mask, n_views, seg)
     O, S = w21.shape[0], perm.shape[0]
     dev = w21.device
-    coup = torch.empty((n_views, 7), dtype=torch.float32, device=dev)
-    rc = kernels.library().sfm_reduce_cam(
-        w21.data_ptr(), y.data_ptr(), perm.data_ptr(), mask.data_ptr(), O, n_views,
-        S // n_views, coup.data_ptr(), kernels.stream_ptr(dev),
+    nc = w21.shape[1] // 3
+    coup = torch.empty((n_views, nc), dtype=torch.float32, device=dev)
+    rc = kernels.library().sfm_reduce_cam_w(
+        w21.data_ptr(), y.data_ptr(), perm.data_ptr(), mask.data_ptr(),
+        None if seg is None else seg.data_ptr(), O, n_views,
+        0 if seg is not None else S // n_views, nc, coup.data_ptr(), kernels.stream_ptr(dev),
     )
-    kernels.check(rc, "sfm_reduce_cam")
+    kernels.check(rc, "sfm_reduce_cam_w")
     reduce_cam.launches += 1
     return coup
 
 
 def reduce_cam(w21: torch.Tensor, y: torch.Tensor, perm: torch.Tensor, mask: torch.Tensor,
-               n_views: int) -> torch.Tensor:
-    """coup (V, 7) = per-camera sum of W_o y_o; same result as
+               n_views: int, seg: torch.Tensor | None = None) -> torch.Tensor:
+    """coup (V, nc) = per-camera sum of W_o y_o; same result as
     :func:`reduce_cam_reference`, and the same bits on every run (the
     ``sfm::reduce_cam`` operator)."""
     if w21.device.type not in ("cpu", "cuda"):
         raise ValueError(f"reduce_cam: unsupported device {w21.device}")
     if w21.device.type == "cuda":
-        _check_reduce(w21, y, perm, mask, n_views)
-    return torch.ops.sfm.reduce_cam(w21, y, perm, mask, int(n_views))
+        _check_reduce(w21, y, perm, mask, n_views, seg)
+    return torch.ops.sfm.reduce_cam(w21, y, perm, mask, int(n_views), seg)
 
 
 expand_cam.launches = 0

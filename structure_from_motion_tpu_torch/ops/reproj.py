@@ -3,7 +3,10 @@
 
 Residuals in normalised camera coordinates for a camera ``[C (3), q (4)]``;
 d vec(R)/d q is the raw (unnormalised) quadratic form; residual sign is
-``measurement - projection``.
+``measurement - projection``. With per-observation intrinsics ``(f, k1,
+k2)`` the camera block is ``[C, q, f, k1, k2]`` (Snavely's BAL model,
+principal point at 0): residuals in pixels through ``f (1 + k1 rho^2 + k2
+rho^4)`` of the normalised point, ``rho^2 = u^2 + v^2``.
 """
 
 from __future__ import annotations
@@ -38,8 +41,10 @@ def observation_residual_jacobians(C, q, X, meas):
     return res[0], J_cam[0], J_pt[0]
 
 
-def batched_residual_jacobians(C, q, X, meas):
-    """(O,3),(O,4),(O,3),(O,2) -> res (O,2), J_cam (O,2,7), J_pt (O,2,3)."""
+def batched_residual_jacobians(C, q, X, meas, intr=None):
+    """(O,3),(O,4),(O,3),(O,2) -> res (O,2), J_cam (O,2,7), J_pt (O,2,3);
+    with ``intr`` (O,3) = (f, k1, k2), ``meas`` in pixels, res in pixels and
+    J_cam (O,2,10)."""
     R = quat_to_rotation(q)  # (O, 3, 3)
     d = X - C
     x = torch.einsum("oji,oj->oi", R, d)  # R^T d
@@ -57,7 +62,22 @@ def batched_residual_jacobians(C, q, X, meas):
     dx_dq = torch.einsum("ojik,oj->oik", dRdq, d)  # (O, 3, 4)
     dproj_dq = torch.einsum("oik,okl->oil", dproj_dx, dx_dq)  # (O, 2, 4)
     J_cam = torch.cat([-dproj_dX, dproj_dq], dim=-1)
-    return res, J_cam, dproj_dX
+    if intr is None:
+        return res, J_cam, dproj_dX
+    # pixels: proj = s (u, v), s = f (1 + k1 rho^2 + k2 rho^4); d proj / d (u, v)
+    # = s I + g (u, v)^T (u, v), g = f (2 k1 + 4 k2 rho^2)
+    f, k1, k2 = intr.unbind(-1)
+    uv = torch.stack([u, v], dim=-1)
+    rho2 = u * u + v * v
+    rad = 1.0 + rho2 * (k1 + k2 * rho2)
+    s = f * rad
+    g = f * (2.0 * k1 + 4.0 * k2 * rho2)
+    A = s[..., None, None] * torch.eye(2, dtype=u.dtype, device=u.device) \
+        + g[..., None, None] * uv[..., :, None] * uv[..., None, :]
+    J_intr = torch.stack([rad[..., None] * uv, (f * rho2)[..., None] * uv,
+                          (f * rho2 * rho2)[..., None] * uv], dim=-1)  # (O, 2, 3)
+    J_pt = A @ dproj_dX
+    return meas - s[..., None] * uv, torch.cat([A @ J_cam, J_intr], dim=-1), J_pt
 
 
 def pixel_residuals(K, C, q, X, uv):

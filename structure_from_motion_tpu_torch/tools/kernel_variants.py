@@ -183,17 +183,19 @@ B4_CHANGES = {
         (_B4_LANE, "  const int lb = 0;\n  if (kLanes) {\n"
                    "    rows += (size_t)blockIdx.y * nb * rmax * kP;\n"
                    "    slot += (size_t)blockIdx.y * nb * V;\n"
-                   "    U += (size_t)blockIdx.y * V * 49;\n    bc += (size_t)blockIdx.y * V * 7;\n"
+                   "    U += (size_t)blockIdx.y * V * NC * NC;\n"
+                   "    bc += (size_t)blockIdx.y * V * NC;\n"
                    "    cost += (size_t)blockIdx.y * V * kCostStride;\n  }\n"),
         (_B4_ROW, "  const size_t ov = v;\n")],
     "8 rows in flight in both instantiations": _b4_in_flight(8, 8),
     "lane instantiation with 32 rows in flight": _b4_in_flight(32, 4),
     "one-lane instantiation with 2 rows in flight": _b4_in_flight(16, 2),
     "ba_reduce_rows held to two blocks an SM": [
-        ("__global__ void __launch_bounds__(kP * kGroups)\n",
-         "__global__ void __launch_bounds__(kP * kGroups, 2)\n")],
+        ("__global__ void __launch_bounds__(kPay<NC> * kGrp<NC>)\n",
+         "__global__ void __launch_bounds__(kPay<NC> * kGrp<NC>, 2)\n")],
 }
-BA_BLOCKS_ARGS = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P, _P, _P, _P, _P, _P, _P, _P, _P]
+BA_BLOCKS_ARGS = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P, _P, _P, _P, _P, _P, _P, _P,
+                  _P]
 SVD_ARGS = [_P, _I, _I, _I, _I, _P, _L, _P, _P, _P, _P]
 # B7: changes to csrc/svd.cu (the tree's reduction blocks take 256 threads
 # x 4 rows of a matrix they share, x 8 of one they take alone; its 9- and
@@ -420,7 +422,7 @@ def b4_source(pairs) -> str:
 def b4_variants(dev, rng, card) -> None:
     """Each variant at one lane and at B = 8 lanes, its outputs bit for bit
     the tree's; the device time of each kernel (the lane launch's
-    reduction is ``ba_reduce_rows<true>``)."""
+    reduction is ``ba_reduce_rows<7, true>``)."""
     libs = build("b4", {n: b4_source(p) for n, p in B4_CHANGES.items()}, "sfm_ba_blocks_lanes",
                  BA_BLOCKS_ARGS)
     stream = kernels.stream_ptr(dev)
@@ -430,7 +432,7 @@ def b4_variants(dev, rng, card) -> None:
         n = max(B, 1)
         lead = (B,) if B else ()
         nb = -(-O // ba_cuda._BLOCK)
-        n_rows = n * nb * min(ba_cuda._BLOCK, V) * ba_cuda._ROW
+        n_rows = n * nb * min(ba_cuda._BLOCK, V) * ba_cuda._ROW[7]
         f32 = lambda *s: torch.empty(lead + s, dtype=torch.float32, device=dev)  # noqa: E731
         outs = (f32(V, 7, 7), f32(V, 7), f32(O, 3, 3), f32(O, 7, 3), f32(O, 3))
         cost = f32(V, 2)
@@ -439,7 +441,7 @@ def b4_variants(dev, rng, card) -> None:
             def call():
                 U, bc, dtd, wblk, bp = (t.data_ptr() for t in outs)
                 return lib.sfm_ba_blocks_lanes(
-                    *(t.data_ptr() for t in bargs[:6]), n, O, V, bargs[7], dtd, wblk, bp,
+                    *(t.data_ptr() for t in bargs[:6]), None, n, O, V, bargs[7], dtd, wblk, bp,
                     scratch.data_ptr(), scratch.data_ptr() + 4 * n_rows, U, bc,
                     cost.data_ptr(), stream)
             kernels.check(call(), f"variant {name}")
@@ -447,7 +449,7 @@ def b4_variants(dev, rng, card) -> None:
             same = all(torch.equal(g, w) for g, w in zip((*outs, cost[..., 0].sum(-1)), want))
             if not same:
                 raise AssertionError(f"B4 variant {name} differs from the tree's kernel")
-            reduce = "ba_reduce_rows<true>" if B else "ba_reduce_rows<false>"
+            reduce = "ba_reduce_rows<7, true>" if B else "ba_reduce_rows<7, false>"
             print(f"B4 O = {O}, V = {V}{f', {B} lanes' if B else ''} [{name}]: ba_assemble "
                   f"{device_us(call, 'ba_assemble'):.2f} us, {reduce} "
                   f"{device_us(call, reduce):.2f} us, the tree's bits ({card})")
