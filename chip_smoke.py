@@ -2,7 +2,7 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA card.
 
 Run from the repository root with no arguments:  python3 chip_smoke.py
-(``python3 chip_smoke.py --only selfcal`` runs phases 1, 2 and 14 alone).
+(``python3 chip_smoke.py --only selfcal`` runs phases 1, 2, 14 and 15 alone).
 
 Phases, each printing its numbers on its own line; any failure raises and
 the script exits non-zero without printing the final result line:
@@ -162,6 +162,15 @@ the script exits non-zero without printing the final result line:
    same bits on two launches; their CUDA-event and device times against
    their bounds (``benchmark/counts_selfcal.py``); then two LM iterations
    of ``solve_global`` with the launches of B4, B5 and B6 counted.
+
+15. cam_diag (after phase 14): kernel B8, the PCG preconditioner's
+   diagonal blocks, on the inputs a two-iteration ``solve_global`` gave it
+   (its launches counted: one an LM iteration) at BAL Venice's counts
+   (width 10, camera tiers) and on the 500-camera checkpoint (width 7, one
+   row count): each block within 1e-5 of its largest entry of the plain
+   version in float64, the same bits on two launches, the CUDA-event and
+   device times against the bound (``benchmark/counts_diag.py``) and the
+   plain version's time.
 
 Kernel B7 (``csrc/svd.cu``: the frame path's small SVDs, no host read;
 no Pallas kernel stands behind it) joins phase 3 at every shape the slice
@@ -1662,6 +1671,22 @@ def _col_gap(got, want, dim: int) -> float:
     return float((err / want.abs().movedim(dim, 0).flatten(1).amax(1).clamp_min(1e-30)).max())
 
 
+def _venice_problem(dev):
+    """The BAL cell's problem at Venice's counts, drawn from SELFCAL_SEED
+    (``benchmark/reference/bal_scene.py``), on ``dev``."""
+    from benchmark.reference import bal_scene
+    from structure_from_motion_tpu_torch.io import bal
+
+    cfg_json = json.loads(SELFCAL_CONFIG.read_text())
+    n = cfg_json["counts"]
+    assumed = {k: v["value"] for k, v in cfg_json["assumed"].items()
+               if isinstance(v["value"], (int, float, list))}
+    d = bal_scene.draw(SELFCAL_SEED, int(n["cameras"]), int(n["points"]), int(n["observations"]),
+                       assumed, dev)
+    return bal.to_problem(bal.BALProblem(*(d[k] for k in ("cameras", "points", "cam", "point",
+                                                          "xy"))), dev)
+
+
 def selfcal_phase(dev, smi: str) -> None:
     """Phase 14 (see the module's docstring); raises when a bound fails."""
     import dataclasses
@@ -1669,24 +1694,15 @@ def selfcal_phase(dev, smi: str) -> None:
     import torch
 
     from benchmark import counts_selfcal
-    from benchmark.reference import bal_scene
     from structure_from_motion_tpu_torch.config import BAConfig
-    from structure_from_motion_tpu_torch.io import bal
     from structure_from_motion_tpu_torch.models import global_ba
     from structure_from_motion_tpu_torch.ops import ba as ba_ops
     from structure_from_motion_tpu_torch.ops import ba_cuda, ba_matvec
     from structure_from_motion_tpu_torch.tools.profile_kernels import device_times
 
-    cfg_json = json.loads(SELFCAL_CONFIG.read_text())
-    n = cfg_json["counts"]
-    V = int(n["cameras"])
-    assumed = {k: v["value"] for k, v in cfg_json["assumed"].items()
-               if isinstance(v["value"], (int, float, list))}
-    d = bal_scene.draw(SELFCAL_SEED, V, int(n["points"]), int(n["observations"]), assumed, dev)
-    problem = bal.to_problem(bal.BALProblem(*(d[k] for k in ("cameras", "points", "cam", "point",
-                                                             "xy"))), dev)
-    del d
+    problem = _venice_problem(dev)
     (st, intr), obs_t, tiers, _, cam_view = global_ba.tiered_problem(problem)
+    V = st.C.shape[0]
     cfg = dataclasses.replace(BAConfig(huber_delta=0.0), obs_layout="tiered", tiers=tiers,
                               ell_rows=0, ell_tail=0, cam_rows=0)
     obs, lay = ba_ops._layout(st, obs_t, cfg, cam_view)
@@ -1788,6 +1804,64 @@ def selfcal_phase(dev, smi: str) -> None:
           f"{_loop_stats()} ({smi})")
     if stats["cam_width"] != 10 or any(v < 1 for v in launches.values()):
         raise AssertionError(f"the self-calibrating solve did not launch B4-B6: {launches}")
+
+
+def cam_diag_phase(dev, smi: str) -> None:
+    """Phase 15 (see the module's docstring); raises when a bound fails."""
+    import torch
+
+    from benchmark import counts_diag
+    from structure_from_motion_tpu_torch.config import BAConfig
+    from structure_from_motion_tpu_torch.models import global_ba
+    from structure_from_motion_tpu_torch.ops import ba as ba_ops
+    from structure_from_motion_tpu_torch.ops import ba_matvec
+    from structure_from_motion_tpu_torch.tools.profile_kernels import device_times
+    from structure_from_motion_tpu_torch.utils import checkpoint
+
+    def global500():
+        state, frame, archive, _ = checkpoint.load_state(str(ARTIFACT), dev)
+        return global_ba.build_global_problem(state, archive, min(frame, 8))
+
+    for label, make, width, tiered in (("BAL Venice", lambda: _venice_problem(dev), 10, True),
+                                       ("500-camera checkpoint", global500, 7, False)):
+        problem = make()
+        counted = {"B8 cam_diag": ba_matvec.cam_diag}
+        _reset(counted)
+        with last_call(ba_ops, "cam_diag") as seen:
+            _, costs = global_ba.solve_global(problem, BAConfig(huber_delta=0.0), iterations=2)
+        torch.cuda.synchronize()
+        launches, _ = _read(counted)
+        del problem
+        args = seen["args"]
+        w, dinv, point, perm, mask, V, seg = args
+        print(f"cam_diag {label}: a 2-iteration solve launched B8 {launches['B8 cam_diag']} "
+              f"times; V {V}, slots {w.shape[0]}, view slots {perm.shape[0]}, width "
+              f"{w.shape[1] // 3}, camera tiers {seg is not None}; costs {costs.tolist()}")
+        if launches["B8 cam_diag"] != 2 or w.shape[1] != 3 * width or (seg is not None) != tiered:
+            raise AssertionError(f"B8 at {label}: not one launch an LM iteration at width "
+                                 f"{width} (tiers {tiered})")
+        got = ba_matvec.cam_diag(*args)
+        same = torch.equal(got, ba_matvec.cam_diag(*args))
+        want = ba_matvec.cam_diag_reference(w.double(), dinv.double(), point, perm, mask, V, seg)
+        scale = want.abs().amax(dim=(1, 2), keepdim=True).clamp_min(1e-30)
+        gap = float(((got.double() - want).abs() / scale).max())
+        del want, scale
+        print(f"cam_diag {label}: B8 against its plain version (float64): {gap:.2e} of each "
+              f"block's largest entry (bound 1e-5); two launches same bits: {same}")
+        if not (gap <= 1e-5 and same):
+            raise AssertionError(f"B8 at {label}: gap {gap:.2e}, same bits {same}")
+        filled = int(mask.sum())
+        nbytes = counts_diag.cam_diag_launch(filled, V, perm.shape[0], width)[1]
+        bound = nbytes / PEAK_BYTES_PER_S * 1e3
+        ms = _median_ms(torch, lambda: ba_matvec.cam_diag(*args), reps=10)
+        parts = device_times(lambda: ba_matvec.cam_diag(*args), every=True)
+        plain = _median_ms(torch, lambda: ba_matvec.cam_diag_reference(*args), reps=3)
+        print(f"cam_diag {label}: B8 {ms:.4f} ms (bound {bound:.4f} ms, {nbytes / 1e9:.3f} GB, "
+              f"{filled} filled slots; {100 * bound / ms:.1f}% of it); by kernel: "
+              + ", ".join(f"{k} {us:.1f} us" for k, us in parts.items())
+              + f"; plain version {plain:.4f} ms ({smi})")
+        del args, seen, w, dinv, point, perm, mask, seg, got
+        torch.cuda.empty_cache()
 
 
 def _loop_site(call) -> str:
@@ -2962,6 +3036,10 @@ def opcheck_phase(dev) -> None:
         "reduce_cam": (f32(8, 21), f32(8, 3),
                        torch.randint(0, 8, (12,), generator=g, device=dev, dtype=torch.int32),
                        torch.rand(12, generator=g, device=dev) < 0.7, 3),
+        "cam_diag": (f32(8, 30), f32(5, 3, 3),
+                     torch.randint(0, 5, (8,), generator=g, device=dev, dtype=torch.int32),
+                     torch.randint(0, 8, (12,), generator=g, device=dev, dtype=torch.int32),
+                     torch.rand(12, generator=g, device=dev) < 0.7, 3),
         "small_svd": (f32(4, 8, 9), True),
         "small_svd full": (f32(4, 3, 3), False),
     }
@@ -3010,11 +3088,13 @@ def main() -> None:
         log = kernels.library_path().with_suffix(".log")
         regs = kernels.ptxas_registers(log.read_text()) if log.exists() else {}
         for name, (n_regs, spills) in sorted(regs.items()):
-            if name.startswith(("ba_", "expand_cam", "reduce_cam")):
+            if name.startswith(("ba_", "expand_cam", "reduce_cam", "cam_diag")):
                 print(f"build ptxas: {name}: {n_regs} registers, {spills} bytes spilled")
         with _clock("selfcal"):
             selfcal_phase(dev, smi)
-        print(json.dumps({"ok": True, "phases": ["selfcal"]}))
+        with _clock("cam_diag"):
+            cam_diag_phase(dev, smi)
+        print(json.dumps({"ok": True, "phases": ["selfcal", "cam_diag"]}))
         return
     pool = ProcessPoolExecutor(max_workers=8, mp_context=multiprocessing.get_context("spawn"))
     try:
@@ -3104,6 +3184,10 @@ def _smoke(torch, dev, smi: str, pool) -> None:
     # -- 14. the self-calibrating block at BAL Venice's counts -------------------
     with _clock("selfcal"):
         selfcal_phase(dev, smi)
+
+    # -- 15. kernel B8 in the solves' PCG --------------------------------------
+    with _clock("cam_diag"):
+        cam_diag_phase(dev, smi)
 
     # -- 9. the sharded BA: two ranks on this card, and a one-rank NCCL group --
     with _clock("sharded"):

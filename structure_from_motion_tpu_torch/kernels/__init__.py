@@ -13,8 +13,8 @@ the CUDA stream pass as ``c_void_p``, every entry point returns
 Each entry point is wrapped as one ``torch.library`` operator in the
 ``sfm`` namespace (``sfm::blur_levels``, ``candidate_response``,
 ``candidate_block_max``, ``match_top2``, ``ba_blocks``, ``expand_cam``,
-``reduce_cam``, ``small_svd``), registered by its wrapper module under ``ops/``
-(:func:`register_ops` imports them all): the plain version is its CPU
+``reduce_cam``, ``cam_diag``, ``small_svd``), registered by its wrapper
+module under ``ops/`` (:func:`register_ops` imports them all): the plain version is its CPU
 implementation, the ``ctypes`` launch its CUDA implementation, and a fake
 implementation gives its output shapes, so ``torch.export`` traces a
 program through it. On any other device an operator raises. The entry
@@ -74,6 +74,9 @@ _SIGNATURES = {
     "sfm_expand_cam_w": (_P, _P, _P, _I, _I, _I, _P, _P),
     # w, y, perm, mask, seg (or null), O, V, rows, width, coup, stream
     "sfm_reduce_cam_w": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P),
+    # w, dinv, point, perm, mask, seg (or null), O, M, V, rows, width, parts,
+    # part_out (or null), out, stream
+    "sfm_cam_diag_w": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P),
     # A, batch, M, N, full, scratch, scratch floats, U, S, V, stream
     "sfm_small_svd": (_P, _I, _I, _I, _I, _P, _L, _P, _P, _P, _P),
     # csrc/graph_cond.cu: stream, body stream, predicate; body stream, address of the

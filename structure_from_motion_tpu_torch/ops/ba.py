@@ -18,7 +18,7 @@ tier of no rows) whose point-axis reductions are reshape-sums and whose
 point gathers are broadcasts, and a tail reduced by ``index_add_`` (on
 CUDA in no fixed order) and gathered by index. ``cam_rows`` adds a
 camera-major view of the same stream (:func:`compute_cam_ell`) for the
-camera-axis reductions; ``cam_tiers`` (a keyword of
+camera-axis reductions (kernels B6 and B8); ``cam_tiers`` (a keyword of
 :func:`run_bundle_adjustment`) cuts that view into tiers of cameras by
 descending observation count, each with its own row count
 (:func:`compute_cam_tiers`), where one row count would pad it past
@@ -36,7 +36,8 @@ diagonal spans ~20 (f) to ~1e10 (q), so no one ``lam`` damps both.
 One LM iteration: block assembly (kernel B4 on the card), Schur reduction
 onto the cameras, then either a dense Cholesky solve of the (7V, 7V)
 reduced system or, from ``pcg_fallback_cameras`` cameras up, matrix-free
-block-Jacobi PCG whose matvec runs kernels B5 and B6 on the card; point
+block-Jacobi PCG whose matvec runs kernels B5 and B6 on the card and whose
+preconditioner's diagonal blocks kernel B8 sums; point
 back-substitution; the adaptive accept test on the same Huber objective the
 assembly charged.
 
@@ -67,7 +68,7 @@ import torch
 from structure_from_motion_tpu_torch.config import BAConfig
 from structure_from_motion_tpu_torch.device import repeat_each
 from structure_from_motion_tpu_torch.ops.ba_cuda import ba_blocks, cam_onehot, huber_weights
-from structure_from_motion_tpu_torch.ops.ba_matvec import expand_cam, reduce_cam
+from structure_from_motion_tpu_torch.ops.ba_matvec import cam_diag, expand_cam, reduce_cam
 from structure_from_motion_tpu_torch.ops.linalg import inv3x3, pcg_solve, solve_psd
 from structure_from_motion_tpu_torch.ops.reproj import batched_residual_jacobians
 from structure_from_motion_tpu_torch.utils import profiling
@@ -114,23 +115,18 @@ class ObsLayout(NamedTuple):
     ``pad`` invalid alignment slots, then the tail: the last
     ``len(tail_point)`` slots, point-sorted, observation i of it belonging
     to point ``tail_point[i]`` (the hybrid ELL's spill, or the whole CSR
-    stream). ``cam_perm``/``cam_mask`` (with ``cam_rows`` > 0): slot
-    ``v * cam_rows + r`` of the camera-major view holds the stream index of
-    camera v's r-th observation. With ``cam_tiers`` ((n_cams, rows), ...)
-    the view is cut into tiers instead: row i of it is camera
-    ``cam_order[i]`` (descending observation count), tier t holds the next
-    ``n_t`` of them at ``rows_t`` slots each, and ``cam_seg[v]`` is camera
-    v's (first slot, rows)."""
+    stream). ``cam_perm``/``cam_mask``: the camera-major view, slot
+    ``v * rows + r`` holding the stream index of camera v's r-th
+    observation (``rows`` = the view's length over V); with camera tiers
+    (:func:`compute_cam_tiers`) ``cam_seg[v]`` is camera v's (first slot,
+    rows) instead."""
 
     tiers: tuple = ()  # ((n_points, rows), ...)
     pad: int = 0
     tail_point: torch.Tensor | None = None  # (T,) point ids of the tail slots
-    cam_rows: int = 0
-    cam_perm: torch.Tensor | None = None  # (V * cam_rows,) int32
-    cam_mask: torch.Tensor | None = None  # (V * cam_rows,) bool
+    cam_perm: torch.Tensor | None = None  # (S,) int32
+    cam_mask: torch.Tensor | None = None  # (S,) bool
     lanes: int = 0  # B for a lane stack (B, ...) of ELL problems
-    cam_tiers: tuple = ()  # ((n_cams, rows), ...) of the camera-major view
-    cam_order: torch.Tensor | None = None  # (V,) camera id of each view row
     cam_seg: torch.Tensor | None = None  # (V, 2) int32 (first slot, rows) a camera
 
 
@@ -248,22 +244,10 @@ def compute_cam_tiers(cam: torch.Tensor, valid: torch.Tensor, n_views: int, tier
     return perm[:total], mask[:total], order, seg
 
 
-def _cam_sum(vals: torch.Tensor, cam: torch.Tensor, n_views: int, lay: ObsLayout) -> torch.Tensor:
-    """Sum per-slot values into (n_views, ...) camera bins: camera-ELL
-    gather + reshape-sum when the layout has one (with camera tiers, tier by
-    tier in rank order, then back to camera order), else a one-hot product
-    (lane by lane for a lane stack)."""
-    if lay.cam_perm is not None:
-        m = lay.cam_mask.to(vals.dtype).reshape((-1,) + (1,) * (vals.dim() - 1))
-        g = vals[lay.cam_perm.long()] * m
-        if not lay.cam_tiers:
-            return g.reshape((n_views, lay.cam_rows) + vals.shape[1:]).sum(1)
-        outs, off = [], 0
-        for n, r in lay.cam_tiers:
-            outs.append(g.narrow(0, off, n * r).reshape((n, r) + vals.shape[1:]).sum(1))
-            off += n * r
-        by_rank = torch.cat(outs)
-        return torch.empty_like(by_rank).index_copy_(0, lay.cam_order, by_rank)
+def _cam_sum(vals: torch.Tensor, cam: torch.Tensor, n_views: int) -> torch.Tensor:
+    """Sum per-slot values into (n_views, ...) camera bins by a one-hot
+    product (lane by lane for a lane stack); a layout with a camera-major
+    view sums over it in kernels B6 and B8 instead."""
     lead, O = cam.shape[:-1], cam.shape[-1]
     oh = cam_onehot(cam, n_views, vals.dtype)
     out = oh.transpose(-1, -2) @ vals.reshape(lead + (O, -1))
@@ -414,9 +398,10 @@ def _solve_pcg(U, Dinv, W, b_red, obs, pin, lam, config: BAConfig, lay: ObsLayou
     U_hat = _damp(psum(U) if psum is not None else U, lam, marquardt)
     w21 = W.reshape(-1, 3 * nc)
     # exact diagonal blocks: sum over each camera's observations of
-    # W_o Dinv_pt(o) W_o^T (at most one observation per (camera, point))
-    WD = torch.einsum("oic,ocd->oid", W, _point_gather(Dinv, lay))
-    S_diag = _cam_sum(torch.einsum("oid,ojd->oij", WD, W), obs.cam, V, lay)
+    # W_o Dinv_pt(o) W_o^T (at most one observation per (camera, point)),
+    # kernel B8 over the camera-major view
+    S_diag = cam_diag(w21, Dinv.contiguous(), obs.point.contiguous(), lay.cam_perm, lay.cam_mask,
+                      V, lay.cam_seg)
     if psum is not None:
         S_diag = psum(S_diag)
     P = torch.where(pin[:, None, None], eye_c, U_hat - S_diag)
@@ -437,8 +422,12 @@ def _reduce_and_solve(U, D, W, b_c, b_p, state: BAState, obs, config: BAConfig, 
     dt = state.X.dtype
     Dinv = inv3x3(_damp(D, lam, marquardt)) * state.pt_valid[..., None, None].to(dt)
     y = torch.einsum("...mcd,...md->...mc", Dinv, b_p)
-    contrib = torch.einsum("...oic,...oc->...oi", W, _point_gather(y, lay))
-    b_red = b_c - _cam_sum(contrib, obs.cam, V, lay)
+    if lay.cam_perm is not None:  # kernel B6 over the camera-major view
+        b_red = b_c - reduce_cam(W.flatten(-2), _point_gather(y, lay).contiguous(), lay.cam_perm,
+                                 lay.cam_mask, V, lay.cam_seg)
+    else:
+        contrib = torch.einsum("...oic,...oc->...oi", W, _point_gather(y, lay))
+        b_red = b_c - _cam_sum(contrib, obs.cam, V)
     if psum is not None:
         b_red = psum(b_red)
     pin = ~state.cam_valid
@@ -514,9 +503,8 @@ def _layout(state: BAState, obs: BAObservations, config: BAConfig, cam_tiers: tu
         obs = _sort_obs_by_point(obs)
         lay = ObsLayout(tiers=((M, 0),), tail_point=obs.point)
     if cam_tiers:
-        perm, mask, order, seg = compute_cam_tiers(obs.cam, obs.valid, V, tuple(cam_tiers))
-        return obs, lay._replace(cam_tiers=tuple(cam_tiers), cam_perm=perm, cam_mask=mask,
-                                 cam_order=order, cam_seg=seg)
+        perm, mask, _, seg = compute_cam_tiers(obs.cam, obs.valid, V, tuple(cam_tiers))
+        return obs, lay._replace(cam_perm=perm, cam_mask=mask, cam_seg=seg)
     cam_rows = config.cam_rows
     if not cam_rows and V >= config.pcg_fallback_cameras:
         # kernel B6 sums each camera's slots over the camera-major view, so
@@ -526,7 +514,7 @@ def _layout(state: BAState, obs: BAObservations, config: BAConfig, cam_tiers: tu
         cam_rows = -(-max(int(counts.max()), 1) // 8) * 8
     if cam_rows:
         perm, mask = compute_cam_ell(obs.cam, obs.valid, V, cam_rows)
-        lay = lay._replace(cam_rows=cam_rows, cam_perm=perm, cam_mask=mask)
+        lay = lay._replace(cam_perm=perm, cam_mask=mask)
     return obs, lay
 
 
@@ -608,6 +596,7 @@ def _lm_step(i, state: BAState, intr, lam, costs, obs, lay: ObsLayout, config: B
             cost = psum(cost)  # the accept test compares global costs
         dc, dp = _reduce_and_solve(U, D, W, b_c, b_p, state, obs, config, lam, lay, cg_iters,
                                    psum, marquardt=intr is not None)
+        del U, D, W, b_c, b_p  # dead: freed before the candidate's cost allocates
         cand = _apply_step(state, dc, dp)
         cand_intr = None if intr is None else intr + dc[..., 7:] * state.cam_valid[..., None].to(
             intr.dtype)

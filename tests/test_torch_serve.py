@@ -406,11 +406,15 @@ def _op_cases():
         "reduce_cam": (f32(8, 21), f32(8, 3),
                        torch.from_numpy(rng.integers(0, 8, 12).astype(np.int32)),
                        torch.from_numpy(rng.random(12) < 0.7), 3),
+        "cam_diag": (f32(8, 30), f32(5, 3, 3),
+                     torch.from_numpy(rng.integers(0, 5, 8).astype(np.int32)),
+                     torch.from_numpy(rng.integers(0, 8, 12).astype(np.int32)),
+                     torch.from_numpy(rng.random(12) < 0.7), 3),
     }
 
 
-OPS = ["ba_blocks", "blur_levels", "candidate_block_max", "candidate_response", "expand_cam",
-       "match_top2", "reduce_cam"]
+OPS = ["ba_blocks", "blur_levels", "cam_diag", "candidate_block_max", "candidate_response",
+       "expand_cam", "match_top2", "reduce_cam"]
 
 
 @pytest.mark.parametrize("name", OPS)
