@@ -400,7 +400,7 @@ ba_reduce_rows(const float* __restrict__ rows,
   float acc = 0.f;
   // row loads a thread keeps in flight: the lane launch (128 blocks at B =
   // 8, V = 16) gains from more, the one-lane launch at V = 500 from fewer
-  // (tools/kernel_variants.py --only b4); the sum's order is the same
+  // (both measured on the card); the sum's order is the same
   constexpr int kInFlight = kLanes ? 16 : 4;
   for (int b = b0; b < b1; b += kInFlight) {
     int s[kInFlight];

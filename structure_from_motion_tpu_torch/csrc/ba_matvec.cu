@@ -64,11 +64,10 @@
 // both versions in one run): the first port's kernel (one warp a camera,
 // each lane walking its slots one after another with 21 strided scalar loads
 // a row) 15.8 us -> 7.2 us, 68% of the bound; after 64 MB of other traffic
-// 37 -> 16.5 us by events. Tried and set aside (tools/kernel_variants.py,
+// 37 -> 16.5 us by events. Tried and set aside (one build a variant,
 // device time, 7.2 us for the tree's kernel in that run): 256 threads a
 // camera 7.8 us, 128 threads 9.4, 1024 threads 8.8; 8 rows in flight 7.6, 32
-// rows 7.1; one slot a thread with scalar loads
-// (tools/variant_sources/reduce_slot_per_thread.cu), 128 or 256 threads a
+// rows 7.1; one slot a thread with scalar loads, 128 or 256 threads a
 // camera and 2 or 4 slots in flight, 9.5-9.9 us.
 
 // B8 cam_diag: S_v = sum over camera v's filled view slots o of
@@ -396,14 +395,6 @@ extern "C" int sfm_reduce_cam_w(const float* w, const float* y, const int* perm,
       reduce_cam_kernel<10, true><<<g, b, 0, s>>>(w, y, perm, mask, seg, O, rows, coup);
   }
   return static_cast<int>(cudaGetLastError());
-}
-
-// The [C, q] camera block: w21 (O, 21), y (O, 3) f32; perm (V * rows,) int32
-// and mask (V * rows,) bool -> coup (V, 7) f32.
-extern "C" int sfm_reduce_cam(const float* w21, const float* y, const int* perm,
-                              const unsigned char* mask, int O, int V, int rows,
-                              float* coup, void* stream) {
-  return sfm_reduce_cam_w(w21, y, perm, mask, nullptr, O, V, rows, 7, coup, stream);
 }
 
 // w (O, 3 * nc) f32, dinv (M, 3, 3) f32, point (O,) int32; perm and mask (S,),

@@ -46,13 +46,13 @@
 // the same run): 1920x2560 x 5 levels 314 -> 93 us, the base blur
 // (1920x2560, radius 4) 68 -> 25 us, 240x320 x 5 levels 13.3 -> 6.2 us.
 // That is 38% of the bound at 1920x2560. Of the 94 us there
-// (tools/kernel_variants.py, which takes parts out) 16 are the staging of the
+// (builds of the kernel with parts taken out) 16 are the staging of the
 // tiles (no other work of the block overlaps it), 5 the launch and
 // scheduling of 600 blocks, and the two passes take 36 and 35 us where their
 // FMAs need 17 and 14: 600 tiles on 264 block slots are 2.3 waves, the third
 // a quarter full.
 //
-// Tried on the card and set aside (same card, tools/kernel_variants.py,
+// Tried on the card and set aside (same card, one build a variant,
 // 1920x2560 x 5 levels unless said; 94 us for the tree's kernel in that run):
 // plain loads for the staging, each stored before the next is issued, 138 us
 // (the base blur 69 against 25); tiles 64 x 64, 32 x 64 and 64 x 32 at three

@@ -53,7 +53,7 @@
 //   or less), and two rows in one loop body overlap their latencies.
 //
 // Measured on an NVIDIA H100 80GB HBM3 at 700 W (device time under
-// torch.profiler, tools/profile_kernels.py and tools/kernel_variants.py, on
+// torch.profiler, tools/profile_kernels.py and builds of each tile, on
 // the DoG stacks of a rendered 960x1280 frame; the map kernel in the same
 // run): (5, 1920, 2560) 128 us for the map alone -> 52 us fused (57% of the
 // 30 us the 100 MB need), and the whole candidate stage (map kernel + four
@@ -61,7 +61,7 @@
 // 12 us, 480x640 9.5 -> 5.9 us, 240x320 4.0 -> 5.1 us, 120x160 4.8 us (one
 // wave either way; the fused kernel's warps run a chain of 10 row loads).
 //
-// Tried on the card and set aside (tools/kernel_variants.py, same card,
+// Tried on the card and set aside (one build a variant, same card,
 // (5, 1920, 2560) unless said): C = 4 (16-byte loads, 142-201 registers) 56-63
 // us at R = 8 and 58-72 at R = 16..32 (fewer warps an SM, then fewer warps
 // than slots); C = 1 60-66; <2, 8, 1> 53.7, <2, 16, 2> 52.9, <2, 8, 3> 57.9;
@@ -340,8 +340,8 @@ cudaError_t launch_block_max(const float* dog, int lanes, int H, int W, float co
 // 480x640, 240x320, 120x160): one tile, <2, 8, 2>, takes them all. It is
 // within 0.3 us of the best tile measured at every one of the five shapes
 // (52.5, 12.4, 5.9, 5.1, 4.8 us; the notes at the head of the file), so the
-// shape chooses nothing. The other values of C, R and U that the templates
-// take are built only by tools/kernel_variants.py, which replaces this line.
+// shape chooses nothing. The templates take other values of C, R and U, but
+// one tile serves every shape, so these are the only ones built.
 constexpr int kC = 2, kR = 8, kU = 2;
 
 }  // namespace

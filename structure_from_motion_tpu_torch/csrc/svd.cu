@@ -80,9 +80,10 @@
 // No float atomics, and every sum has a fixed order, so a launch gives the
 // same bits every time, and so does every replay of a captured graph.
 //
-// Measured on an NVIDIA H100 80GB HBM3 at 700 W (tools/kernel_variants.py
-// --only b7: CUDA-event time of one call, warm, the first design ("cyclic
-// Jacobi", tools/variant_sources/svd_cyclic_jacobi.cu) in the same run):
+// Measured on an NVIDIA H100 80GB HBM3 at 700 W (CUDA-event time of one
+// call, warm, the first design in the same run: a cyclic one-sided Jacobi
+// for every null vector, a tall matrix reduced by 256-row blocks in two to
+// four launches):
 // 2048 x 8 x 9 0.1016 -> 0.0094 ms (5.1-5.5 us device), 16 x 8 x 9 0.0844
 // -> 0.0085; 1024 x 12 x 12 0.2088-0.2092 -> 0.0544; 16 x 2048 x 9 0.0784
 // -> 0.0340 (its QR 8 us of 30 device, the 9 x 9 Jacobi the rest); 1 x

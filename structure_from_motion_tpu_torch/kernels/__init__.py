@@ -68,8 +68,6 @@ _SIGNATURES = {
     # huber, dtd, wblk, bp, rows, slot, U, bc, cost, stream
     "sfm_ba_blocks_lanes": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P, _P, _P, _P, _P,
                             _P, _P, _P, _P),
-    # w21, y, perm, mask, O, V, rows, coup, stream
-    "sfm_reduce_cam": (_P, _P, _P, _P, _I, _I, _I, _P, _P),
     # cam, w, x, O, V, width (7 or 10), t, stream
     "sfm_expand_cam_w": (_P, _P, _P, _I, _I, _I, _P, _P),
     # w, y, perm, mask, seg (or null), O, V, rows, width, coup, stream

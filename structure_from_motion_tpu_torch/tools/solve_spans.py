@@ -22,7 +22,8 @@ drifts within a run), then one solve with the spans on under
 * ``assembly_reads``: the host reads of the assembly and the packing a
   solve (``models/global_ba.host_reads``), over the blocks' solves;
 * ``site_us``: a span site's cost, ``off`` and ``on`` (no profiler), each
-  the mean of 10^5 entries;
+  the median of five blocks' means of 10^5 entries, the two sides' blocks
+  in turn;
 * ``profiled``: the profiled solve's ``wall_s``, the union of its device
   operations (``busy_s``) and its idle seconds (``idle_gaps``) by the
   innermost span around each gap's middle ("host" where none is).
@@ -55,18 +56,21 @@ def _solve(eng, blob: bytes, iterations: int) -> float:
 
 
 def site_us(n: int = 100_000) -> dict:
-    """Mean microseconds of an empty span, off and on (no profiler)."""
-    out = {}
-    for on in (False, True):
-        profiling.enable(on)
-        t0 = time.perf_counter_ns()
-        for _ in range(n):
-            with profiling.span("site"):
-                pass
-        out["on" if on else "off"] = (time.perf_counter_ns() - t0) / n / 1e3
+    """Microseconds of an empty span, off and on (no profiler): five blocks
+    of ``n`` entries a side, off and on in turn (the shared host's speed
+    drifts between blocks), each side the median of its blocks' means."""
+    means = {"off": [], "on": []}
+    for _ in range(5):
+        for side in means:
+            profiling.enable(side == "on")
+            t0 = time.perf_counter_ns()
+            for _ in range(n):
+                with profiling.span("site"):
+                    pass
+            means[side].append((time.perf_counter_ns() - t0) / n / 1e3)
+            profiling.reset()
     profiling.enable(False)
-    profiling.reset()
-    return out
+    return {side: float(np.median(v)) for side, v in means.items()}
 
 
 def span_summary(records: list, walls: list) -> dict:

@@ -3,8 +3,8 @@ the systems the frame path solves, at its shapes, and the cases its
 designs can get wrong. ``tests/test_torch_small_svd.py`` holds the plain
 version to the JAX package and numpy on :func:`cases`, and on the card the
 kernel to the plain version; ``chip_smoke.py`` runs :func:`cases` beside the
-slice's recorded inputs; ``tools/profile_kernels.py`` and
-``tools/kernel_variants.py`` time the kernel on :func:`slice_inputs`."""
+slice's recorded inputs; ``tools/profile_kernels.py`` times the kernel on
+:func:`slice_inputs`."""
 
 from __future__ import annotations
 

@@ -6,6 +6,7 @@ check the plain versions' semantics; ``chip_smoke.py`` holds the CUDA
 kernels against the same plain versions on the card."""
 
 import dataclasses
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -424,31 +425,16 @@ def test_cpu_tensors_take_the_plain_version():
         blur_cuda.blur_levels(torch.empty(8, 8, device="meta"), ks)
 
 
-def test_kernel_variants_still_find_their_text():
-    """``tools/kernel_variants.py`` makes its variants by substituting text
-    of ``csrc/blur.cu``, ``csrc/cand.cu``, ``csrc/ba_blocks.cu``,
-    ``csrc/ba_matvec.cu`` and ``csrc/svd.cu``; every substitution must still
-    find its text and change the source."""
-    from structure_from_motion_tpu_torch.tools import kernel_variants as kv
-
-    tree = (kernels.CSRC / "blur.cu").read_text()
-    for tile in kv.B1_TILES:
-        assert f"launch<{tile.partition('+')[0]}>" in kv.blur_source(tile)
-    sources = {kv.blur_source("256,64,128,8,8,2", pairs) for pairs in kv.B1_ABLATIONS.values()}
-    assert len(sources) == len(kv.B1_ABLATIONS) and tree not in sources
-    assert len({kv.reduce_source(v) for v in kv.B6_VARIANTS}) == len(kv.B6_VARIANTS)
-    for tile in kv.B2_TILES:
-        src = kv.cand_source(tile)
-        c, r, u = tile.split(",")[:3]
-        assert f"constexpr int kC = {c}, kR = {r}, kU = {u};" in src
-    sources = {kv.cand_source("2,8,2", pairs) for pairs in kv.B2_CHANGES.values()}
-    assert len(sources) == len(kv.B2_CHANGES)
-    assert len({kv.b4_source(pairs) for pairs in kv.B4_CHANGES.values()}) == len(kv.B4_CHANGES)
-    assert len({kv.cand_source(t) for t in kv.B2_TILES}) == len(kv.B2_TILES)
-    b7 = {kv.svd_source(pairs) for pairs in kv.B7_CHANGES.values()}
-    assert len(b7) == len(kv.B7_CHANGES) and kv.svd_source([]) not in b7
-    with pytest.raises(RuntimeError, match="no longer holds"):
-        kv.blur_source("256,64,128,8,8,2", [("not in the source", "")])
+def test_every_entry_point_has_one_signature():
+    """The ``extern "C"`` entry points of ``csrc/*.cu`` are the keys of
+    ``kernels._SIGNATURES``, each defined once and with as many parameters
+    as its argtypes name."""
+    found = {}
+    for path in sorted(kernels.CSRC.glob("*.cu")):
+        for m in re.finditer(r'extern "C"[^(]*?\b(\w+)\s*\(([^)]*)\)\s*\{', path.read_text()):
+            assert m.group(1) not in found, f"{m.group(1)} is defined twice"
+            found[m.group(1)] = len(m.group(2).split(","))
+    assert found == {name: len(args) for name, args in kernels._SIGNATURES.items()}
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
